@@ -4,15 +4,26 @@ Smoke run of the PyTorch/CUDA port (``neural_imaging_tpu_torch``) on one
 NVIDIA GPU:
 
 1. environment: the card, its power limit, TF32 off;
-2. build every hand-written CUDA kernel from ``neural_imaging_tpu_torch/csrc``;
+2. build every hand-written CUDA kernel from ``neural_imaging_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once) and the rANS coder from
+   ``native/ans``;
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, and time both (CUDA events, L2 flushed);
-4. drive the main path: restore the shipped ``m_quality`` run (INet → 4
-   manipulations → pool → JPEG QF 50 → FAN, full width) and answer requests of
-   raw 128-px patches with ``run_workflow_to_decisions``, counting kernel
-   launches; check the probabilities, and against the same forward on the CPU;
-5. print one JSON line of the kernels, then the last line
+   shapes its path gives it, and time both (CUDA events, L2 flushed): K1
+   (dJPEG core), K2 (codebook quantizer), K3 and K4 (its backwards);
+4. manipulation classification: restore the shipped ``m_quality`` run (INet
+   → 4 manipulations → pool → JPEG QF 50 → FAN, full width) and answer
+   requests of raw 128-px patches with ``run_workflow_to_decisions``; check
+   the probabilities, and against the same forward on the CPU;
+5. DCN serving: restore the 32c codec and answer requests of one 512x768
+   RGB image each, ``codec.compress`` → bytes → ``codec.decompress``; check
+   the bitstream round trip, and the latent and decode against the CPU;
+6. DCN training: steps of the 32c codec (fixed codebook, K2 + K3) and of a
+   trainable-codebook copy (K2 + K4) at batch 16 of 128-px patches;
+7. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Each path runs with every launch count set to 0 just before it and is read
+just after; a kernel of the path that did not launch fails the run.
 
     python3 chip_smoke.py [--seed 0] [--requests 5] [--batch 20]
 
@@ -28,14 +39,22 @@ import time
 import numpy as np
 import torch
 
+from neural_imaging_tpu_torch.compression import codec, entropy
+from neural_imaging_tpu_torch.models import base, compression
 from neural_imaging_tpu_torch.models.jpeg import qtables
-from neural_imaging_tpu_torch.ops.hopper import _build, jpeg8x8
+from neural_imaging_tpu_torch.ops import quantization as quant
+from neural_imaging_tpu_torch.ops.hopper import _build, codebook, jpeg8x8
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
     ManipulationClassification, compare_probabilities)
 
 RUN_DIR = 'data/m_quality/QualityRef/INet/fixed-nip/fixed-codec/000'
 RAW_PATCH = 128
+DCN_PRESET = '32c'
+DCN_IMAGE = (512, 768)          # one serving request: 64 x 96 x 32 latent, N = 196,608
+DCN_BATCH, DCN_PATCH = 16, 128  # one training step: 16 x 16 x 16 x 32 latent, N = 131,072
+DCN_LR = 1e-4
+DCN_REQUESTS, DCN_STEPS, DCN_TRAIN_CODEBOOK_STEPS = 5, 5, 3
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
 # kernel's work is the larger of bytes / memory rate and FLOPs / peak rate.
@@ -44,6 +63,24 @@ F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 # K1 per pixel: 4 passes of 8-term dot products (8 FMA = 16 FLOP each) plus
 # divide, round and multiply
 K1_FLOP_PER_PIXEL = 4 * 16 + 3
+# K2-K4 are bound by instructions, most of them inside the accurate log1pf,
+# expf and IEEE divisions. Assumed costs, in FP32-pipe instructions: log1pf
+# 20, expf 8, a division 10 (each includes one MUFU op, which the 16-lane
+# MUFU pipe absorbs alongside), any other add, multiply, FMA, compare,
+# select or warp shuffle 1. The FP32 pipe issues 132 SMs x 128 lanes x
+# 1.98 GHz = 33.45 T instructions/s (the 67 TFLOP/s f32 rate, an FMA being
+# 2 FLOP). Per value and codeword:
+LOG1P, EXP, DIV = 20, 8, 10
+LOGW = 4 + DIV + LOG1P                      # sub, 2 mul, div, log1p, mul
+LOGW_DLOGW = 6 + 2 * DIV + LOG1P            # ... plus add, mul, div
+ARGMAX_PASS = LOGW + 3                      # compare, 2 selects
+K2_PER_CODE = ARGMAX_PASS + LOGW + 3 + EXP  # sub, exp, add, fma
+SUMS_PASS = LOGW_DLOGW + 6 + EXP            # sub, exp, 4 accumulations
+K3_PER_CODE = ARGMAX_PASS + SUMS_PASS
+K4_PER_CODE = K3_PER_CODE + LOGW_DLOGW + EXP + DIV + 5 + 10  # pass 3 + 5 shuffles, 5 adds
+# per value, outside the codeword loops
+K2_PER_VALUE, K3_PER_VALUE, K4_PER_VALUE = DIV + 2, 2 * DIV + 5, 3 * DIV + 10
+F32_INSTR_PER_S = 132 * 128 * 1.98e9
 
 
 def synthetic_raw(seed, n, patch):
@@ -58,6 +95,18 @@ def synthetic_raw(seed, n, patch):
     noise = torch.from_numpy(rng.standard_normal((n, 4, patch, patch)).astype(np.float32))
     x = (smooth + 0.01 * noise).clamp(0, 1) ** 2.2
     return x.permute(0, 2, 3, 1).contiguous().numpy()
+
+
+def synthetic_rgb(seed, n, height, width):
+    """(n, height, width, 3) RGB in [0, 1]: a smooth random field (bilinear
+    over 32-px cells) plus light noise, a photo-like input for the codec."""
+    rng = np.random.default_rng(seed)
+    coarse = torch.from_numpy(rng.random((n, 3, height // 32 + 1, width // 32 + 1))
+                              .astype(np.float32))
+    smooth = torch.nn.functional.interpolate(coarse, size=(height, width), mode='bilinear',
+                                             align_corners=True)
+    noise = torch.from_numpy(rng.standard_normal((n, 3, height, width)).astype(np.float32))
+    return (smooth + 0.02 * noise).clamp(0, 1).permute(0, 2, 3, 1).contiguous().numpy()
 
 
 def time_ms(fn, reps, flush):
@@ -104,6 +153,199 @@ def check_k1(name, planes, q, reps, flush):
     return record
 
 
+def bound(bytes_moved, instructions):
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = instructions / F32_INSTR_PER_S * 1e3
+    return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
+
+
+def timed_record(shape, n, kernel, plain, bytes_moved, instructions, reps, flush, **report):
+    """A kernel's record at one shape: its time and its plain version's, its
+    bound, and the agreement ``report``."""
+    bound_ms, bound_by = bound(bytes_moved, instructions)
+    return {'shape': shape, 'n': n, 'ms': time_ms(kernel, reps, flush),
+            'plain_ms': time_ms(plain, reps, flush), 'bound_ms': bound_ms,
+            'bound_by': bound_by, **report}
+
+
+def check_codebook(name, n, reps, flush, gen, device):
+    """K2 at N values, and K3 and K4 with it where ``name`` is a training
+    shape, against their plain versions on the card; returns their records."""
+    cb = torch.from_numpy(quant.default_codebook(5)).to(device)
+    n_codes = cb.numel()
+    z = (torch.randn(n, generator=gen) * 4).to(device)
+    soft, hard = codebook.codebook_fwd_cuda(z, cb)
+    k2 = codebook.check_forward(soft, hard, *codebook.codebook_fwd_plain(z, cb), cb)
+    records = {'codebook_fwd': timed_record(
+        name, n, lambda: codebook.codebook_fwd_cuda(z, cb),
+        lambda: codebook.codebook_fwd_plain(z, cb), 12 * n + 4 * n_codes,
+        n * (n_codes * K2_PER_CODE + K2_PER_VALUE), reps, flush,
+        max_abs_err=k2['max_abs_err'], index_flip_share=k2['index_flips'] / n)}
+    if name.startswith('training'):
+        g = torch.randn(n, generator=gen).to(device)
+        pc = torch.randn(n_codes, generator=gen).to(device)
+        dz_scale, _ = codebook.backward_error_scale(z, g, cb, pc)
+        k3 = codebook.check_backward(codebook.codebook_bwd_cuda(z, g, cb, pc),
+                                     codebook.codebook_bwd_plain(z, g, cb, pc), dz_scale)
+        records['codebook_bwd'] = timed_record(
+            name, n, lambda: codebook.codebook_bwd_cuda(z, g, cb, pc),
+            lambda: codebook.codebook_bwd_plain(z, g, cb, pc), 12 * n + 8 * n_codes,
+            n * (n_codes * K3_PER_CODE + K3_PER_VALUE), reps, flush, **k3)
+        cb_off = cb + 0.05        # non-integer codewords: a nontrivial dcb
+        dz, dcb = codebook.codebook_bwd_train_cuda(z, g, cb_off, pc)
+        dz_ref, dcb_ref = codebook.codebook_bwd_train_plain(z, g, cb_off, pc)
+        dz_scale, dcb_scale = codebook.backward_error_scale(z, g, cb_off, pc)
+        k4 = [codebook.check_backward(dz, dz_ref, dz_scale),
+              codebook.check_backward(dcb, dcb_ref, dcb_scale, 'dcb')]
+        records['codebook_bwd_train'] = timed_record(
+            name, n, lambda: codebook.codebook_bwd_train_cuda(z, g, cb_off, pc),
+            lambda: codebook.codebook_bwd_train_plain(z, g, cb_off, pc), 12 * n + 12 * n_codes,
+            n * (n_codes * K4_PER_CODE + K4_PER_VALUE), reps, flush,
+            **{key: max(r[key] for r in k4) for key in k4[0]})
+    for kernel, r in records.items():
+        agreement = (f'index flips {r["index_flip_share"]:.3g}' if 'index_flip_share' in r
+                     else f'{r["max_eps_of_scale"]:.3g} eps of the terms\' scale')
+        print(f'[{kernel}] {name}: N={n} L={n_codes} max|err| {r["max_abs_err"]:.3g} '
+              f'({agreement}); kernel {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
+              f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})', flush=True)
+    return records
+
+
+COUNTERS = {'jpeg8x8': jpeg8x8.jpeg_core_cuda,
+            'codebook_fwd': codebook.codebook_fwd_cuda,
+            'codebook_bwd': codebook.codebook_bwd_cuda,
+            'codebook_bwd_train': codebook.codebook_bwd_train_cuda}
+
+
+def zero_counts():
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: wrapper.launches for name, wrapper in COUNTERS.items()}
+
+
+def expect_counts(path, counts, expected):
+    """Fail unless the path launched exactly ``expected`` of each kernel."""
+    if counts != {name: expected.get(name, 0) for name in COUNTERS}:
+        raise AssertionError(f'{path}: launches {counts}, expected {expected}')
+
+
+def dcn_serving(args, device):
+    """Answer requests of one 512x768 image each through the bitstream;
+    returns (launch counts, results)."""
+    dcn = codec.restore(DCN_PRESET, device=device)
+    height, width = DCN_IMAGE
+    images = [synthetic_rgb(args.seed + 100 + i, 1, height, width)
+              for i in range(DCN_REQUESTS)]
+    codec.decompress(codec.compress(images[0], dcn), dcn)     # warm-up (cuDNN autotuning)
+    torch.cuda.synchronize()
+    zero_counts()
+    latencies, sizes, decoded = [], [], []
+    for i, image in enumerate(images):
+        before = read_counts()['codebook_fwd']
+        t0 = time.perf_counter()
+        blob = codec.compress(image, dcn)
+        decoded.append(codec.decompress(blob, dcn))
+        latencies.append(time.perf_counter() - t0)
+        sizes.append(len(blob))
+        launched = read_counts()['codebook_fwd'] - before
+        print(f'[dcn serve] request {i}: {height}x{width} → {len(blob)} bytes '
+              f'({8 * len(blob) / (height * width):.4f} bpp) → image in '
+              f'{1e3 * latencies[-1]:.2f} ms, K2 launches {launched}', flush=True)
+    counts = read_counts()
+    expect_counts('DCN serving', counts, {'codebook_fwd': DCN_REQUESTS})
+    for y in decoded:
+        if y.shape != (1, height, width, 3) or not np.isfinite(y).all() \
+                or y.min() < 0 or y.max() > 1:
+            raise AssertionError(f'bad decoded image: shape {y.shape}')
+
+    direct, coded = codec.compare(dcn, images[0])   # raises unless the indices round-trip
+    bitstream_diff = float(np.abs(direct - coded).max())
+    if not bitstream_diff <= compression.MAX_DECODE_DIFF:
+        raise AssertionError(f'bitstream decode differs from the direct decode by '
+                             f'{bitstream_diff}')
+    cpu = codec.restore(DCN_PRESET, device='cpu')
+    z_card = dcn.compress(images[0]).cpu()
+    z_cpu = cpu.compress(images[0])
+    latent = compression.compare_latents(z_card, z_cpu, dcn.get_codebook())
+    same_latent = compression.compare_decodes(dcn.decompress(z_card).cpu(),
+                                              cpu.decompress(z_card))
+    end_to_end = np.abs(decoded[0] - codec.decompress(codec.compress(images[0], cpu), cpu))
+    median = float(np.median(latencies))
+    results = {'requests': DCN_REQUESTS, 'image': list(DCN_IMAGE),
+               'latency_ms': [1e3 * t for t in latencies], 'median_ms': 1e3 * median,
+               'images_per_s': 1 / median, 'bytes': sizes,
+               'bpp': [8 * b / (height * width) for b in sizes],
+               'bitstream_vs_direct_max_abs': bitstream_diff,
+               'cpu_latent_flips': latent['flipped'], 'cpu_latent_n': latent['n'],
+               'cpu_same_latent_decode_max_abs': same_latent,
+               'cpu_end_to_end_max_abs': float(end_to_end.max()),
+               'cpu_end_to_end_mean_abs': float(end_to_end.mean())}
+    print(f'[dcn serve] median request {1e3 * median:.2f} ms ({1 / median:.2f} images/s); '
+          f'bitstream vs direct decode max |dy| {bitstream_diff:.3g}; against the CPU: '
+          f'{latent["flipped"]}/{latent["n"]} latent indices differ, same latent decoded '
+          f'max |dy| {same_latent:.3g}, end to end max |dy| {end_to_end.max():.3g} '
+          f'mean {end_to_end.mean():.3g}', flush=True)
+    return counts, results
+
+
+def dcn_training(args, device):
+    """Training steps of the 32c codec (fixed codebook), then of a
+    trainable-codebook copy from the same weights; returns (counts of the
+    fixed run, counts of the trainable run, results)."""
+    batches = [synthetic_rgb(args.seed + 200 + i, DCN_BATCH, DCN_PATCH, DCN_PATCH)
+               for i in range(DCN_STEPS + 1)]
+
+    def run(dcn, label, steps, expected_backward):
+        dcn.training_step(batches[0], DCN_LR)                 # warm-up (cuDNN autotuning)
+        torch.cuda.synchronize()
+        zero_counts()
+        times, outs = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            out = dcn.training_step(batches[1 + i % DCN_STEPS], DCN_LR)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            outs.append({k: float(v) for k, v in out.items()})
+            print(f'[dcn train] {label} step {i}: {1e3 * times[-1]:.2f} ms, '
+                  f'loss {outs[-1]["loss"]:.4f} ssim {outs[-1]["ssim"]:.4f} '
+                  f'entropy {outs[-1]["entropy"]:.4f}', flush=True)
+        counts = read_counts()
+        expect_counts(f'DCN training ({label})', counts,
+                      {'codebook_fwd': steps, expected_backward: steps})
+        if not all(np.isfinite(v) for o in outs for v in o.values()):
+            raise AssertionError(f'{label}: non-finite training outputs {outs}')
+        median = float(np.median(times))
+        return counts, {'step_ms': [1e3 * t for t in times], 'median_ms': 1e3 * median,
+                        'patches_per_s': DCN_BATCH / median, 'outputs': outs}
+
+    fixed = codec.restore(DCN_PRESET, patch_size=DCN_PATCH, device=device)
+    fixed_counts, fixed_results = run(fixed, 'fixed codebook', DCN_STEPS, 'codebook_bwd')
+
+    trainable = compression.TwitterDCN(patch_size=DCN_PATCH, train_codebook=True,
+                                       device=device)
+    state = base.convert_params(base.load_flax_npz(
+        base.REPO_ROOT / 'data/models/dcn/baselines' / DCN_PRESET / 'twitterdcn/twitterdcn.npz'))
+    state['codebook'] = torch.from_numpy(quant.default_codebook(5))
+    trainable.module.load_state_dict(state, strict=True)
+    trainable.init_optimizer()
+    before = trainable.get_codebook().copy()
+    train_counts, train_results = run(trainable, 'trainable codebook',
+                                      DCN_TRAIN_CODEBOOK_STEPS, 'codebook_bwd_train')
+    moved = float(np.abs(trainable.get_codebook() - before).max())
+    if not moved > 0:
+        raise AssertionError('the trainable codebook did not move')
+    print(f'[dcn train] fixed codebook: median step {fixed_results["median_ms"]:.2f} ms '
+          f'({fixed_results["patches_per_s"]:.1f} patches/s); trainable codebook: median '
+          f'{train_results["median_ms"]:.2f} ms, codebook moved by up to {moved:.3g}',
+          flush=True)
+    return fixed_counts, train_counts, {'batch': DCN_BATCH, 'patch': DCN_PATCH, 'lr': DCN_LR,
+                                        'fixed': fixed_results, 'trainable': train_results,
+                                        'codebook_moved_max_abs': moved}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -130,15 +372,16 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    libraries = _build.build([jpeg8x8.LIBRARY])
-    print(f'[build] {len(libraries)} kernel library(ies) in {time.perf_counter() - t0:.1f} s',
-          flush=True)
+    libraries = _build.build([jpeg8x8.LIBRARY, codebook.LIBRARY])
+    ans = entropy.build()
+    print(f'[build] {len(libraries)} kernel libraries and {ans.name} in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
     for path in libraries.values():
         log = path.with_suffix('.log')
         if log.exists():
             print('[build] ' + log.read_text().strip().replace('\n', '\n[build] '), flush=True)
 
-    # 3. kernels against their plain versions at the main path's shapes
+    # 3. kernels against their plain versions at their paths' shapes
     flow = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, device=device)
     n_rows = args.batch * flow.n_classes
     side = 2 * RAW_PATCH
@@ -152,12 +395,16 @@ def main():
         q_luma, q_chroma = qtables(int(quality), device)
         q = torch.stack([q_luma, q_chroma, q_chroma]).repeat(p // 3, 1, 1).contiguous()
         k1.append(check_k1(name, planes, q, args.reps, flush))
+    k234 = {'serving': check_codebook('serving 512x768', DCN_IMAGE[0] * DCN_IMAGE[1] // 2,
+                                      args.reps, flush, gen, device),
+            'training': check_codebook('training 16x128^2', DCN_BATCH * DCN_PATCH ** 2 // 2,
+                                       args.reps, flush, gen, device)}
 
-    # 4. the main path
+    # 4. manipulation classification
     batches = [synthetic_raw(args.seed + i, args.batch, RAW_PATCH) for i in range(args.requests)]
     flow.run_workflow_to_decisions(batches[0])          # warm-up (cuDNN autotuning, caches)
     torch.cuda.synchronize()
-    jpeg8x8.jpeg_core_cuda.launches = 0
+    zero_counts()
     latencies, decisions = [], []
     for i, batch in enumerate(batches):
         before = jpeg8x8.jpeg_core_cuda.launches
@@ -170,9 +417,8 @@ def main():
               f'K1 launches {launched}', flush=True)
         if launched != 2:
             raise AssertionError(f'request {i} launched K1 {launched} times, expected 2')
-    launches = {'jpeg8x8': jpeg8x8.jpeg_core_cuda.launches}
-    if launches['jpeg8x8'] == 0:
-        raise AssertionError('the main path never launched K1')
+    slice_counts = read_counts()
+    expect_counts('manipulation classification', slice_counts, {'jpeg8x8': 2 * args.requests})
     median = float(np.median(latencies))
     print(f'[slice] median request {1e3 * median:.2f} ms: {args.batch / median:.1f} raw patches/s, '
           f'{n_rows / median:.1f} classified images/s', flush=True)
@@ -191,7 +437,14 @@ def main():
     print(f'[slice] request 0 vs the CPU: max |dp| {report["max_abs_diff"]:.3g}, '
           f'{report["decided_rows"]}/{report["rows"]} decided rows agree', flush=True)
 
-    # 5. results: K1's numbers are its two launches of one request, summed
+    # 5.-6. the DCN paths
+    serve_counts, serving = dcn_serving(args, device)
+    fixed_counts, train_counts, training = dcn_training(args, device)
+    print('[dcn] ' + json.dumps({'serving': serving, 'training': training,
+                                 'kernel_shapes': k234}), flush=True)
+
+    # 7. results: K1's numbers are its two launches of one request, summed;
+    # K2's are at the serving shape, K3's and K4's at the training shape
     print('[slice] ' + json.dumps({
         'requests': args.requests, 'batch': args.batch,
         'latency_ms': [1e3 * t for t in latencies], 'raw_patches_per_s': args.batch / median,
@@ -200,7 +453,7 @@ def main():
     kernels = [{'name': 'jpeg8x8', 'route': 'cuda',
                 'source': 'neural_imaging_tpu_torch/csrc/jpeg8x8.cu',
                 'replaces': 'neural_imaging_tpu/ops/pallas/jpeg8x8.py:34',
-                'launches': launches['jpeg8x8'],
+                'launches': slice_counts['jpeg8x8'],
                 'max_abs_err': max(r['max_abs_err'] for r in k1),
                 'ms': sum(r['ms'] for r in k1),
                 'plain_ms': sum(r['plain_ms'] for r in k1),
@@ -208,6 +461,20 @@ def main():
                 'bound_by': ('bytes' if all(r['bound_by'] == 'bytes' for r in k1)
                              else 'operations'),
                 'library_ms': None}]
+    launches = {'codebook_fwd': serve_counts['codebook_fwd'] + fixed_counts['codebook_fwd']
+                + train_counts['codebook_fwd'],
+                'codebook_bwd': fixed_counts['codebook_bwd'],
+                'codebook_bwd_train': train_counts['codebook_bwd_train']}
+    for name, replaces, shape in (('codebook_fwd', 51, 'serving'),
+                                  ('codebook_bwd', 137, 'training'),
+                                  ('codebook_bwd_train', 231, 'training')):
+        r = k234[shape][name]
+        kernels.append({'name': name, 'route': 'cuda',
+                        'source': 'neural_imaging_tpu_torch/csrc/codebook.cu',
+                        'replaces': f'neural_imaging_tpu/ops/pallas/codebook.py:{replaces}',
+                        'launches': launches[name], 'max_abs_err': r['max_abs_err'],
+                        'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+                        'bound_by': r['bound_by'], 'library_ms': None})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}))

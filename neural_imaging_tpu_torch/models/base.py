@@ -5,13 +5,85 @@ A checkpoint is ``<dir>/<class>.npz`` of flax parameter paths (``conv0/kernel``,
 ``head/bias``, …) with HWIO conv kernels and Dense kernels of shape (in, out).
 :func:`convert_params` turns such a file into a PyTorch ``state_dict``; that is
 how weights trained by the JAX package are carried into the port.
+:func:`restore` builds a model from a training directory or a preset name,
+as the JAX package's ``models.base.restore`` does.
 """
+import ast
+import json
+import math
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
+from torch import nn
 
 from neural_imaging_tpu_torch.utils.device import resolve_device
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
+PRESETS_ROOT = REPO_ROOT / 'config' / 'presets'
+
+
+def restore(dir_name, module, key=None, patch_size=None, device='cuda',
+            presets_root=PRESETS_ROOT):
+    """Restore a trained model from a training directory or a preset name.
+
+    A name that is not a directory is looked up in
+    ``<presets_root>/<module's last name>.json`` (e.g. ``compression.json``:
+    ``'32c'`` → ``data/models/dcn/baselines/32c``, relative to the repo
+    root). The last ``*.json`` log found under the directory names the class
+    (``training_log['model']``, nested under ``key`` where given) and its
+    constructor arguments (``'args'``); the model is built from ``module``
+    with those and ``patch_size`` on ``device``, and its weights are loaded."""
+    if dir_name is None:
+        raise ValueError('model directory cannot be None')
+    if not os.path.exists(dir_name):
+        preset_file = Path(presets_root) / f"{module.__name__.split('.')[-1]}.json"
+        if not preset_file.is_file():
+            raise ValueError(f'Directory {dir_name} does not exist (presets not available)!')
+        presets = json.loads(preset_file.read_text())
+        if dir_name not in presets:
+            raise ValueError(f'Directory {dir_name} does not exist & key not found in presets!')
+        dir_name = os.path.join(REPO_ROOT, presets[dir_name])
+
+    training_log_path = None
+    for filename in Path(dir_name).glob('**/*.json'):
+        training_log_path = filename
+    if training_log_path is None:
+        raise FileNotFoundError(f'Could not find a training log (JSON file) in {dir_name}')
+    training_log = json.loads(training_log_path.read_text())
+    if key is not None and key in training_log:
+        training_log = training_log[key]
+
+    parameters = _parse_tuple_args(dict(training_log['args'] or {}))
+    parameters['patch_size'] = patch_size
+    model = getattr(module, training_log['model'])(**parameters, device=device)
+    model.load_model(str(dir_name))
+    return model
+
+
+def _parse_tuple_args(parameters):
+    """JSON stores tuple arguments as strings like '(32, 32)'; parse them back."""
+    out = {}
+    for k, v in parameters.items():
+        if isinstance(v, str) and len(v) >= 2 and v[0] == '(' and v[-1] == ')':
+            try:
+                out[k] = ast.literal_eval(v)
+                continue
+            except (ValueError, SyntaxError):
+                pass
+        out[k] = v
+    return out
+
+
+def flax_default_init(module, fan_in, generator):
+    """flax's default init of a conv or dense ``module``: LeCun-normal weight
+    (truncated at 2σ), zero bias."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+        module.bias.zero_()
+    return module
 
 
 def load_flax_npz(filename):
@@ -26,7 +98,8 @@ def convert_params(flax_flat):
     Paths map '/' → '.', and a last component 'kernel' becomes 'weight'.
     Every 4-D array is an HWIO conv kernel and becomes OIHW; every 2-D array
     is a Dense kernel (in, out) and becomes (out, in); other arrays pass
-    unchanged. Values are float32 tensors on the CPU."""
+    unchanged (a 0-d ``latent_scale``, a 1-d ``codebook``). Values are
+    float32 tensors on the CPU."""
     state = {}
     for path, value in flax_flat.items():
         parts = path.split('/')

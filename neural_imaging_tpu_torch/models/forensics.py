@@ -7,13 +7,11 @@ The constrained filter is renormalized on every forward pass: its off-center
 mass is scaled to ``filter_strength`` per output channel and the center tap
 pinned to minus that, so the constraint holds exactly throughout training.
 """
-import math
-
 import numpy as np
 import torch
 from torch import nn
 
-from neural_imaging_tpu_torch.models.base import TorchModel
+from neural_imaging_tpu_torch.models.base import TorchModel, flax_default_init
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops.kernels import center_mask_2dfilter, repeat_2dfilter
 
@@ -45,15 +43,6 @@ class ConstrainedConv(nn.Module):
                           padding='VALID')
 
 
-def _dense_init(module, fan_in, generator):
-    """flax's default init: LeCun-normal kernel (truncated at 2σ), zero bias."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-        module.bias.zero_()
-    return module
-
-
 class FANCore(nn.Module):
     """Constrained conv → N × [conv 'SAME' + leaky ReLU + 2x2 max-pool] → 1x1
     conv → GAP (or NHWC-order flatten) → dense stack → softmax. NCHW input."""
@@ -73,10 +62,11 @@ class FANCore(nn.Module):
 
         def conv(name, cin, cout, k):
             m = nn.utils.skip_init(nn.Conv2d, cin, cout, k, padding='same')
-            setattr(self, name, _dense_init(m, cin * k * k, g))
+            setattr(self, name, flax_default_init(m, cin * k * k, g))
 
         def dense(name, fin, fout):
-            setattr(self, name, _dense_init(nn.utils.skip_init(nn.Linear, fin, fout), fin, g))
+            m = nn.utils.skip_init(nn.Linear, fin, fout)
+            setattr(self, name, flax_default_init(m, fin, g))
 
         cin, nf = 3, n_filters
         for i in range(n_convolutions):

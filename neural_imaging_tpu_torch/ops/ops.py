@@ -1,9 +1,9 @@
 """
 Core differentiable ops on NCHW tensors: convolutions with HWIO kernels,
 TF-order depth_to_space, padding, pooling, the clipping straight-through
-estimator and the activations. Port of the parts of
-``neural_imaging_tpu/ops/ops.py`` that the manipulation-classification
-forward path uses.
+estimator, the activations, batch normalization to float and the L2 loss.
+Port of the parts of ``neural_imaging_tpu/ops/ops.py`` that the
+manipulation-classification forward path and the DCN use.
 
 The reference's exact-f32 conv variants (``small_conv2d``, ``conv_chw``) are
 TPU layouts of the same f32 convolution, so here they are all
@@ -18,22 +18,27 @@ def hwio_to_oihw(kernel):
     return torch.tensor(kernel, dtype=torch.float32).permute(3, 2, 0, 1).contiguous()
 
 
-def _same_pads(kh, kw):
-    """(left, right, top, bottom) of TF 'SAME' padding at stride 1."""
-    ph, pw = (kh - 1) // 2, (kw - 1) // 2
-    return pw, kw - 1 - pw, ph, kh - 1 - ph
+def _same_pads(size, k, stride):
+    """(low, high) zero padding of TF 'SAME' along one axis: the output has
+    ceil(size / stride) samples, and an odd total puts the extra pixel at the
+    bottom/right (so a 5-tap kernel at stride 2 on an even size pads (1, 2))."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
 
 
-def conv2d(x, weight, padding='SAME'):
-    """Stride-1 f32 conv of NCHW ``x`` with an OIHW ``weight`` tensor.
+def conv2d(x, weight, padding='SAME', stride=1, bias=None):
+    """f32 conv of NCHW ``x`` with an OIHW ``weight`` tensor (and an optional
+    per-channel ``bias``).
 
-    ``padding``: 'SAME' (TF semantics: zero padding, the extra pixel of an
-    even kernel at the bottom/right) or 'VALID'."""
+    ``padding``: 'SAME' (TF semantics at any stride: zero padding, the extra
+    pixel at the bottom/right) or 'VALID'."""
     if padding == 'SAME':
-        x = F.pad(x, _same_pads(*weight.shape[-2:]))
+        top, bottom = _same_pads(x.shape[-2], weight.shape[-2], stride)
+        left, right = _same_pads(x.shape[-1], weight.shape[-1], stride)
+        x = F.pad(x, (left, right, top, bottom))
     elif padding != 'VALID':
         raise ValueError(f'Unsupported padding {padding!r}')
-    return F.conv2d(x, weight)
+    return F.conv2d(x, weight, bias, stride)
 
 
 def depthwise_conv2d(x, k2d, pad_mode='reflect'):
@@ -98,6 +103,21 @@ def st_clip(x, lo=0.0, hi=1.0):
     """Clip in the forward pass, identity gradient (the reference's exact form,
     so forward values match it to the bit)."""
     return (torch.clamp(x, lo, hi) - x).detach() + x
+
+
+def normalize_batch(x):
+    """uint8 / uint16 batches → float32 in [0, 1] (÷ 255, ÷ 65535, the same f32
+    divide as the reference); float batches are cast to float32."""
+    if x.dtype == torch.uint8:
+        return x.to(torch.float32) / 255.0
+    if x.dtype == torch.uint16:
+        return x.to(torch.float32) / 65535.0
+    return x.to(torch.float32)
+
+
+def l2_loss(x):
+    """0.5 * sum(x**2), the DCN objective's ``tf.nn.l2_loss`` convention."""
+    return 0.5 * torch.sum(torch.square(x))
 
 
 def leaky_relu(x):

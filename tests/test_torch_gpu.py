@@ -3,14 +3,16 @@ one; on a GPU machine, which has no JAX, run them without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-The kernel is held against its plain PyTorch version on the same inputs,
-with the tolerance of ``jpeg8x8.check_cores``."""
+Each kernel is held against its plain PyTorch version on the same inputs,
+with the tolerance of ``jpeg8x8.check_cores`` (K1) and of
+``codebook.check_forward`` / ``codebook.check_backward`` (K2-K4)."""
 import numpy as np
 import pytest
 import torch
 
 from neural_imaging_tpu_torch.compression.jpeg_helpers import jpeg_qtable
-from neural_imaging_tpu_torch.ops.hopper import jpeg8x8
+from neural_imaging_tpu_torch.ops import quantization as quant
+from neural_imaging_tpu_torch.ops.hopper import codebook, jpeg8x8
 
 pytestmark = pytest.mark.gpu
 
@@ -61,3 +63,66 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         jpeg8x8.jpeg_core_cuda(planes.transpose(1, 2), q)
     with pytest.raises(ValueError, match='one CUDA device'):
         jpeg8x8.jpeg_core_cuda(planes, q.cpu())
+
+
+def codebook_inputs(seed, n, bpf, device, offset=0.0):
+    rng = np.random.default_rng(seed)
+    cb = quant.default_codebook(bpf) + offset
+    arrays = (rng.standard_normal(n) * 2 ** (bpf - 2), rng.standard_normal(n), cb,
+              rng.standard_normal(cb.size))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+# ragged N (1, 255, 777), the DCN's training and serving latents, and an N
+# past the grid cap (1024 blocks of 256) that exercises the grid-stride loop;
+# L from 16 to 256 codewords
+@pytest.mark.parametrize('n,bpf', [(1, 5), (255, 5), (777, 4), (131072, 5), (196608, 5),
+                                   (300001, 8)])
+@pytest.mark.parametrize('v,gamma', [(50.0, 25.0), (0.0, 5.0)])
+def test_codebook_kernels_match_plain(cuda, n, bpf, v, gamma):
+    z, g, cb, pc = codebook_inputs(n + bpf, n, bpf, cuda, offset=0.05)
+    counts = [f.launches for f in (codebook.codebook_fwd_cuda, codebook.codebook_bwd_cuda,
+                                   codebook.codebook_bwd_train_cuda)]
+    soft, hard = codebook.codebook_fwd_cuda(z, cb, v, gamma)
+    dz3 = codebook.codebook_bwd_cuda(z, g, cb, pc, v, gamma)
+    dz4, dcb = codebook.codebook_bwd_train_cuda(z, g, cb, pc, v, gamma)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (codebook.codebook_fwd_cuda, codebook.codebook_bwd_cuda,
+                                 codebook.codebook_bwd_train_cuda)] == [c + 1 for c in counts]
+    codebook.check_forward(soft, hard, *codebook.codebook_fwd_plain(z, cb, v, gamma), cb)
+    dz_scale, dcb_scale = codebook.backward_error_scale(z, g, cb, pc, v, gamma)
+    codebook.check_backward(dz3, codebook.codebook_bwd_plain(z, g, cb, pc, v, gamma), dz_scale)
+    dz_ref, dcb_ref = codebook.codebook_bwd_train_plain(z, g, cb, pc, v, gamma)
+    codebook.check_backward(dz4, dz_ref, dz_scale)
+    codebook.check_backward(dcb, dcb_ref, dcb_scale, 'dcb')
+    # K4's reduction has a fixed order: the same inputs give the same bits
+    assert torch.equal(codebook.codebook_bwd_train_cuda(z, g, cb, pc, v, gamma)[1], dcb)
+
+
+@pytest.mark.parametrize('trainable', [False, True])
+def test_fused_quantizer_launches_its_kernels_on_the_card(cuda, trainable):
+    z, _, cb, _ = codebook_inputs(3, 4096, 5, cuda, offset=0.05 if trainable else 0.0)
+    z = z.reshape(4, 8, 8, 16).requires_grad_()
+    cb.requires_grad_(trainable)
+    backward = codebook.codebook_bwd_train_cuda if trainable else codebook.codebook_bwd_cuda
+    before = codebook.codebook_fwd_cuda.launches, backward.launches
+    q, h, _ = codebook.quantize_with_entropy_fused(z, cb, trainable=trainable)
+    (0.001 * (q ** 2).sum() + 10.0 * h).backward()
+    assert (codebook.codebook_fwd_cuda.launches, backward.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    q_ref, h_ref, _ = quant.quantize_with_entropy(z.detach(), cb.detach())
+    # (hard − soft) + soft: within a float32 ulp of a codeword of magnitude <= 16
+    torch.testing.assert_close(q, q_ref, rtol=0, atol=4e-6)
+    assert bool(torch.isfinite(z.grad).all()) and (cb.grad is not None) == trainable
+
+
+def test_codebook_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    z, g, cb, pc = codebook_inputs(4, 1024, 5, cuda)
+    with pytest.raises(ValueError, match='contiguous'):
+        codebook.codebook_fwd_cuda(z[::2], cb)
+    with pytest.raises(ValueError, match='one CUDA device'):
+        codebook.codebook_bwd_cuda(z, g, cb.cpu(), pc)
+    with pytest.raises(ValueError, match='CUDA'):
+        codebook.codebook_bwd_train_cuda(z.cpu(), g.cpu(), cb.cpu(), pc.cpu())
+    with pytest.raises(ValueError, match='must match'):
+        codebook.codebook_bwd_cuda(z, g[:-1], cb, pc)

@@ -7,11 +7,13 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import neural_imaging_tpu_torch
-from neural_imaging_tpu_torch.models import forensics, jpeg, pipelines
+from neural_imaging_tpu_torch.compression import codec
+from neural_imaging_tpu_torch.models import base, compression, forensics, jpeg, pipelines
 from neural_imaging_tpu_torch.utils import device as device_utils
 from neural_imaging_tpu_torch.workflows import manipulation_classification
 
@@ -31,7 +33,9 @@ def run_python(code, **env):
 
 def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package():
     modules = port_modules() + ['chip_smoke']
-    assert 'neural_imaging_tpu_torch.ops.hopper.jpeg8x8' in modules
+    for name in ('ops.hopper.jpeg8x8', 'ops.hopper.codebook', 'ops.ssim', 'models.compression',
+                 'compression.codec', 'compression.entropy'):
+        assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',
         f'for name in {BLOCKED!r}:',
@@ -62,6 +66,13 @@ def test_chip_smoke_fails_without_a_gpu():
     lambda: jpeg.JPEG(50),
     lambda: jpeg.DifferentiableJPEG(50),
     lambda: manipulation_classification.ManipulationClassification(raw_patch_size=16),
+    lambda: compression.TwitterDCN(),
+    lambda: base.restore('32c', compression, key='codec'),
+    lambda: codec.restore('32c'),
+    lambda: codec.compress(np.zeros((1, 16, 16, 3)), compression.TwitterDCN(patch_size=16)),
+    # a stream header of a 1x1x32 latent: decoding it restores the 32c preset
+    lambda: codec.decompress(bytes([1, 1, 32]) + np.uint16(64).tobytes()
+                             + np.full(32, 1, np.uint16).tobytes()),
 ])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)

@@ -17,8 +17,10 @@ from neural_imaging_tpu.ops import kernels as jkernels
 from neural_imaging_tpu.ops import manipulations as jmanips
 from neural_imaging_tpu.ops import ops as jops
 from neural_imaging_tpu.ops import quantization as jquant
+from neural_imaging_tpu.ops import ssim as jssim
 from neural_imaging_tpu_torch.compression import jpeg_helpers
-from neural_imaging_tpu_torch.ops import color, dct, kernels, manipulations, ops, quantization
+from neural_imaging_tpu_torch.ops import (color, dct, kernels, manipulations, ops, quantization,
+                                          ssim)
 
 torch.set_num_threads(1)
 
@@ -214,3 +216,48 @@ def test_filter_functions_are_the_reference_filters(name, args):
 def test_qtables(quality, channel):
     np.testing.assert_array_equal(jpeg_helpers.jpeg_qtable(quality, channel),
                                   jax_jpeg_helpers.jpeg_qtable(quality, channel))
+
+
+# TF 'SAME' at stride 2 pads asymmetrically: for k=5 on an even size (1, 2),
+# on an odd size (2, 2); a symmetric padding of 2 is off by one pixel.
+@pytest.mark.parametrize('size,kernel,stride', [(16, 5, 2), (15, 5, 2), (16, 3, 2), (17, 3, 2),
+                                                (12, 5, 1), (13, 4, 1)])
+def test_conv2d_same_matches_lax_at_any_stride(size, kernel, stride):
+    rng = np.random.default_rng(size * kernel + stride)
+    x = rng.standard_normal((2, size, size + 1, 3)).astype(np.float32)
+    w = rng.standard_normal((kernel, kernel, 3, 4)).astype(np.float32)
+    b = rng.standard_normal(4).astype(np.float32)
+    ref = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), (stride, stride), 'SAME',
+        dimension_numbers=('NHWC', 'HWIO', 'NHWC'),
+        precision=jax.lax.Precision.HIGHEST) + b
+    out = ops.conv2d(nchw(x), ops.hwio_to_oihw(w), 'SAME', stride, torch.from_numpy(b))
+    assert nhwc(out).shape == ref.shape == (2, -(-size // stride), -(-(size + 1) // stride), 4)
+    np.testing.assert_allclose(nhwc(out), np.asarray(ref), atol=1e-5)
+
+
+def test_ssim_matches_the_reference():
+    a = images(20, (2, 24, 28, 3))
+    b = np.clip(a + 0.1 * np.random.default_rng(21).standard_normal(a.shape), 0, 1
+                ).astype(np.float32)
+    per_channel = ssim.ssim_per_channel(torch.from_numpy(a), torch.from_numpy(b))
+    ref_per_channel = jssim.ssim_per_channel(jnp.asarray(a), jnp.asarray(b))
+    for out, ref in zip(per_channel, ref_per_channel):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    np.testing.assert_allclose(ssim.ssim(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+                               np.asarray(jssim.ssim(jnp.asarray(a), jnp.asarray(b))), atol=1e-6)
+
+
+@pytest.mark.parametrize('dtype', [np.uint8, np.uint16, np.float32, np.float64])
+def test_normalize_batch(dtype):
+    x = (images(22) * (np.iinfo(dtype).max if np.issubdtype(dtype, np.integer) else 1)
+         ).astype(dtype)
+    out = ops.normalize_batch(torch.from_numpy(x))
+    assert out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jops.normalize_batch(jnp.asarray(x))))
+
+
+def test_l2_loss():
+    x = images(23) - 0.5
+    np.testing.assert_allclose(float(ops.l2_loss(torch.from_numpy(x))),
+                               float(jops.l2_loss(jnp.asarray(x))), rtol=1e-6)
