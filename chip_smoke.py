@@ -63,23 +63,32 @@ F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 # K1 per pixel: 4 passes of 8-term dot products (8 FMA = 16 FLOP each) plus
 # divide, round and multiply
 K1_FLOP_PER_PIXEL = 4 * 16 + 3
-# K2-K4 are bound by instructions, most of them inside the accurate log1pf,
-# expf and IEEE divisions. Assumed costs, in FP32-pipe instructions: log1pf
-# 20, expf 8, a division 10 (each includes one MUFU op, which the 16-lane
-# MUFU pipe absorbs alongside), any other add, multiply, FMA, compare,
-# select or warp shuffle 1. The FP32 pipe issues 132 SMs x 128 lanes x
-# 1.98 GHz = 33.45 T instructions/s (the 67 TFLOP/s f32 rate, an FMA being
-# 2 FLOP). Per value and codeword:
-LOG1P, EXP, DIV = 20, 8, 10
-LOGW = 4 + DIV + LOG1P                      # sub, 2 mul, div, log1p, mul
-LOGW_DLOGW = 6 + 2 * DIV + LOG1P            # ... plus add, mul, div
-ARGMAX_PASS = LOGW + 3                      # compare, 2 selects
-K2_PER_CODE = ARGMAX_PASS + LOGW + 3 + EXP  # sub, exp, add, fma
-SUMS_PASS = LOGW_DLOGW + 6 + EXP            # sub, exp, 4 accumulations
-K3_PER_CODE = ARGMAX_PASS + SUMS_PASS
-K4_PER_CODE = K3_PER_CODE + LOGW_DLOGW + EXP + DIV + 5 + 10  # pass 3 + 5 shuffles, 5 adds
-# per value, outside the codeword loops
-K2_PER_VALUE, K3_PER_VALUE, K4_PER_VALUE = DIV + 2, 2 * DIV + 5, 3 * DIV + 10
+# K2-K4 are bound by issued instructions, most of them inside the accurate
+# log1pf, expf and IEEE division. Their costs in SASS instructions on sm_90a,
+# as `sass_costs.py` counts them in the compiled code (common path, nvcc
+# 12.9): log1pf 24, expf 7, a division 10. Any other add, multiply, FMA,
+# compare or select is 1. Each SM issues 128 lanes of instructions a
+# clock (4 schedulers x 32 lanes, whatever the pipe), so the card issues
+# 132 SMs x 128 x 1.98 GHz = 33.45 T instructions/s (the 67 TFLOP/s f32
+# rate, an FMA being 2 FLOP).
+#
+# The bound counts what each function needs, not what this design does. Per
+# value and codeword: one log-weight lw = coef log1p((gamma d)^2 / v), d = x
+# - c (sub, 2 mul, div, log1p, mul); its max and first argmax (compare, 2
+# selects); one w~ = exp(lw - max) (sub, exp), the log-weights being kept
+# in registers between the max and the sums; and the accumulations. K3 and
+# K4 also need dlw = dcoef gamma d / (v + t) (add, mul, div).
+LOG1P, EXP, DIV = 24, 7, 10
+LOGW = 4 + DIV + LOG1P
+DLOGW = 2 + DIV
+PER_CODE = LOGW + 3 + 1 + EXP
+K2_PER_CODE = PER_CODE + 2              # s += w~, acc += w~ c
+K3_PER_CODE = PER_CODE + DLOGW + 5      # s, A (FMA), B (mul, FMA), C (FMA)
+# dcb_j += (gn w~ / s)(1 - dlw (c_j - soft)): mul, sub, 2 FMA
+K4_PER_CODE = K3_PER_CODE + 4
+# per value: soft = acc / s (K2); r = 1 / s, gn = g + pc[best] / N and dz =
+# gn (B - C A r) r (K3: a division and 5); soft = C r and gn r for dcb (K4: 2 more)
+K2_PER_VALUE, K3_PER_VALUE, K4_PER_VALUE = DIV, DIV + 5, DIV + 7
 F32_INSTR_PER_S = 132 * 128 * 1.98e9
 
 
@@ -242,14 +251,14 @@ def dcn_serving(args, device):
     codec.decompress(codec.compress(images[0], dcn), dcn)     # warm-up (cuDNN autotuning)
     torch.cuda.synchronize()
     zero_counts()
-    latencies, sizes, decoded = [], [], []
+    latencies, blobs, decoded = [], [], []
     for i, image in enumerate(images):
         before = read_counts()['codebook_fwd']
         t0 = time.perf_counter()
         blob = codec.compress(image, dcn)
         decoded.append(codec.decompress(blob, dcn))
         latencies.append(time.perf_counter() - t0)
-        sizes.append(len(blob))
+        blobs.append(blob)
         launched = read_counts()['codebook_fwd'] - before
         print(f'[dcn serve] request {i}: {height}x{width} → {len(blob)} bytes '
               f'({8 * len(blob) / (height * width):.4f} bpp) → image in '
@@ -272,23 +281,50 @@ def dcn_serving(args, device):
     latent = compression.compare_latents(z_card, z_cpu, dcn.get_codebook())
     same_latent = compression.compare_decodes(dcn.decompress(z_card).cpu(),
                                               cpu.decompress(z_card))
-    end_to_end = np.abs(decoded[0] - codec.decompress(codec.compress(images[0], cpu), cpu))
+    # End to end: the card's bytes and decode against the CPU's own. The same
+    # bytes decode on both within MAX_DECODE_DIFF, so the bitstream adds
+    # nothing between them; with no latent index flipped, the two runs must
+    # write the same bytes and decode within MAX_DECODE_DIFF too. A flipped
+    # index moves its latent value by a codeword and the decodes near it
+    # apart: then compare_latents' share is the bound.
+    same_bytes = compression.compare_decodes(decoded[0], codec.decompress(blobs[0], cpu))
+    cpu_blob = codec.compress(images[0], cpu)
+    cpu_decoded = codec.decompress(cpu_blob, cpu)
+    end_to_end = np.abs(decoded[0] - cpu_decoded)
+    if latent['flipped'] == 0:
+        if cpu_blob != blobs[0]:
+            raise AssertionError('the card and the CPU wrote different bytes for one latent')
+        compression.compare_decodes(decoded[0], cpu_decoded)
     median = float(np.median(latencies))
     results = {'requests': DCN_REQUESTS, 'image': list(DCN_IMAGE),
                'latency_ms': [1e3 * t for t in latencies], 'median_ms': 1e3 * median,
-               'images_per_s': 1 / median, 'bytes': sizes,
-               'bpp': [8 * b / (height * width) for b in sizes],
+               'images_per_s': 1 / median, 'bytes': [len(b) for b in blobs],
+               'bpp': [8 * len(b) / (height * width) for b in blobs],
                'bitstream_vs_direct_max_abs': bitstream_diff,
                'cpu_latent_flips': latent['flipped'], 'cpu_latent_n': latent['n'],
                'cpu_same_latent_decode_max_abs': same_latent,
+               'cpu_same_bytes_decode_max_abs': same_bytes,
                'cpu_end_to_end_max_abs': float(end_to_end.max()),
                'cpu_end_to_end_mean_abs': float(end_to_end.mean())}
     print(f'[dcn serve] median request {1e3 * median:.2f} ms ({1 / median:.2f} images/s); '
           f'bitstream vs direct decode max |dy| {bitstream_diff:.3g}; against the CPU: '
           f'{latent["flipped"]}/{latent["n"]} latent indices differ, same latent decoded '
-          f'max |dy| {same_latent:.3g}, end to end max |dy| {end_to_end.max():.3g} '
+          f'max |dy| {same_latent:.3g}, same bytes decoded max |dy| {same_bytes:.3g}, '
+          f'end to end max |dy| {end_to_end.max():.3g} '
           f'mean {end_to_end.mean():.3g}', flush=True)
     return counts, results
+
+
+def trainable_dcn(preset, patch, device):
+    """A TwitterDCN with a trainable codebook, started from ``preset``'s
+    weights and the default 5-bpf codebook, its optimizer ready."""
+    dcn = compression.TwitterDCN(patch_size=patch, train_codebook=True, device=device)
+    state = base.convert_params(base.load_flax_npz(
+        base.REPO_ROOT / 'data/models/dcn/baselines' / preset / 'twitterdcn/twitterdcn.npz'))
+    state['codebook'] = torch.from_numpy(quant.default_codebook(5))
+    dcn.module.load_state_dict(state, strict=True)
+    dcn.init_optimizer()
+    return dcn
 
 
 def dcn_training(args, device):
@@ -324,13 +360,7 @@ def dcn_training(args, device):
     fixed = codec.restore(DCN_PRESET, patch_size=DCN_PATCH, device=device)
     fixed_counts, fixed_results = run(fixed, 'fixed codebook', DCN_STEPS, 'codebook_bwd')
 
-    trainable = compression.TwitterDCN(patch_size=DCN_PATCH, train_codebook=True,
-                                       device=device)
-    state = base.convert_params(base.load_flax_npz(
-        base.REPO_ROOT / 'data/models/dcn/baselines' / DCN_PRESET / 'twitterdcn/twitterdcn.npz'))
-    state['codebook'] = torch.from_numpy(quant.default_codebook(5))
-    trainable.module.load_state_dict(state, strict=True)
-    trainable.init_optimizer()
+    trainable = trainable_dcn(DCN_PRESET, DCN_PATCH, device)
     before = trainable.get_codebook().copy()
     train_counts, train_results = run(trainable, 'trainable codebook',
                                       DCN_TRAIN_CODEBOOK_STEPS, 'codebook_bwd_train')

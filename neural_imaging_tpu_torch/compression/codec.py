@@ -176,5 +176,4 @@ def coded_bytes(latent, code_book):
 def restore(dir_name, patch_size=None, device='cuda'):
     """Preset-aware DCN restore, e.g. ``codec.restore('16c')`` (presets in
     ``config/presets/compression.json``)."""
-    return base.restore(dir_name, compression, key='codec', patch_size=patch_size,
-                        device=device)
+    return base.restore(dir_name, compression, patch_size=patch_size, device=device)

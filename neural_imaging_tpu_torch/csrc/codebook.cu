@@ -27,12 +27,15 @@
 // sums those rows in a fixed order. No atomics, so dcb is the same from run
 // to run on one card and grid.
 //
-// Bound: operations. Per value and codeword K2 evaluates log1pf twice and
-// expf once (plus an IEEE division per log1pf), against 12 bytes of memory
-// traffic per value: at L = 32 that is a few thousand FP32-pipe instructions
-// for 12 bytes, far above the H100's ~10 instructions/byte ridge. The design
-// keeps everything in registers and shared memory and reads each input and
-// writes each output once, coalesced.
+// Bound: operations. Each function needs, per value and codeword, one
+// log1pf, one expf and one or two IEEE divisions (24, 7 and 10 SASS
+// instructions on sm_90a, as sass_costs.py counts them), against 12 bytes of
+// memory traffic per value: at L = 32 some 1,600 instructions for 12 bytes,
+// far above the H100's ~10 instructions/byte ridge (chip_smoke.py states the
+// count). This design does more than that: it evaluates each log-weight again
+// in every pass (twice in K2 and K3, three times in K4) instead of keeping the
+// L log-weights in registers, and K4 runs a shuffle tree per value and
+// codeword. It reads each input and writes each output once, coalesced.
 //
 // Numerics: build without --use_fast_math, so log1pf, expf and the divisions
 // are the accurate ones and the argmax agrees with the plain PyTorch version

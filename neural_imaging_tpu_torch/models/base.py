@@ -22,23 +22,25 @@ from neural_imaging_tpu_torch.utils.device import resolve_device
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 PRESETS_ROOT = REPO_ROOT / 'config' / 'presets'
+# A DCN's training log (progress.json) nests the codec's {model, args} here
+LOG_KEY = 'codec'
 
 
-def restore(dir_name, module, key=None, patch_size=None, device='cuda',
-            presets_root=PRESETS_ROOT):
+def restore(dir_name, module, patch_size=None, device='cuda'):
     """Restore a trained model from a training directory or a preset name.
 
     A name that is not a directory is looked up in
-    ``<presets_root>/<module's last name>.json`` (e.g. ``compression.json``:
+    ``config/presets/<module's last name>.json`` (e.g. ``compression.json``:
     ``'32c'`` → ``data/models/dcn/baselines/32c``, relative to the repo
     root). The last ``*.json`` log found under the directory names the class
-    (``training_log['model']``, nested under ``key`` where given) and its
-    constructor arguments (``'args'``); the model is built from ``module``
-    with those and ``patch_size`` on ``device``, and its weights are loaded."""
+    (``training_log['model']``, nested under ``LOG_KEY`` where the log has
+    it) and its constructor arguments (``'args'``); the model is built from
+    ``module`` with those and ``patch_size`` on ``device``, and its weights
+    are loaded."""
     if dir_name is None:
         raise ValueError('model directory cannot be None')
     if not os.path.exists(dir_name):
-        preset_file = Path(presets_root) / f"{module.__name__.split('.')[-1]}.json"
+        preset_file = PRESETS_ROOT / f"{module.__name__.split('.')[-1]}.json"
         if not preset_file.is_file():
             raise ValueError(f'Directory {dir_name} does not exist (presets not available)!')
         presets = json.loads(preset_file.read_text())
@@ -52,8 +54,7 @@ def restore(dir_name, module, key=None, patch_size=None, device='cuda',
     if training_log_path is None:
         raise FileNotFoundError(f'Could not find a training log (JSON file) in {dir_name}')
     training_log = json.loads(training_log_path.read_text())
-    if key is not None and key in training_log:
-        training_log = training_log[key]
+    training_log = training_log.get(LOG_KEY, training_log)
 
     parameters = _parse_tuple_args(dict(training_log['args'] or {}))
     parameters['patch_size'] = patch_size

@@ -25,13 +25,14 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import DCN_BATCH, DCN_IMAGE, DCN_LR, DCN_PATCH, DCN_PRESET, synthetic_rgb
+from chip_smoke import (DCN_BATCH, DCN_IMAGE, DCN_LR, DCN_PATCH, DCN_PRESET, synthetic_rgb,
+                        trainable_dcn)
 from neural_imaging_tpu_torch.compression import codec
-from neural_imaging_tpu_torch.models import base, compression
-from neural_imaging_tpu_torch.ops import quantization as quant
+from profile_torch_slice import device_profile, print_profile
+
+# the names of K2-K4 and K4's row sum in the profiler's kernel list
+CODEBOOK_KERNELS = ('codebook', 'sum_rows')
 
 
 def wall_ms(fn, reps):
@@ -44,43 +45,6 @@ def wall_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(times))
-
-
-def device_profile(fn, reps):
-    """Run ``fn`` ``reps`` times under torch.profiler; device ms per call,
-    busy share of the window, device operations per call, top kernels."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    # device-side events only (host ops also carry the device time of the
-    # kernels they launch), without user annotations such as Optimizer.step,
-    # whose device-track spans cover kernels that are counted themselves
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and not getattr(e, 'is_user_annotation', False)]
-    device_us = sum(e.self_device_time_total for e in events)
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    top = [{'kernel': e.key[:90], 'calls_per_call': e.count / reps,
-            'ms_per_call': e.self_device_time_total / 1e3 / reps} for e in events[:12]]
-    codebook_ms = sum(e.self_device_time_total for e in events if 'codebook' in e.key
-                      or 'sum_rows' in e.key) / 1e3 / reps
-    return {'profiled_wall_ms_per_call': 1e3 * window / reps,
-            'device_ms_per_call': device_us / 1e3 / reps,
-            'device_busy_share': device_us / 1e6 / window,
-            'device_ops_per_call': sum(e.count for e in events) / reps,
-            'codebook_kernels_ms_per_call': codebook_ms, 'top_kernels': top}
-
-
-def print_profile(label, p):
-    print(f'[{label}] device {p["device_ms_per_call"]:.3f} ms of '
-          f'{p["profiled_wall_ms_per_call"]:.3f} ms wall per call, busy '
-          f'{100 * p["device_busy_share"]:.1f}%, {p["device_ops_per_call"]:.0f} device ops, '
-          f'codebook kernels {p["codebook_kernels_ms_per_call"]:.4f} ms', flush=True)
-    for row in p['top_kernels']:
-        print(f"[{label}]   {row['ms_per_call']:8.3f} ms x{row['calls_per_call']:5.1f} "
-              f"{row['kernel']}", flush=True)
 
 
 def serving(args):
@@ -112,7 +76,7 @@ def serving(args):
                                                - stages['decoder (dcn.decompress + copy)'])
     for name, ms in stages.items():
         print(f'[serve] {name:34s} {ms:9.3f} ms', flush=True)
-    p = device_profile(request, args.requests)
+    p = device_profile(request, args.requests, match=CODEBOOK_KERNELS)
     print_profile('serve', p)
     return {'image': list(DCN_IMAGE), 'bytes': len(blob), 'stage_wall_ms': stages, **p}
 
@@ -120,12 +84,7 @@ def serving(args):
 def training(args):
     batch = synthetic_rgb(args.seed + 200, DCN_BATCH, DCN_PATCH, DCN_PATCH)
     fixed = codec.restore(DCN_PRESET, patch_size=DCN_PATCH, device='cuda')
-    trainable = compression.TwitterDCN(patch_size=DCN_PATCH, train_codebook=True, device='cuda')
-    state = base.convert_params(base.load_flax_npz(
-        base.REPO_ROOT / 'data/models/dcn/baselines' / DCN_PRESET / 'twitterdcn/twitterdcn.npz'))
-    state['codebook'] = torch.from_numpy(quant.default_codebook(5))
-    trainable.module.load_state_dict(state, strict=True)
-    trainable.init_optimizer()
+    trainable = trainable_dcn(DCN_PRESET, DCN_PATCH, 'cuda')
     out = {}
     for label, dcn in (('fixed', fixed), ('trainable', trainable)):
         def step():
@@ -135,7 +94,7 @@ def training(args):
         torch.cuda.synchronize()
         step_ms = wall_ms(step, args.steps)
         print(f'[train {label}] median step {step_ms:.3f} ms', flush=True)
-        p = device_profile(step, args.steps)
+        p = device_profile(step, args.steps, match=CODEBOOK_KERNELS)
         print_profile(f'train {label}', p)
         out[label] = {'step_wall_ms': step_ms, **p}
     return {'batch': DCN_BATCH, 'patch': DCN_PATCH, **out}

@@ -62,7 +62,7 @@ def test_restore_reads_the_preset_and_its_log(pair):
     assert port.latent_shape == ref.latent_shape == (None, None, 32)
     np.testing.assert_array_equal(port.get_codebook(), ref.get_codebook())
     assert float(port.module.latent_scale) == float(ref.params['latent_scale'])
-    direct = base.restore(DCN_DIR, compression, key='codec', patch_size=64, device='cpu')
+    direct = base.restore(DCN_DIR, compression, patch_size=64, device='cpu')
     assert direct.latent_shape == (8, 8, 32) and direct.n_latent == 2048
     assert direct.compression_stats() == jcompression.TwitterDCN(
         patch_size=64, n_features=32).compression_stats()

@@ -1,6 +1,6 @@
 """The port runs on a machine without JAX, flax, optax, PIL or imageio, and
-without the JAX package: its modules and chip_smoke.py must import with all
-of those blocked. Its entry points default to CUDA and must refuse to run
+without the JAX package: its modules, chip_smoke.py and the scripts that run
+beside it on the card must import with all of those blocked. Its entry points default to CUDA and must refuse to run
 without a card, and chip_smoke.py must fail without one."""
 import os
 import pkgutil
@@ -32,7 +32,8 @@ def run_python(code, **env):
 
 
 def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package():
-    modules = port_modules() + ['chip_smoke']
+    modules = port_modules() + ['chip_smoke', 'profile_torch_slice', 'profile_torch_dcn',
+                                'sass_costs']
     for name in ('ops.hopper.jpeg8x8', 'ops.hopper.codebook', 'ops.ssim', 'models.compression',
                  'compression.codec', 'compression.entropy'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
@@ -67,7 +68,7 @@ def test_chip_smoke_fails_without_a_gpu():
     lambda: jpeg.DifferentiableJPEG(50),
     lambda: manipulation_classification.ManipulationClassification(raw_patch_size=16),
     lambda: compression.TwitterDCN(),
-    lambda: base.restore('32c', compression, key='codec'),
+    lambda: base.restore('32c', compression),
     lambda: codec.restore('32c'),
     lambda: codec.compress(np.zeros((1, 16, 16, 3)), compression.TwitterDCN(patch_size=16)),
     # a stream header of a 1x1x32 latent: decoding it restores the 32c preset
