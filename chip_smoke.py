@@ -8,8 +8,10 @@ NVIDIA GPU:
    (one ``nvcc`` per source, all at once) and the rANS coder from
    ``native/ans``;
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes its path gives it, and time both (CUDA events, L2 flushed): K1
-   (dJPEG core), K2 (codebook quantizer), K3 and K4 (its backwards);
+   shapes its path gives it, and time both (CUDA events, L2 flushed; a
+   kernel's time is the device's alone, see ``time_ms``), and each of its
+   launches (``torch.profiler``): K1 (dJPEG core), K2 (codebook quantizer),
+   K3 and K4 (its backwards);
 4. manipulation classification: restore the shipped ``m_quality`` run (INet
    → 4 manipulations → pool → JPEG QF 50 → FAN, full width) and answer
    requests of raw 128-px patches with ``run_workflow_to_decisions``; check
@@ -32,6 +34,7 @@ device it exits non-zero before doing anything.
 """
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -63,27 +66,38 @@ F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 # K1 per pixel: 4 passes of 8-term dot products (8 FMA = 16 FLOP each) plus
 # divide, round and multiply
 K1_FLOP_PER_PIXEL = 4 * 16 + 3
-# K2-K4 are bound by issued instructions, most of them inside the accurate
-# log1pf, expf and IEEE division. Their costs in SASS instructions on sm_90a,
-# as `sass_costs.py` counts them in the compiled code (common path, nvcc
-# 12.9): log1pf 24, expf 7, a division 10. Any other add, multiply, FMA,
-# compare or select is 1. Each SM issues 128 lanes of instructions a
-# clock (4 schedulers x 32 lanes, whatever the pipe), so the card issues
-# 132 SMs x 128 x 1.98 GHz = 33.45 T instructions/s (the 67 TFLOP/s f32
-# rate, an FMA being 2 FLOP).
+# K2-K4 are bound by issued instructions, most of them inside log1pf, the
+# exp and the divisions. Their costs in SASS instructions on sm_90a, as
+# `sass_costs.py` counts them in the compiled code (common path, nvcc 12.9):
+# the accurate log1pf 24, expf 7 and an IEEE division 10; the exp as
+# ex2.approx of x log2 e 2; a division by the constant v through its
+# reciprocal (two FMAs that round to the IEEE quotient) 3. Any other add,
+# multiply, FMA, compare or select is 1. Each SM issues 128 lanes of
+# instructions a clock (4 schedulers x 32 lanes, whatever the pipe), so the
+# card issues 132 SMs x 128 x 1.98 GHz = 33.45 T instructions/s (the 67
+# TFLOP/s f32 rate, an FMA being 2 FLOP).
 #
-# The bound counts what each function needs, not what this design does. Per
-# value and codeword: one log-weight lw = coef log1p((gamma d)^2 / v), d = x
-# - c (sub, 2 mul, div, log1p, mul); its max and first argmax (compare, 2
-# selects); one w~ = exp(lw - max) (sub, exp), the log-weights being kept
-# in registers between the max and the sums; and the accumulations. K3 and
-# K4 also need dlw = dcoef gamma d / (v + t) (add, mul, div).
+# The bound counts what any implementation of each function must do, not
+# what a design does. The hard index has to agree with the plain version
+# bit for bit, so each log-weight needs the accurate log1pf of the
+# correctly rounded (gamma d)^2 / v, which the reciprocal of v gives in 3.
+# K2's soft value is held to an absolute tolerance (check_forward), which
+# the approximate exp meets; K3's and K4's dz and dcb are held entry by
+# entry to 32 eps of their terms' scale (check_backward), which for a
+# codeword far from every value lies in the subnormal range, where only the
+# accurate expf and IEEE divisions meet it. Per value and codeword: one
+# log-weight lw = coef log1p((gamma d)^2 / v), d = x - c (sub, 2 mul, the
+# division by v, log1p, mul); its max and first argmax (compare, 2 selects);
+# one w~ = exp(lw - max) (sub, exp), the log-weights being kept in registers
+# between the max and the sums; and the accumulations. K3 and K4 also need
+# dlw = dcoef gamma d / (v + t) (add, mul, division).
 LOG1P, EXP, DIV = 24, 7, 10
-LOGW = 4 + DIV + LOG1P
+EXP_APPROX, DIV_BY_V = 2, 3
+LOGW = 4 + DIV_BY_V + LOG1P
 DLOGW = 2 + DIV
-PER_CODE = LOGW + 3 + 1 + EXP
-K2_PER_CODE = PER_CODE + 2              # s += w~, acc += w~ c
-K3_PER_CODE = PER_CODE + DLOGW + 5      # s, A (FMA), B (mul, FMA), C (FMA)
+K2_PER_CODE = LOGW + 3 + 1 + EXP_APPROX + 2     # s += w~, acc += w~ c
+# s, A (FMA), B (mul, FMA), C (FMA)
+K3_PER_CODE = LOGW + 3 + 1 + EXP + DLOGW + 5
 # dcb_j += (gn w~ / s)(1 - dlw (c_j - soft)): mul, sub, 2 FMA
 K4_PER_CODE = K3_PER_CODE + 4
 # per value: soft = acc / s (K2); r = 1 / s, gn = g + pc[best] / N and dz =
@@ -118,22 +132,69 @@ def synthetic_rgb(seed, n, height, width):
     return (smooth + 0.02 * noise).clamp(0, 1).permute(0, 2, 3, 1).contiguous().numpy()
 
 
-def time_ms(fn, reps, flush):
-    """Median device time of ``fn`` in ms over ``reps`` launches, each timed
-    alone by CUDA events with the L2 cache flushed before it."""
+# the hand-written kernels' function names in a profile
+HAND_KERNELS = ('jpeg8x8', 'codebook', 'sum_rows')
+SPIN_CYCLES = 200_000            # ~0.1 ms at 1.98 GHz: more than a wrapper's host time
+MAX_SPIN_CYCLES = 64 * SPIN_CYCLES
+
+
+def time_ms(fn, reps, flush, device_only=True):
+    """Median time of ``fn`` in ms over ``reps`` launches, each timed alone by
+    CUDA events with the L2 cache flushed before it.
+
+    ``device_only``: each launch is queued behind a device-side spin
+    (``torch.cuda._sleep``), and a launch counts only if the device has not
+    yet reached the start event when the host has queued the end event, so
+    no host time (the wrapper's checks, allocations, the ctypes call) falls
+    inside the window; a launch that misses is retried with a spin twice as
+    long. Without it (for the plain versions, whose host loops and
+    synchronizing copies no spin covers), the window holds the host's time
+    too, as a caller sees it."""
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(reps):
+    torch.cuda.synchronize()
+    times, cycles = [], SPIN_CYCLES
+    while len(times) < reps:
         flush.zero_()
+        if device_only:
+            torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
+        queued_ahead = not start.query()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        if not device_only or queued_ahead:
+            times.append(start.elapsed_time(end))
+        elif cycles < MAX_SPIN_CYCLES:
+            cycles *= 2
+        else:
+            raise RuntimeError('the host did not queue the timed launch within the spin')
     return float(np.median(times))
+
+
+def kernel_ms(fn, reps, flush, match=HAND_KERNELS):
+    """Device ms per call of each kernel that ``fn`` launches whose name holds
+    a string of ``match``, from ``torch.profiler`` over ``reps`` calls (L2
+    flushed before each), by the kernel's function name: splits a function
+    into its launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {re.search(r'(\w+(<[^()]*>)?)\(', e.key).group(1): e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and any(m in e.key for m in match)}
+
+
+def format_launches(launch_ms):
+    return ', '.join(f'{name} {ms:.4f} ms' for name, ms in launch_ms.items())
 
 
 def check_k1(name, planes, q, reps, flush):
@@ -145,20 +206,22 @@ def check_k1(name, planes, q, reps, flush):
     report = jpeg8x8.check_cores(y_k, c_k, y_p, c_p, q)
     with torch.no_grad():
         ms = time_ms(lambda: jpeg8x8.jpeg_core_cuda(planes, q), reps, flush)
-        plain_ms = time_ms(lambda: jpeg8x8.jpeg_core_plain(planes, q), reps, flush)
+        plain_ms = time_ms(lambda: jpeg8x8.jpeg_core_plain(planes, q), reps, flush,
+                           device_only=False)
+        launch_ms = kernel_ms(lambda: jpeg8x8.jpeg_core_cuda(planes, q), reps, flush)
     p, h, w = planes.shape
     pixels = p * h * w
     bytes_moved = 4 * (3 * pixels + q.numel() + 64)      # planes in, y and c out, tables
     bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = K1_FLOP_PER_PIXEL * pixels / F32_FLOP_PER_S * 1e3
     record = {'shape': name, 'P': p, 'H': h, 'W': w, 'ms': ms, 'plain_ms': plain_ms,
-              'bound_ms': max(bound_bytes_ms, bound_ops_ms),
+              'launch_ms': launch_ms, 'bound_ms': max(bound_bytes_ms, bound_ops_ms),
               'bound_by': 'bytes' if bound_bytes_ms >= bound_ops_ms else 'operations',
               **report}
     print(f'[k1] {name}: P={p} {h}x{w} flipped={report["flipped"]}/{report["coefficients"]} '
           f'max|dy| clean blocks={report["max_abs_err"]:.3g} all={report["max_abs_err_all"]:.3g} '
           f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {record["bound_ms"]:.4f} ms '
-          f'({record["bound_by"]})', flush=True)
+          f'({record["bound_by"]}); launches {format_launches(launch_ms)}', flush=True)
     return record
 
 
@@ -173,7 +236,8 @@ def timed_record(shape, n, kernel, plain, bytes_moved, instructions, reps, flush
     bound, and the agreement ``report``."""
     bound_ms, bound_by = bound(bytes_moved, instructions)
     return {'shape': shape, 'n': n, 'ms': time_ms(kernel, reps, flush),
-            'plain_ms': time_ms(plain, reps, flush), 'bound_ms': bound_ms,
+            'plain_ms': time_ms(plain, reps, flush, device_only=False),
+            'launch_ms': kernel_ms(kernel, reps, flush), 'bound_ms': bound_ms,
             'bound_by': bound_by, **report}
 
 
@@ -216,7 +280,8 @@ def check_codebook(name, n, reps, flush, gen, device):
                      else f'{r["max_eps_of_scale"]:.3g} eps of the terms\' scale')
         print(f'[{kernel}] {name}: N={n} L={n_codes} max|err| {r["max_abs_err"]:.3g} '
               f'({agreement}); kernel {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
-              f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})', flush=True)
+              f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}); launches '
+              f'{format_launches(r["launch_ms"])}', flush=True)
     return records
 
 

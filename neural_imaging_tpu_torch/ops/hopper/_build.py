@@ -39,27 +39,28 @@ def nvcc_path():
     raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH')
 
 
-def library_path(name):
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+def library_path(name, csrc_dir=CSRC_DIR):
+    """Where the library built from ``<csrc_dir>/<name>.cu`` lives."""
     digest = hashlib.sha256(
-        (CSRC_DIR / f'{name}.cu').read_bytes() + ' '.join(NVCC_FLAGS).encode())
+        (Path(csrc_dir) / f'{name}.cu').read_bytes() + ' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
-def build(names):
-    """Compile every ``csrc/<name>.cu`` whose library is missing, one ``nvcc``
-    per source, all started together. Returns {name: library path}; raises
-    with the compiler's output if a build fails."""
+def build(names, csrc_dir=CSRC_DIR):
+    """Compile every ``<csrc_dir>/<name>.cu`` (the package's ``csrc/`` unless
+    told otherwise) whose library is missing, one ``nvcc`` per source, all
+    started together. Returns {name: library path}; raises with the
+    compiler's output if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     running = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc_dir)
         if out.exists():
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [str(nvcc), *NVCC_FLAGS, '-o', str(tmp), str(CSRC_DIR / f'{name}.cu')]
+        cmd = [str(nvcc), *NVCC_FLAGS, '-o', str(tmp), str(Path(csrc_dir) / f'{name}.cu')]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
@@ -72,7 +73,7 @@ def build(names):
         os.replace(tmp, out)
     if failed:
         raise RuntimeError('CUDA build failed:\n' + '\n'.join(failed))
-    return {name: library_path(name) for name in names}
+    return {name: library_path(name, csrc_dir) for name in names}
 
 
 @functools.lru_cache()

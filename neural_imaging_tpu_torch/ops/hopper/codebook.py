@@ -2,9 +2,13 @@
 K2, K3 and K4: the fused soft-codebook quantizer and its backwards, and the
 entropy of the quantized latent computed from codeword counts.
 
-For each latent value the kernels make two passes over the L codewords (max
-and argmax of the log kernel weight, then the softmax-weighted sums), so no
-(N, L) weight matrix is built, forward or backward:
+For each latent value the kernels make their passes over the L codewords
+(the max and first argmax of the log kernel weight, and the
+softmax-weighted sums), so no (N, L) weight matrix is built, forward or
+backward. For L = 32, K2 and K4 find the max at the nearest codeword and
+make one pass with one log1p and one exp per codeword (``csrc/codebook.cu``
+says how); :func:`nearest_argmax_plain` is that rule in plain PyTorch, for
+the tests.
 
 - K2 :func:`codebook_fwd_cuda` → (soft value, hard index); replaces
   ``neural_imaging_tpu/ops/pallas/codebook.py::_kernel``.
@@ -53,9 +57,25 @@ def _library():
     return lib
 
 
+TRAIN_BLOCKS_PER_SM = 2       # K4's grid cap, kTrainBlocksPerSM: few rows of dcb sums
+
+
 def _grid_blocks(n):
-    """Blocks of ``THREADS`` the kernels launch for N values."""
+    """Blocks of ``THREADS`` that K2 and K3 launch for N values."""
     return max(1, min(-(-n // THREADS), MAX_BLOCKS))
+
+
+@functools.lru_cache()
+def _multiprocessors(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _train_blocks(n, device):
+    """Blocks of ``THREADS`` that K4 launches for N values: at most
+    ``TRAIN_BLOCKS_PER_SM`` per SM (as many as stay resident), so that its
+    lanes keep their dcb sums across the grid-stride loop and the blocks
+    leave few rows of partial sums."""
+    return max(1, min(-(-n // THREADS), TRAIN_BLOCKS_PER_SM * _multiprocessors(device.index or 0)))
 
 
 def _check(z, codebook, *others):
@@ -140,6 +160,29 @@ def _argmax_pass(z, codebook, v, gamma, v_t):
         m = torch.where(take, lw, m)
         best = torch.where(take, j, best)
     return m, best
+
+
+def nearest_argmax_plain(z, codebook, v=50.0, gamma=25.0):
+    """The max log-weight and its first argmax by K2's and K4's rule for
+    L = 32: the nearest codeword by the rounded |z - c| (the first on a tie)
+    gives the trial max m, and the hard index is the first j with logw_j ==
+    m; where some logw_j > m, none equals m or m is not above ``NEG_INF``,
+    the value takes the two-pass rule (:func:`_argmax_pass`). Returns (m,
+    best, the values that took the two-pass rule). For the tests: the same
+    results as ``_argmax_pass`` whatever the codebook's order and ties."""
+    v_t = _scalar(v, z)
+    dist = torch.stack([(z - codebook[j]).abs() for j in range(codebook.numel())])
+    nearest = torch.argmin(dist, dim=0)           # the first of equal minima
+    m = _logw(z, codebook[nearest], v, gamma, v_t)
+    best = torch.full(z.shape, codebook.numel(), dtype=torch.int32, device=z.device)
+    above = torch.zeros(z.shape, dtype=torch.bool, device=z.device)
+    for j in reversed(range(codebook.numel())):
+        lw = _logw(z, codebook[j], v, gamma, v_t)
+        above |= lw > m
+        best = torch.where(lw == m, j, best)
+    slow = above | (best == codebook.numel()) | ~(m > NEG_INF)
+    m_two, best_two = _argmax_pass(z, codebook, v, gamma, v_t)
+    return torch.where(slow, m_two, m), torch.where(slow, best_two, best), slow
 
 
 def _sums_pass(z, codebook, m, v, gamma, v_t):
@@ -230,7 +273,7 @@ def codebook_bwd_train_cuda(z, g, codebook, per_codeword, v=50.0, gamma=25.0):
     if g.numel() != z.numel() or per_codeword.numel() != codebook.numel():
         raise ValueError('codebook_bwd_train_cuda: g must match z and per_codeword the codebook')
     n, n_codes = z.numel(), codebook.numel()
-    blocks = _grid_blocks(n)
+    blocks = _train_blocks(n, device)
     dz = torch.empty_like(z)
     partial = torch.empty((blocks, n_codes), dtype=torch.float32, device=device)
     dcb = torch.empty_like(codebook)

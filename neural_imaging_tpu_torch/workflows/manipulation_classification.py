@@ -21,6 +21,8 @@ from neural_imaging_tpu_torch.utils.device import resolve_device
 
 # the reference's class order of the manipulations
 CANONICAL_ORDER = ('sharpen', 'resample', 'gaussian', 'jpeg')
+# the channel's compression_params that the port's JPEG takes
+JPEG_PARAMS = ('quality', 'codec', 'trainable', 'rng')
 
 # Agreement of two float32 runs of the full-width path on the same raw batch
 # (GPU and CPU, or the port and the JAX reference). Summation order alone moves
@@ -59,7 +61,8 @@ class ManipulationClassification:
         :param nip_model: NIP class name ('INet' is the one ported)
         :param manipulations: list of '<name>[:strength]' specs
         :param distribution: {'downsampling': 'pool[:factor]', 'compression': 'jpeg',
-                              'compression_params': {'quality': int, 'codec': 'soft'|…}}
+                              'compression_params': {'quality': int, 'codec': 'soft'|…,
+                                                     'trainable': bool}}
         :param fan_args: FAN constructor arguments other than n_classes/patch_size
         :param raw_patch_size: RAW patch size (RGB patches are twice as large)
         :param device: where the models live and the forward runs
@@ -83,11 +86,13 @@ class ManipulationClassification:
             raise NotImplementedError(
                 f"compression {self._distribution['compression']!r} is not ported; use 'jpeg'")
         params = dict(self._distribution.get('compression_params') or {})
-        self.codec = jpeg_models.JPEG(params.get('quality'), params.get('codec', 'soft'),
-                                      device=self.device)
+        unknown = sorted(set(params) - set(JPEG_PARAMS))
+        if unknown:
+            raise NotImplementedError(f'JPEG channel parameters {unknown} are not ported; '
+                                      f'the port takes {list(JPEG_PARAMS)}')
+        self.codec = jpeg_models.JPEG(**params, device=self.device)
         if not isinstance(self.codec.quality, (int, float)):
             raise NotImplementedError('randomized channel JPEG quality is not ported')
-        self._channel_qtables = jpeg_models.qtables(int(self.codec.quality), self.device)
 
         if nip_model != 'INet':
             raise NotImplementedError(f'NIP {nip_model!r} is not ported; use INet')
@@ -152,7 +157,10 @@ class ManipulationClassification:
         return ops.avg_pool(batch, self.downsampling_factor)
 
     def _compress(self, batch):
-        y, _ = jpeg_models.jpeg_forward_nchw(batch, *self._channel_qtables,
+        """The channel through the codec's own q-tables (trainable or not), as
+        the reference runs a trainable codec's."""
+        tables = self.codec._model.params
+        y, _ = jpeg_models.jpeg_forward_nchw(batch, tables['q_mtx_luma'], tables['q_mtx_chroma'],
                                              rounding=self.codec.codec)
         return y
 

@@ -4,10 +4,13 @@ How many instructions the math functions of the codebook kernels (K2-K4,
 ``neural_imaging_tpu_torch/csrc/codebook.cu``) cost on sm_90a, counted in the
 compiled code. ``chip_smoke.py`` builds the kernels' bounds from these counts.
 
-Each probe kernel below writes ``f(a) + b`` for one function ``f`` (the
-accurate ``log1pf``, ``expf`` and the IEEE division, as the kernels use
-them); the ``add`` probe writes ``a + b``. All are built with the flags of
-``ops/hopper/_build.py`` and disassembled with ``cuobjdump -sass``. A
+Each probe kernel below writes ``f(a) + b`` for one function ``f``: the
+accurate ``log1pf``, ``expf`` and the IEEE division, and the forms that K2
+and K4 use for L = 32 (K2's weights' exp as ``ex2.approx`` of x log2 e, and
+the division by the constant v through its reciprocal with two FMAs, v and
+1/v being kernel parameters as there); the ``add`` probe writes ``a + b``.
+All are built with the flags of ``ops/hopper/_build.py`` and disassembled
+with ``cuobjdump -sass``. A
 function's cost is the number of instructions its probe runs from entry to
 ``EXIT`` on its common path (``common_path``), less the ``add`` probe's
 count.
@@ -26,16 +29,29 @@ from pathlib import Path
 from neural_imaging_tpu_torch.ops.hopper import _build
 
 PROBES = {'add': 'a[i] + b[i]', 'log1pf': 'log1pf(a[i]) + b[i]',
-          'expf': 'expf(a[i]) + b[i]', 'div': 'a[i] / b[i] + b[i]'}
-SOURCE = '\n'.join(
+          'expf': 'expf(a[i]) + b[i]', 'div': 'a[i] / b[i] + b[i]',
+          'exp_approx': 'exp_approx(a[i]) + b[i]',
+          'div_by_v': 'fmaf(fmaf(-(a[i] * rv), v, a[i]), rv, a[i] * rv) + b[i]'}
+# as csrc/codebook.cu defines them
+HELPERS = """
+__device__ __forceinline__ float exp_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.44269504088896341f));
+  return y;
+}
+"""
+SOURCE = HELPERS + '\n'.join(
     f'extern "C" __global__ void probe_{name}(const float* __restrict__ a, '
-    f'const float* __restrict__ b, float* __restrict__ o) {{\n'
+    f'const float* __restrict__ b, float* __restrict__ o, float v, float rv) {{\n'
     f'  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n'
     f'  o[i] = {expr};\n}}' for name, expr in PROBES.items())
 INSTRUCTION = re.compile(r'/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;')
 FORWARD_BRANCH = re.compile(r'^@!?U?P\d+\s+BRA\s+(0x[0-9a-f]+)$')
-# an immediate moved into a register: a constant that a loop keeps in a register
-CONSTANT = re.compile(r'^(MOV|HFMA2\.MMA|IMAD\.MOV\.U32)\s+R\d+,(?!.*\bU?R\d)')
+# an immediate moved into a register, or a load of the scalar parameters v
+# and 1/v (after the three pointers, at 0x228 and 0x22c): constants that a
+# loop keeps in registers
+CONSTANT = re.compile(r'^(MOV|HFMA2\.MMA|IMAD\.MOV\.U32)\s+R\d+,(?!.*\bU?R\d)'
+                      r'|^ULDC(\.64)?\s+UR\d+, c\[0x0\]\[0x22[89a-f]\]$')
 
 def disassemble():
     """{probe name: SASS listing of its kernel}."""
@@ -60,7 +76,8 @@ def common_path(listing):
     predicated forward branch on the way is taken: the code those branches
     skip handles special operands (a negative or infinite log1pf argument;
     the division's out-of-line slow path). Immediates moved into registers
-    are left out: in a loop they stay in registers."""
+    and loads of the scalar parameters are left out: in a loop they stay in
+    registers."""
     path, skip_to = [], -1
     for address, text in INSTRUCTION.findall(listing):
         if int(address, 16) < skip_to:

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import check_division
 from neural_imaging_tpu.ops import quantization as jquant
 from neural_imaging_tpu.ops.pallas import codebook as jcb
 from neural_imaging_tpu_torch.ops import quantization as quant
@@ -159,6 +160,56 @@ def test_plain_composition_matches_jax(v, gamma):
     np.testing.assert_allclose(hist.detach().numpy(), np.asarray(hist_ref), atol=1e-6)
     objective(q, h).backward()
     np.testing.assert_allclose(zt.grad.numpy(), np.asarray(g_ref), atol=GRAD_ATOL)
+
+
+def near_tie_values(codebook, seed):
+    """Values where two log-weights tie or nearly tie: every codeword, the
+    midpoint of every pair of neighbours and 1 and 2 float32 ulps on either
+    side of it, values far outside the codebook, and random ones."""
+    sorted_cb = np.unique(codebook.astype(np.float32))
+    mid = ((sorted_cb[:-1].astype(np.float64) + sorted_cb[1:]) / 2).astype(np.float32)
+    up, down = np.nextafter(mid, np.float32(np.inf)), np.nextafter(mid, np.float32(-np.inf))
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        sorted_cb, mid, up, down, np.nextafter(up, np.float32(np.inf)),
+        np.nextafter(down, np.float32(-np.inf)), np.float32([-1e3, -40.0, 40.0, 1e3]),
+        (rng.standard_normal(500) * 8).astype(np.float32)]).astype(np.float32)
+
+
+def trainable_style_codebook(kind, seed):
+    """The 5-bpf codebook as a trainable one may leave it: in order, shuffled
+    and moved off the integers, or with repeated codewords."""
+    codebook = quant.default_codebook(5)
+    rng = np.random.default_rng(seed)
+    if kind == 'unsorted':
+        codebook = rng.permutation(codebook) + rng.uniform(-0.3, 0.3, codebook.size)
+    elif kind == 'repeated':
+        codebook = rng.permutation(np.concatenate([codebook[:24], codebook[4:12]]))
+    return codebook.astype(np.float32)
+
+
+@pytest.mark.parametrize('v,gamma', KERNELS)
+@pytest.mark.parametrize('kind', ['sorted', 'unsorted', 'repeated'])
+def test_nearest_codeword_argmax_is_the_first_argmax(kind, v, gamma):
+    """K2's and K4's max rule (nearest codeword, then the first j with
+    logw_j == m) gives the max and the first argmax of the two-pass rule,
+    bit for bit, at exact and near ties."""
+    codebook = torch.from_numpy(trainable_style_codebook(kind, 14))
+    z = torch.from_numpy(near_tie_values(codebook.numpy(), 15))
+    m_ref, best_ref = cb._argmax_pass(z, codebook, v, gamma, cb._scalar(v, z))
+    m, best, slow = cb.nearest_argmax_plain(z, codebook, v, gamma)
+    assert torch.equal(best, best_ref)
+    assert torch.equal(m, m_ref)
+    # the one-pass rule decides all but a few values (none on this CPU)
+    assert int(slow.sum()) <= 2
+
+
+def test_division_by_v_through_its_reciprocal_is_the_ieee_quotient():
+    """K2's and K4's t / v at L = 32 (two FMAs from 1/v) has the IEEE
+    quotient's bits, sampled over the t and v where they use it
+    (``check_division.py`` checks every t)."""
+    mismatches, checked = check_division.check(sample=200_000, seed=16)
+    assert checked == 200_000 and mismatches == dict.fromkeys(check_division.V_VALUES, 0)
 
 
 def test_codebook_weights_match_jax():

@@ -99,6 +99,59 @@ def test_codebook_kernels_match_plain(cuda, n, bpf, v, gamma):
     assert torch.equal(codebook.codebook_bwd_train_cuda(z, g, cb, pc, v, gamma)[1], dcb)
 
 
+def near_tie_inputs(seed, n, bpf, kind, device):
+    """z at and around the ties of a codebook (every codeword, every midpoint
+    of neighbours and 1 and 2 ulps on either side, far values, random ones),
+    repeated or cut to N values, with g, the codebook and pc. ``kind``: the
+    codebook in order, shuffled and moved off the integers, or with repeated
+    codewords, as a trainable codebook may leave it."""
+    rng = np.random.default_rng(seed)
+    cb = quant.default_codebook(bpf)
+    if kind == 'unsorted':
+        cb = rng.permutation(cb) + rng.uniform(-0.3, 0.3, cb.size)
+    elif kind == 'repeated':
+        cb = rng.permutation(np.concatenate([cb[:3 * cb.size // 4],
+                                             cb[cb.size // 8:3 * cb.size // 8]]))
+    cb = cb.astype(np.float32)
+    sorted_cb = np.unique(cb)
+    mid = ((sorted_cb[:-1].astype(np.float64) + sorted_cb[1:]) / 2).astype(np.float32)
+    steps = [mid]
+    for _ in range(2):
+        steps = [np.nextafter(steps[0], np.float32(-np.inf))] + steps + [
+            np.nextafter(steps[-1], np.float32(np.inf))]
+    z = np.concatenate([sorted_cb, *steps, np.float32([-1e3, -40.0, 40.0, 1e3]),
+                        rng.standard_normal(512) * 2 ** (bpf - 2)])
+    z = np.resize(rng.permutation(z), n).astype(np.float32)
+    arrays = (z, rng.standard_normal(n), cb, rng.standard_normal(cb.size))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+# K2 and K4 at exact and near ties: the compiled L = 32 and the generic
+# path (L = 16, 64, 256), codebooks in order, shuffled or with repeats; N
+# from 1 to past both grid caps. Not one hard index may differ from the
+# plain version's, and K4's dcb must repeat bit for bit.
+@pytest.mark.parametrize('n,bpf,kind', [
+    (1, 5, 'sorted'), (1, 4, 'unsorted'), (1000, 5, 'sorted'), (1000, 5, 'unsorted'),
+    (1000, 5, 'repeated'), (1000, 4, 'unsorted'), (1000, 6, 'repeated'), (1000, 8, 'unsorted'),
+    (131072, 5, 'unsorted'), (300001, 5, 'repeated'), (300001, 6, 'unsorted')])
+@pytest.mark.parametrize('v,gamma', [(50.0, 25.0), (7.5, 25.0), (0.0, 5.0)])
+def test_k2_and_k4_break_ties_as_the_plain_versions(cuda, n, bpf, kind, v, gamma):
+    z, g, cb, pc = near_tie_inputs(n + bpf, n, bpf, kind, cuda)
+    before = codebook.codebook_fwd_cuda.launches, codebook.codebook_bwd_train_cuda.launches
+    soft, hard = codebook.codebook_fwd_cuda(z, cb, v, gamma)
+    dz, dcb = codebook.codebook_bwd_train_cuda(z, g, cb, pc, v, gamma)
+    torch.cuda.synchronize()
+    assert (codebook.codebook_fwd_cuda.launches,
+            codebook.codebook_bwd_train_cuda.launches) == (before[0] + 1, before[1] + 1)
+    soft_ref, hard_ref = codebook.codebook_fwd_plain(z, cb, v, gamma)
+    assert codebook.check_forward(soft, hard, soft_ref, hard_ref, cb)['index_flips'] == 0
+    dz_ref, dcb_ref = codebook.codebook_bwd_train_plain(z, g, cb, pc, v, gamma)
+    dz_scale, dcb_scale = codebook.backward_error_scale(z, g, cb, pc, v, gamma)
+    codebook.check_backward(dz, dz_ref, dz_scale)
+    codebook.check_backward(dcb, dcb_ref, dcb_scale, 'dcb')
+    assert torch.equal(codebook.codebook_bwd_train_cuda(z, g, cb, pc, v, gamma)[1], dcb)
+
+
 @pytest.mark.parametrize('trainable', [False, True])
 def test_fused_quantizer_launches_its_kernels_on_the_card(cuda, trainable):
     z, _, cb, _ = codebook_inputs(3, 4096, 5, cuda, offset=0.05 if trainable else 0.0)

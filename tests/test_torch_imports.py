@@ -33,7 +33,7 @@ def run_python(code, **env):
 
 def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package():
     modules = port_modules() + ['chip_smoke', 'profile_torch_slice', 'profile_torch_dcn',
-                                'sass_costs']
+                                'sass_costs', 'bench_codebook_kernels', 'check_division']
     for name in ('ops.hopper.jpeg8x8', 'ops.hopper.codebook', 'ops.ssim', 'models.compression',
                  'compression.codec', 'compression.entropy'):
         assert f'neural_imaging_tpu_torch.{name}' in modules

@@ -1,6 +1,7 @@
 """The whole manipulation-classification forward slice of the PyTorch port
 against the JAX package's ``run_workflow``, from the shipped ``m_quality`` run
-(INet → sharpen/resample/gaussian/jpeg:80 → pool → JPEG QF 50 → FAN), on the
+(INet → sharpen/resample/gaussian/jpeg:80 → pool → JPEG QF 50 → FAN) and the
+``m_quality_qtables`` run (the same with a trainable JPEG channel), on the
 CPU at raw patch 16 and batch 2.
 
 Tolerances: at patch 16, images in [0, 1] agree to 1e-5 (float32, other
@@ -26,19 +27,22 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_DIR = os.path.join(ROOT, 'data/m_quality/QualityRef/INet/fixed-nip/fixed-codec/000')
+# a run whose channel is a trainable JPEG ("JPEG (soft) trainable QF~50/50")
+TRAINABLE_RUN_DIR = os.path.join(ROOT, 'data/m_quality_qtables/QualityRef/INet/fixed-nip/'
+                                 'lc-0.1000/000')
 PATCH = 16
 
 
-def reference_flow(patch=PATCH):
+def reference_flow(patch=PATCH, run_dir=RUN_DIR):
     """The JAX flow of the run, restored as test_fan.py restores one."""
-    with open(os.path.join(RUN_DIR, 'training.json')) as f:
+    with open(os.path.join(run_dir, 'training.json')) as f:
         log = json.load(f)
     fan_args = {k: v for k, v in log['forensics']['args'].items() if k != 'n_classes'}
     flow = JaxFlow('INet', manipulations=[m for m in log['manipulations'] if m != 'native'],
                    distribution=log['distribution'], fan_args=fan_args,
                    raw_patch_size=patch, nip_args=log['nip']['args'])
-    flow.fan.load_model(os.path.join(RUN_DIR, 'models/fan'))
-    flow.nip.load_model(os.path.join(RUN_DIR, 'models/inet'))
+    flow.fan.load_model(os.path.join(run_dir, 'models/fan'))
+    flow.nip.load_model(os.path.join(run_dir, 'models/inet'))
     flow.params = flow._collect_params()
     return flow
 
@@ -55,11 +59,7 @@ def camera_batch(seed):
     return (np.stack(stacks).astype(np.float32) / 65535.0)
 
 
-@pytest.mark.parametrize('inputs', ['camera', 'uniform'])
-def test_slice_matches_reference(flows, inputs):
-    ref, port = flows
-    x = (camera_batch(20) if inputs == 'camera'
-         else np.random.default_rng(21).random((2, PATCH, PATCH, 4)).astype(np.float32))
+def assert_slice_matches(ref, port, x):
     expected = ref.run_workflow(x)
     got = port.run_workflow(x)
     names = ('batch_Y', 'batch_c', 'batch_C', 'entropy', 'probabilities')
@@ -76,6 +76,35 @@ def test_slice_matches_reference(flows, inputs):
                                   ref.run_workflow_to_decisions(x))
 
 
+@pytest.mark.parametrize('inputs', ['camera', 'uniform'])
+def test_slice_matches_reference(flows, inputs):
+    x = (camera_batch(20) if inputs == 'camera'
+         else np.random.default_rng(21).random((2, PATCH, PATCH, 4)).astype(np.float32))
+    assert_slice_matches(*flows, x)
+
+
+@pytest.fixture(scope='module')
+def trainable_flows():
+    return (reference_flow(run_dir=TRAINABLE_RUN_DIR),
+            ManipulationClassification.restore(TRAINABLE_RUN_DIR, PATCH, device='cpu'))
+
+
+def test_trainable_channel_is_restored_as_the_reference_restores_it(trainable_flows):
+    ref, port = trainable_flows
+    assert port.codec.trainable and ref.codec.trainable
+    assert repr(port.codec) == repr(ref.codec) == 'JPEG(quality=50,codec="soft",trainable=True)'
+    tables = port.codec._model.params
+    assert tables['q_mtx_luma'].requires_grad
+    np.testing.assert_array_equal(tables['q_mtx_luma'].detach().numpy(),
+                                  ref.codec._model.q_mtx_luma)
+    np.testing.assert_array_equal(tables['q_mtx_chroma'].detach().numpy(),
+                                  ref.codec._model.q_mtx_chroma)
+
+
+def test_trainable_channel_slice_matches_reference(trainable_flows):
+    assert_slice_matches(*trainable_flows, camera_batch(30))
+
+
 def test_restored_flow_shape(flows):
     _, port = flows
     assert port.forensics_classes == ['native', 'sharpen:1', 'resample:50', 'gaussian:0.83',
@@ -90,6 +119,7 @@ def test_restored_flow_shape(flows):
     {'distribution': {'compression': 'dcn'}},
     {'manipulations': ['awgn']},
     {'nip_model': 'UNet'},
+    {'distribution': {'compression_params': {'quality': 50, 'codec': 'soft', 'dirname': 'x'}}},
 ])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
