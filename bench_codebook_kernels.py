@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """
-Device time of the codebook kernels K2 (``codebook_fwd``) and K4
-(``codebook_bwd_train``) of this tree against those of another tree
-(``--baseline``: a directory that holds another
+Device time of the codebook kernels K2 (``codebook_fwd``), K3
+(``codebook_bwd``) and K4 (``codebook_bwd_train``) of this tree against those
+of another tree (``--baseline``: a directory that holds another
 ``neural_imaging_tpu_torch/``, for example a commit unpacked by
 ``git archive``), on one GPU, at the DCN paths' shapes: K2 at N = 196,608
-(one 512x768 serving request) and N = 131,072 (one training step), K4 at N =
-131,072, L = 32.
+(one 512x768 serving request) and N = 131,072 (one training step), K3 (on
+the fixed integer codebook) and K4 (on a codebook moved off the integers) at
+N = 131,072, L = 32.
 
 Both trees' kernels are built from their own sources and called through
 their own wrappers on the same inputs. Each is first held against the plain
@@ -67,6 +68,8 @@ def cases(seed, device):
                     n * (n_codes * chip_smoke.K2_PER_CODE + chip_smoke.K2_PER_VALUE)))
     g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
     pc = torch.from_numpy(rng.standard_normal(n_codes).astype(np.float32)).to(device)
+    out.append((f'codebook_bwd N={n}', 'codebook_bwd', n, (z, g, cb, pc), 12 * n + 8 * n_codes,
+                n * (n_codes * chip_smoke.K3_PER_CODE + chip_smoke.K3_PER_VALUE)))
     out.append((f'codebook_bwd_train N={n}', 'codebook_bwd_train', n, (z, g, cb + 0.05, pc),
                 12 * n + 12 * n_codes,
                 n * (n_codes * chip_smoke.K4_PER_CODE + chip_smoke.K4_PER_VALUE)))
@@ -83,6 +86,10 @@ def check(module, kernel, inputs):
             raise AssertionError(f'{module.__name__}: {report}')
         return report
     z, g, cb, pc = inputs
+    if kernel == 'codebook_bwd':
+        return codebook.check_backward(module.codebook_bwd_cuda(*inputs),
+                                       codebook.codebook_bwd_plain(*inputs),
+                                       codebook.backward_error_scale(*inputs)[0])
     dz, dcb = module.codebook_bwd_train_cuda(*inputs)
     dz_ref, dcb_ref = codebook.codebook_bwd_train_plain(*inputs)
     dz_scale, dcb_scale = codebook.backward_error_scale(z, g, cb, pc)

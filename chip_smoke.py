@@ -16,12 +16,18 @@ NVIDIA GPU:
    → 4 manipulations → pool → JPEG QF 50 → FAN, full width) and answer
    requests of raw 128-px patches with ``run_workflow_to_decisions``; check
    the probabilities, and against the same forward on the CPU;
-5. DCN serving: restore the 32c codec and answer requests of one 512x768
+5. main-path training: the joint INet + FAN step of the same run with the
+   NIP trainable (λ_nip 0.1, lr 1e-4) on batches of raw 128-px patches and
+   their 256-px RGB targets: the first step's loss parts and gradient norms
+   against the port's own CPU step (``compare_steps``), then timed steps at
+   fixed strengths and a few with ``augment=True``, K1 twice a step; check
+   the losses and that the NIP and the FAN moved;
+6. DCN serving: restore the 32c codec and answer requests of one 512x768
    RGB image each, ``codec.compress`` → bytes → ``codec.decompress``; check
    the bitstream round trip, and the latent and decode against the CPU;
-6. DCN training: steps of the 32c codec (fixed codebook, K2 + K3) and of a
+7. DCN training: steps of the 32c codec (fixed codebook, K2 + K3) and of a
    trainable-codebook copy (K2 + K4) at batch 16 of 128-px patches;
-7. print one JSON line of the kernels, then the last line
+8. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -49,7 +55,7 @@ from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops.hopper import _build, codebook, jpeg8x8
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
-    ManipulationClassification, compare_probabilities)
+    ManipulationClassification, compare_probabilities, compare_steps)
 
 RUN_DIR = 'data/m_quality/QualityRef/INet/fixed-nip/fixed-codec/000'
 RAW_PATCH = 128
@@ -58,6 +64,8 @@ DCN_IMAGE = (512, 768)          # one serving request: 64 x 96 x 32 latent, N = 
 DCN_BATCH, DCN_PATCH = 16, 128  # one training step: 16 x 16 x 16 x 32 latent, N = 131,072
 DCN_LR = 1e-4
 DCN_REQUESTS, DCN_STEPS, DCN_TRAIN_CODEBOOK_STEPS = 5, 5, 3
+TRAIN_STEPS, TRAIN_AUGMENTED_STEPS = 10, 3   # main-path steps, after a warm-up
+TRAIN_LAMBDA_NIP, TRAIN_LR = 0.1, 1e-4
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
 # kernel's work is the larger of bytes / memory rate and FLOPs / peak rate.
@@ -306,6 +314,86 @@ def expect_counts(path, counts, expected):
         raise AssertionError(f'{path}: launches {counts}, expected {expected}')
 
 
+def training_batches(seed, n, batch):
+    """``n`` (raw, target) pairs on the device: raw 128-px RGGB patches and
+    256-px RGB targets, made on the host and copied once, as a trainer's
+    device-resident batches are."""
+    return [(torch.from_numpy(synthetic_raw(seed + i, batch, RAW_PATCH)).cuda(),
+             torch.from_numpy(synthetic_rgb(seed + 50 + i, batch, 2 * RAW_PATCH,
+                                            2 * RAW_PATCH)).cuda()) for i in range(n)]
+
+
+def main_path_training(args, device):
+    """The joint INet + FAN training step at full width; returns (launch
+    counts, results)."""
+    flow = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, trainable={'nip'},
+                                              rng_seed=args.seed, device=device)
+    flow.nan_check = False        # checked once at the end (assert_finite)
+    batches = training_batches(args.seed + 300, TRAIN_STEPS + 1, args.batch)
+
+    # the first step's loss and gradients against the port's own CPU step
+    cpu = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, trainable={'nip'},
+                                             device='cpu')
+    bx, by = batches[0]
+    card = flow.loss_and_gradients(bx, by, TRAIN_LAMBDA_NIP)
+    step_cpu = cpu.loss_and_gradients(bx.cpu(), by.cpu(), TRAIN_LAMBDA_NIP)
+    agreement = compare_steps(card, step_cpu)
+    print(f'[train] first step vs the CPU: loss parts within '
+          f'{agreement["max_loss_rel_diff"]:.3g} (relative), gradient norms within '
+          f'{agreement["max_grad_norm_rel_diff"]:.3g}; norms {agreement["grad_norms"]} vs '
+          f'{agreement["grad_norms_ref"]}', flush=True)
+
+    before = {part: {k: p.detach().clone() for k, p in leaves.items()}
+              for part, leaves in flow._collect_params().items()}
+    flow.training_step(bx, by, TRAIN_LAMBDA_NIP, learning_rate=TRAIN_LR)   # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = {False: [], True: []}, []
+    for i in range(TRAIN_STEPS + TRAIN_AUGMENTED_STEPS):
+        augment = i >= TRAIN_STEPS
+        bx, by = batches[1 + i % TRAIN_STEPS]
+        launched = jpeg8x8.jpeg_core_cuda.launches
+        t0 = time.perf_counter()
+        loss, parts = flow.training_step(bx, by, TRAIN_LAMBDA_NIP, augment=augment,
+                                         learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        times[augment].append(time.perf_counter() - t0)
+        launched = jpeg8x8.jpeg_core_cuda.launches - launched
+        losses.append({'loss': float(loss), **{k: float(v) for k, v in parts.items()}})
+        print(f'[train] step {i}{" (augment)" if augment else ""}: '
+              f'{1e3 * times[augment][-1]:.2f} ms, loss {losses[-1]["loss"]:.4f} '
+              f'ce {losses[-1]["ce"]:.4f} nip {losses[-1]["nip"]:.3f}, K1 launches {launched}',
+              flush=True)
+        if launched != 2:
+            raise AssertionError(f'training step {i} launched K1 {launched} times, expected 2')
+    counts = read_counts()
+    expect_counts('main-path training', counts,
+                  {'jpeg8x8': 2 * (TRAIN_STEPS + TRAIN_AUGMENTED_STEPS)})
+    flow.assert_finite()
+    if not all(np.isfinite(v) for step in losses for v in step.values()):
+        raise AssertionError(f'non-finite training losses {losses}')
+    moved = {part: max(float((p.detach() - before[part][k]).abs().max())
+                       for k, p in leaves.items())
+             for part, leaves in flow._collect_params().items()}
+    if not (moved['nip'] > 0 and moved['fan'] > 0):
+        raise AssertionError(f'parameters did not move: {moved}')
+    median = float(np.median(times[False]))
+    print(f'[train] median step {1e3 * median:.2f} ms: {1 / median:.2f} steps/s, '
+          f'{args.batch / median:.1f} raw patches/s; augmented steps '
+          f'{", ".join(f"{1e3 * t:.2f}" for t in times[True])} ms; K1 launches a step '
+          f'{counts["jpeg8x8"] / (TRAIN_STEPS + TRAIN_AUGMENTED_STEPS):g}; largest parameter '
+          f'change {moved}', flush=True)
+    return counts, {'batch': args.batch, 'raw_patch': RAW_PATCH, 'lambda_nip': TRAIN_LAMBDA_NIP,
+                    'lr': TRAIN_LR, 'step_ms': [1e3 * t for t in times[False]],
+                    'augmented_step_ms': [1e3 * t for t in times[True]],
+                    'median_ms': 1e3 * median, 'steps_per_s': 1 / median,
+                    'raw_patches_per_s': args.batch / median,
+                    'k1_launches_per_step': counts['jpeg8x8'] / (TRAIN_STEPS
+                                                                 + TRAIN_AUGMENTED_STEPS),
+                    'losses': losses, 'largest_change': moved,
+                    'cpu_first_step': agreement}
+
+
 def dcn_serving(args, device):
     """Answer requests of one 512x768 image each through the bitstream;
     returns (launch counts, results)."""
@@ -532,13 +620,17 @@ def main():
     print(f'[slice] request 0 vs the CPU: max |dp| {report["max_abs_diff"]:.3g}, '
           f'{report["decided_rows"]}/{report["rows"]} decided rows agree', flush=True)
 
-    # 5.-6. the DCN paths
+    # 5. main-path training
+    train_main_counts, train_main = main_path_training(args, device)
+    print('[train] ' + json.dumps(train_main), flush=True)
+
+    # 6.-7. the DCN paths
     serve_counts, serving = dcn_serving(args, device)
     fixed_counts, train_counts, training = dcn_training(args, device)
     print('[dcn] ' + json.dumps({'serving': serving, 'training': training,
                                  'kernel_shapes': k234}), flush=True)
 
-    # 7. results: K1's numbers are its two launches of one request, summed;
+    # 8. results: K1's numbers are its two launches of one request, summed;
     # K2's are at the serving shape, K3's and K4's at the training shape
     print('[slice] ' + json.dumps({
         'requests': args.requests, 'batch': args.batch,
@@ -548,7 +640,7 @@ def main():
     kernels = [{'name': 'jpeg8x8', 'route': 'cuda',
                 'source': 'neural_imaging_tpu_torch/csrc/jpeg8x8.cu',
                 'replaces': 'neural_imaging_tpu/ops/pallas/jpeg8x8.py:34',
-                'launches': slice_counts['jpeg8x8'],
+                'launches': slice_counts['jpeg8x8'] + train_main_counts['jpeg8x8'],
                 'max_abs_err': max(r['max_abs_err'] for r in k1),
                 'ms': sum(r['ms'] for r in k1),
                 'plain_ms': sum(r['plain_ms'] for r in k1),

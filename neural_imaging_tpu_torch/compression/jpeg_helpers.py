@@ -1,7 +1,8 @@
 """
-IJG quantization tables (public Annex-K standard) and the quality scaling law.
-Copy of the table part of ``neural_imaging_tpu/compression/jpeg_helpers.py``
-without its PIL-based libjpeg bridge.
+IJG quantization tables (public Annex-K standard), the quality scaling law
+and the quality estimate of a table. Copy of the table part of
+``neural_imaging_tpu/compression/jpeg_helpers.py`` without its PIL-based
+libjpeg bridge.
 """
 import numpy as np
 
@@ -33,3 +34,10 @@ def jpeg_qtable(quality, channel=0):
     t = K1_LUMA if channel == 0 else K2_CHROMA
     t = np.floor((t * scale + 50.0) / 100.0)
     return np.clip(t, 1, 255).astype(np.float32)
+
+
+def jpeg_qf_estimation(q_mtx, channel=0):
+    """The quality factor whose IJG table is nearest ``q_mtx`` (mean |diff|)."""
+    q_mtx = np.asarray(q_mtx)
+    errors = [np.mean(np.abs(jpeg_qtable(qf, channel) - q_mtx)) for qf in range(1, 101)]
+    return int(np.argmin(errors)) + 1

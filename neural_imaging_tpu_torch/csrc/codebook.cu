@@ -31,7 +31,7 @@
 // instructions/byte ridge (chip_smoke.py states the count, with the costs
 // that sass_costs.py measures).
 //
-// K2 and K4 (the design of this file for them):
+// K2, K3 and K4 (the design of this file for them):
 // - The maximum needs no transcendental: both weight kernels fall
 //   monotonically with |x - c|, so the nearest codeword (by the rounded
 //   |x - c|, which is monotone in the exact distance) holds the largest
@@ -50,8 +50,8 @@
 //   pass. K2 takes its weights' exp as ex2.approx (its soft value is held
 //   to an absolute tolerance); K3 and K4 keep the accurate expf and IEEE
 //   divisions, in the plain version's order, because check_backward holds
-//   each dcb_j to its own terms' scale, which for a codeword far from
-//   every value lies in the subnormal range. Other L (up to 256) take the
+//   each dz and dcb_j to its own terms' scale, which for a dcb_j of a
+//   codeword far from every value lies in the subnormal range. Other L (up to 256) take the
 //   two passes of the first design with runtime loops, and K4 evaluates
 //   lw_j and dlw_j again for its codebook pass there.
 // - K4 reduces dcb without atomics. For L = 32, each warp sums its 32
@@ -64,10 +64,12 @@
 //   at kTrainBlocksPerSM blocks per SM, so there are few rows, and a second
 //   kernel sums them, one warp per codeword, in a fixed order: a repeated
 //   call on one card and grid gives the same bits.
-// - The launch bounds cap K2 at 64 registers (4 blocks of 256 per SM) and
-//   K4 at 128 (2 blocks): at L = 32 the unrolled passes would take ~120 and
-//   ~220.
-// K3 keeps the first design: two passes, each log-weight evaluated twice.
+// - K3 is K4's first kernel without the codebook pass: one templated body
+//   (codebook_bwd_kernel, kTrain false for K3) takes the same one pass for
+//   L = 32 and keeps no w~_j or dlw_j in registers.
+// - The launch bounds cap K2 and K3 at 64 registers (4 blocks of 256 per SM)
+//   and K4 at 128 (2 blocks): at L = 32 the unrolled passes would take ~120
+//   and ~220.
 //
 // Numerics: build without --use_fast_math, so log1pf, expf and the divisions
 // are the accurate ones wherever they are written so, and the argmax agrees
@@ -86,6 +88,7 @@ constexpr int kMaxCodes = 256;
 constexpr int kFastCodes = 32;    // the L compiled with unrolled loops
 constexpr float kNegInf = -1e30f;
 constexpr int kFwdBlocksPerSM = 4;    // K2 in at most 64 registers
+constexpr int kBwdBlocksPerSM = 4;    // K3 in at most 64 registers
 constexpr int kTrainBlocksPerSM = 2;  // K4 in at most 128 registers (TRAIN_BLOCKS_PER_SM)
 
 // e^x to a few ulp (ex2.approx of x log2 e); a result below 2^-126 is 0
@@ -101,7 +104,7 @@ __device__ __forceinline__ float exp_approx(float x) {
 // that round to the IEEE quotient for t in [2^-64, 2^64] and 2^-10 <= v <=
 // 2^10 (check_division.py compares them for every such float t at several
 // v), so lw keeps its bits. The accurate forms (logw, logw_dlogw)
-// serve K3, every L other than 32, and the values outside that range.
+// serve every L other than 32 and the values outside that range.
 template <bool kGauss>
 struct Weights {
   float v;      // degrees of freedom (t-Student)
@@ -172,22 +175,6 @@ struct Weights {
     }
   }
 
-  // K3's second pass: s = sum w~, a = sum w~ dlw, b = sum c w~ dlw,
-  // csum = sum c w~, with w~ = exp(lw - m)
-  __device__ __forceinline__ void sums(float x, const float* cb, int L, float m, float& s,
-                                       float& a, float& b, float& csum) const {
-    s = a = b = csum = 0.f;
-    for (int j = 0; j < L; ++j) {
-      const float c = cb[j];
-      float lw, dlw;
-      logw_dlogw(x, c, lw, dlw);
-      const float w = expf(lw - m);
-      s += w;
-      a += w * dlw;
-      b += c * (w * dlw);
-      csum += c * w;
-    }
-  }
 };
 
 template <bool kGauss>
@@ -233,21 +220,22 @@ __device__ __forceinline__ float nearest_code(float x, const float* cb, float& d
 }
 
 // One pass of a value over the codewords against a maximum m: the sums of
-// w~_j = exp(lw_j - m), s and csum, with kBackward also a and b and, for
-// kL > 0, w~_j and dlw_j in w[], dl[].
+// w~_j = exp(lw_j - m), s and csum, with kBackward also a and b and, with
+// kKeep (K4 at L = 32), w~_j and dlw_j in w[], dl[].
 // kFast (L = 32; m is the nearest codeword's log-weight, a trial maximum):
 // the fast forms of the log-weights and, for K2, whose soft value is held to
-// an absolute tolerance, the weights' exp as ex2.approx (K4 keeps the
+// an absolute tolerance, the weights' exp as ex2.approx (K3 and K4 keep the
 // accurate expf: check_backward holds each dcb_j to its terms' own scale,
 // which for a codeword far from every value lies in the subnormal range,
 // where only the plain version's own arithmetic meets it). Returns whether
 // m is the maximum, no lw_j being above it, and then `best` is the first j
 // with lw_j == m. Otherwise (m is the maximum already) returns true.
-template <bool kGauss, int kL, bool kBackward, bool kFast>
+template <bool kGauss, int kL, bool kBackward, bool kKeep, bool kFast>
 __device__ __forceinline__ bool one_pass(const Weights<kGauss>& k, float x, const float* cb,
                                          int L, float m, float& s, float& a, float& b,
                                          float& csum, int& best, float* w, float* dl) {
   static_assert(!kFast || kL == kFastCodes, "the fast forms are compiled for L = 32");
+  static_assert(!kKeep || (kBackward && kL > 0), "only K4 at a compiled L keeps w~ and dlw");
   const int n = kL > 0 ? kL : L;
   s = a = b = csum = 0.f;
   float mx = kNegInf;
@@ -270,7 +258,7 @@ __device__ __forceinline__ bool one_pass(const Weights<kGauss>& k, float x, cons
     if (kBackward) {
       a += wt * dlw;
       b += c * (wt * dlw);
-      if (kL > 0) {
+      if (kKeep) {
         w[j] = wt;
         dl[j] = dlw;
       }
@@ -287,7 +275,7 @@ __device__ __forceinline__ bool one_pass(const Weights<kGauss>& k, float x, cons
 // (the fast forms in range, no log-weight above it and one equal to it);
 // otherwise, and for any other L, the two-pass rule: the max and its first
 // argmax, then the sums. cmin, cmax: the smallest and largest codeword.
-template <bool kGauss, int kL, bool kBackward>
+template <bool kGauss, int kL, bool kBackward, bool kKeep>
 __device__ __forceinline__ void value_pass(const Weights<kGauss>& k, float x, const float* cb,
                                            int L, float cmin, float cmax, float& m, float& s,
                                            float& a, float& b, float& csum, int& best, float* w,
@@ -298,13 +286,14 @@ __device__ __forceinline__ void value_pass(const Weights<kGauss>& k, float x, co
     if (dn >= k.d_lo && fmaxf(fabsf(x - cmin), fabsf(x - cmax)) <= k.d_hi) {
       m = k.logw_fast(x, cn);
       if (m > kNegInf &&
-          one_pass<kGauss, kL, kBackward, true>(k, x, cb, L, m, s, a, b, csum, best, w, dl)) {
+          one_pass<kGauss, kL, kBackward, kKeep, true>(k, x, cb, L, m, s, a, b, csum, best, w,
+                                                       dl)) {
         return;
       }
     }
   }
   k.argmax(x, cb, L, m, best);
-  one_pass<kGauss, kL, kBackward, false>(k, x, cb, L, m, s, a, b, csum, best, w, dl);
+  one_pass<kGauss, kL, kBackward, kKeep, false>(k, x, cb, L, m, s, a, b, csum, best, w, dl);
 }
 
 // The smallest and the largest of the L codewords in shared memory.
@@ -333,35 +322,10 @@ codebook_fwd_kernel(const float* __restrict__ z, const float* __restrict__ cb, i
     const float x = z[i];
     float m, s, a, b, acc;
     int best;
-    value_pass<kGauss, kL, false>(k, x, s_cb, L, cmin, cmax, m, s, a, b, acc, best, nullptr,
-                                  nullptr);
+    value_pass<kGauss, kL, false, false>(k, x, s_cb, L, cmin, cmax, m, s, a, b, acc, best,
+                                         nullptr, nullptr);
     soft[i] = acc / s;
     hard[i] = best;
-  }
-}
-
-// K3: dz (N,) from z, g (N,), cb and pc (L,), the entropy cotangent at each
-// codeword.
-template <bool kGauss>
-__global__ void __launch_bounds__(kThreads)
-codebook_bwd_kernel(const float* __restrict__ z, const float* __restrict__ g,
-                    const float* __restrict__ cb, const float* __restrict__ pc, int L,
-                    long long n, float inv_n, Weights<kGauss> k, float* __restrict__ dz) {
-  __shared__ float s_cb[kMaxCodes];
-  __shared__ float s_pc[kMaxCodes];
-  load_codes(cb, s_cb, L);
-  load_codes(pc, s_pc, L);
-  __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float x = z[i];
-    float m;
-    int best;
-    k.argmax(x, s_cb, L, m, best);
-    float s, a, b, csum;
-    k.sums(x, s_cb, L, m, s, a, b, csum);
-    dz[i] = (g[i] + s_pc[best] * inv_n) * ((b - csum * (a / s)) / s);
   }
 }
 
@@ -386,32 +350,35 @@ __device__ __forceinline__ float warp_transpose_sum(float (&v)[kFastCodes]) {
   }
 }
 
-// K4, first kernel: K3's dz, and one row of dcb partial sums per block in
-// partial (gridDim.x, L). Whole warps step through the grid-stride loop
-// together (the shuffles need every lane); lanes past N add nothing.
-template <bool kGauss, int kL>
-__global__ void __launch_bounds__(kThreads, kTrainBlocksPerSM)
-codebook_bwd_train_kernel(const float* __restrict__ z, const float* __restrict__ g,
-                          const float* __restrict__ cb, const float* __restrict__ pc,
-                          int L, long long n, float inv_n, Weights<kGauss> k,
-                          float* __restrict__ dz, float* __restrict__ partial) {
+// K3 (kTrain false): dz (N,) from z, g (N,), cb and pc (L,), the entropy
+// cotangent at each codeword. K4's first kernel (kTrain): the same dz, and
+// one row of dcb partial sums per block in partial (gridDim.x, L). Whole
+// warps step through the grid-stride loop together (K4's shuffles need every
+// lane); lanes past N store and add nothing.
+template <bool kGauss, int kL, bool kTrain>
+__global__ void __launch_bounds__(kThreads, kTrain ? kTrainBlocksPerSM : kBwdBlocksPerSM)
+codebook_bwd_kernel(const float* __restrict__ z, const float* __restrict__ g,
+                    const float* __restrict__ cb, const float* __restrict__ pc, int L,
+                    long long n, float inv_n, Weights<kGauss> k, float* __restrict__ dz,
+                    float* __restrict__ partial) {
   static_assert(kL == 0 || kL == kFastCodes, "the compiled L is one warp of codewords");
-  constexpr int kKept = kL > 0 ? kL : 1;
+  constexpr bool kKeep = kTrain && kL > 0;
+  constexpr int kKept = kKeep ? kL : 1;
   __shared__ float s_cb[kMaxCodes];
   __shared__ float s_pc[kMaxCodes];
-  __shared__ float s_acc[kWarps][kMaxCodes];
+  __shared__ float s_acc[kTrain ? kWarps : 1][kMaxCodes];
   load_codes(cb, s_cb, L);
   load_codes(pc, s_pc, L);
-  if (kL == 0) {
+  if (kTrain && kL == 0) {
     for (int j = threadIdx.x; j < kWarps * kMaxCodes; j += blockDim.x) (&s_acc[0][0])[j] = 0.f;
   }
   __syncthreads();
-  float cmin, cmax;
-  code_range(s_cb, L, cmin, cmax);
+  float cmin = 0.f, cmax = 0.f;
+  if (kL > 0) code_range(s_cb, L, cmin, cmax);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float dcb = 0.f;  // kL > 0: this warp's sum for codeword `lane`
+  float dcb = 0.f;  // K4, kL > 0: this warp's sum for codeword `lane`
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < n;
        base += stride) {
@@ -420,41 +387,45 @@ codebook_bwd_train_kernel(const float* __restrict__ z, const float* __restrict__
     const float x = valid ? z[i] : s_cb[0];
     float m, s, a, b, csum, w[kKept], dl[kKept];
     int best;
-    value_pass<kGauss, kL, true>(k, x, s_cb, L, cmin, cmax, m, s, a, b, csum, best, w, dl);
+    value_pass<kGauss, kL, true, kKeep>(k, x, s_cb, L, cmin, cmax, m, s, a, b, csum, best, w,
+                                        dl);
     const float gn = (valid ? g[i] : 0.f) + s_pc[best] * inv_n;
-    const float gm = valid ? gn : 0.f;
-
-    const float soft = csum / s;
     if (valid) dz[i] = gn * ((b - csum * (a / s)) / s);
-    if constexpr (kL > 0) {
-      // this warp's values' shares of dcb_j from the w~_j and dlw_j they
-      // kept, in the plain version's order (w~_j / s as w~_j (1/s)), summed
-      // across the lanes
-      const float r = 1.f / s;
+    if constexpr (kTrain) {
+      const float gm = valid ? gn : 0.f;
+      const float soft = csum / s;
+      if constexpr (kL > 0) {
+        // this warp's values' shares of dcb_j from the w~_j and dlw_j they
+        // kept, in the plain version's order (w~_j / s as w~_j (1/s)), summed
+        // across the lanes
+        const float r = 1.f / s;
 #pragma unroll
-      for (int j = 0; j < kL; ++j) w[j] = gm * (w[j] * r) * (1.f - dl[j] * (s_cb[j] - soft));
-      dcb += warp_transpose_sum<16>(w);
-    } else {
-      // this warp's share of dcb_j, evaluated again and summed by a shuffle
-      // tree
-      for (int j = 0; j < L; ++j) {
-        const float c = s_cb[j];
-        float lw, dlw;
-        k.logw_dlogw(x, c, lw, dlw);
-        const float wj = expf(lw - m) / s;
-        float t = gm * wj * (1.f - dlw * (c - soft));
+        for (int j = 0; j < kL; ++j) w[j] = gm * (w[j] * r) * (1.f - dl[j] * (s_cb[j] - soft));
+        dcb += warp_transpose_sum<16>(w);
+      } else {
+        // this warp's share of dcb_j, evaluated again and summed by a shuffle
+        // tree
+        for (int j = 0; j < L; ++j) {
+          const float c = s_cb[j];
+          float lw, dlw;
+          k.logw_dlogw(x, c, lw, dlw);
+          const float wj = expf(lw - m) / s;
+          float t = gm * wj * (1.f - dlw * (c - soft));
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(0xffffffffu, t, off);
-        if (lane == 0) s_acc[warp][j] += t;
+          for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(0xffffffffu, t, off);
+          if (lane == 0) s_acc[warp][j] += t;
+        }
       }
     }
   }
-  if (kL > 0) s_acc[warp][lane] = dcb;
-  __syncthreads();
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    float t = 0.f;
-    for (int r = 0; r < kWarps; ++r) t += s_acc[r][j];
-    partial[static_cast<size_t>(blockIdx.x) * L + j] = t;
+  if constexpr (kTrain) {
+    if (kL > 0) s_acc[warp][lane] = dcb;
+    __syncthreads();
+    for (int j = threadIdx.x; j < L; j += blockDim.x) {
+      float t = 0.f;
+      for (int r = 0; r < kWarps; ++r) t += s_acc[r][j];
+      partial[static_cast<size_t>(blockIdx.x) * L + j] = t;
+    }
   }
 }
 
@@ -472,7 +443,7 @@ sum_rows_kernel(const float* __restrict__ partial, int rows, int L, float* __res
   if (lane == 0) out[j] = t;
 }
 
-// K2 and K4 compiled for L = 32, or for any L
+// K2, K3 and K4 compiled for L = 32, or for any L
 template <bool kGauss>
 void launch_fwd(const float* z, const float* cb, int L, long long n, double v, double gamma,
                 int blocks, float* soft, int* hard, cudaStream_t stream) {
@@ -485,16 +456,17 @@ void launch_fwd(const float* z, const float* cb, int L, long long n, double v, d
   }
 }
 
-template <bool kGauss>
-void launch_bwd_train(const float* z, const float* g, const float* cb, const float* pc, int L,
-                      long long n, float inv_n, double v, double gamma, int blocks, float* dz,
-                      float* partial, cudaStream_t stream) {
+// K3 (kTrain false; partial unused) or K4's first kernel
+template <bool kGauss, bool kTrain>
+void launch_bwd(const float* z, const float* g, const float* cb, const float* pc, int L,
+                long long n, float inv_n, double v, double gamma, int blocks, float* dz,
+                float* partial, cudaStream_t stream) {
   const Weights<kGauss> k = make_weights<kGauss>(v, gamma);
   if (L == kFastCodes) {
-    codebook_bwd_train_kernel<kGauss, kFastCodes><<<blocks, kThreads, 0, stream>>>(
+    codebook_bwd_kernel<kGauss, kFastCodes, kTrain><<<blocks, kThreads, 0, stream>>>(
         z, g, cb, pc, L, n, inv_n, k, dz, partial);
   } else {
-    codebook_bwd_train_kernel<kGauss, 0><<<blocks, kThreads, 0, stream>>>(
+    codebook_bwd_kernel<kGauss, 0, kTrain><<<blocks, kThreads, 0, stream>>>(
         z, g, cb, pc, L, n, inv_n, k, dz, partial);
   }
 }
@@ -528,11 +500,9 @@ extern "C" int codebook_bwd(const float* z, const float* g, const float* cb, con
   if (set != cudaSuccess) return static_cast<int>(set);
   const float inv_n = static_cast<float>(1.0 / static_cast<double>(n));
   if (v <= 0) {
-    codebook_bwd_kernel<true><<<blocks, kThreads, 0, stream>>>(
-        z, g, cb, pc, L, n, inv_n, make_weights<true>(v, gamma), dz);
+    launch_bwd<true, false>(z, g, cb, pc, L, n, inv_n, v, gamma, blocks, dz, nullptr, stream);
   } else {
-    codebook_bwd_kernel<false><<<blocks, kThreads, 0, stream>>>(
-        z, g, cb, pc, L, n, inv_n, make_weights<false>(v, gamma), dz);
+    launch_bwd<false, false>(z, g, cb, pc, L, n, inv_n, v, gamma, blocks, dz, nullptr, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -545,9 +515,9 @@ extern "C" int codebook_bwd_train(const float* z, const float* g, const float* c
   if (set != cudaSuccess) return static_cast<int>(set);
   const float inv_n = static_cast<float>(1.0 / static_cast<double>(n));
   if (v <= 0) {
-    launch_bwd_train<true>(z, g, cb, pc, L, n, inv_n, v, gamma, blocks, dz, partial, stream);
+    launch_bwd<true, true>(z, g, cb, pc, L, n, inv_n, v, gamma, blocks, dz, partial, stream);
   } else {
-    launch_bwd_train<false>(z, g, cb, pc, L, n, inv_n, v, gamma, blocks, dz, partial, stream);
+    launch_bwd<false, true>(z, g, cb, pc, L, n, inv_n, v, gamma, blocks, dz, partial, stream);
   }
   const cudaError_t first = cudaGetLastError();
   if (first != cudaSuccess) return static_cast<int>(first);

@@ -100,12 +100,18 @@ class FANCore(nn.Module):
 
 def sparse_categorical_crossentropy(labels, probabilities):
     """Mean CE over probabilities clipped to [1e-7, 1] (tf.keras parity)."""
-    p = torch.clamp(probabilities, 1e-7, 1.0)
+    p = ops.clip(probabilities, 1e-7, 1.0)
     return -torch.log(p.gather(-1, labels.long()[:, None])[:, 0]).mean()
 
 
 class FAN(TorchModel):
-    """Forensic analysis network (float32, separate stem)."""
+    """Forensic analysis network (float32, separate stem).
+
+    ``dropout`` is accepted, as checkpoints record it, but never applied: the
+    reference applies it only in the FAN's own ``training_step``, which is
+    not ported, while the joint manipulation-classification step runs the
+    FAN deterministically (its ``_fan_apply`` calls the FAN with
+    ``train=False``)."""
 
     def __init__(self, n_classes, patch_size=None, n_filters=32, n_fscale=2,
                  n_convolutions=4, kernel=5, dropout=0.0, use_gap=True, n_dense=0,
@@ -118,7 +124,6 @@ class FAN(TorchModel):
             raise ValueError(f'Unsupported constrained_impl {constrained_impl!r}')
         if activation not in ops.ACTIVATIONS:
             raise ValueError(f'Unsupported activation {activation!r}')
-        # dropout acts only in training, which this port does not run yet
         self.patch_size = patch_size
         super().__init__(FANCore(n_classes=n_classes, n_filters=n_filters,
                                  n_fscale=n_fscale, n_convolutions=n_convolutions,
@@ -126,8 +131,21 @@ class FAN(TorchModel):
                                  activation=activation, patch_size=patch_size, seed=seed),
                          device)
 
+    def loss(self, target_labels, class_probabilities):
+        """Cross-entropy of the probabilities against integer labels."""
+        labels = torch.as_tensor(target_labels, device=class_probabilities.device)
+        return sparse_categorical_crossentropy(labels, class_probabilities)
+
     def process(self, batch_x):
         """Class probabilities of an NHWC image batch (N, h, w, 3)."""
         x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device)
         with torch.no_grad():
             return self.module(x.permute(0, 3, 1, 2))
+
+    def process_and_decide(self, batch_x, with_confidence=False):
+        """Predicted class of each image (numpy), and with ``with_confidence``
+        the probability of that class."""
+        probs = self.process(batch_x).cpu().numpy()
+        if with_confidence:
+            return probs.argmax(axis=1), probs.max(axis=1)
+        return probs.argmax(axis=1)

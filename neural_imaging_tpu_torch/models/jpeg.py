@@ -13,9 +13,11 @@ import functools
 
 import numpy as np
 import torch
+from torch import nn
 
-from neural_imaging_tpu_torch.compression.jpeg_helpers import K1_LUMA, K2_CHROMA, jpeg_qtable
-from neural_imaging_tpu_torch.ops import color, dct
+from neural_imaging_tpu_torch.compression.jpeg_helpers import (K1_LUMA, K2_CHROMA, jpeg_qf_estimation,
+                                                              jpeg_qtable)
+from neural_imaging_tpu_torch.ops import color, dct, ops
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops.hopper.jpeg8x8 import jpeg_core
 from neural_imaging_tpu_torch.utils.device import resolve_device
@@ -35,11 +37,17 @@ def is_valid_quality(quality):
     return False
 
 
+@functools.lru_cache()
+def _base_table(channel, device):
+    """The Annex-K table of a channel on ``device``, copied there once."""
+    return torch.as_tensor(K1_LUMA if channel == 0 else K2_CHROMA, device=device)
+
+
 def jpeg_qtable_traced(quality, channel=0):
     """IJG quantization table from a quality held in a tensor (on its device)."""
     quality = torch.clamp(quality.to(torch.float32), 1.0, 100.0)
     scale = torch.where(quality < 50.0, 5000.0 / quality, 200.0 - 2.0 * quality)
-    t = torch.as_tensor(K1_LUMA if channel == 0 else K2_CHROMA, device=quality.device)
+    t = _base_table(channel, quality.device)
     return torch.clamp(torch.floor((t * scale + 50.0) / 100.0), 1.0, 255.0)
 
 
@@ -76,7 +84,7 @@ def jpeg_forward_nchw(x, q_luma, q_chroma, rounding='soft', taylor_terms=5):
                             taylor_terms=taylor_terms) * qb
         y, coeffs = dct.deblockify(dct.idct2d(xq)), dct.deblockify(xq)
     y = color.ycbcr_to_rgb(y.reshape(n, 3, h, w) + 127.0) / 255.0
-    return torch.clamp(y, 0.0, 1.0), coeffs.reshape(n, 3, h, w)
+    return ops.clip(y, 0.0, 1.0), coeffs.reshape(n, 3, h, w)
 
 
 def jpeg_forward(x, q_luma, q_chroma, rounding='soft', taylor_terms=5):
@@ -95,7 +103,7 @@ def differentiable_jpeg(x, quality):
 
 class DifferentiableJPEG:
     """``jpeg_forward`` with its quantization tables held in ``self.params``
-    (trainable when ``trainable=True``)."""
+    (``nn.Parameter``s when ``trainable=True``)."""
 
     def __init__(self, quality=None, rounding_approximation='sin',
                  rounding_approximation_steps=5, trainable=False, device='cuda'):
@@ -112,9 +120,18 @@ class DifferentiableJPEG:
             q_luma, q_chroma = jpeg_qtable(quality, 0), jpeg_qtable(quality, 1)
         else:
             q_luma = q_chroma = np.ones((8, 8), dtype=np.float32)
-        self.params = {
-            name: torch.tensor(t, device=self.device, requires_grad=trainable)
-            for name, t in (('q_mtx_luma', q_luma), ('q_mtx_chroma', q_chroma))}
+        tables = (('q_mtx_luma', q_luma), ('q_mtx_chroma', q_chroma))
+        self.params = {name: torch.tensor(t, device=self.device) for name, t in tables}
+        if trainable:
+            self.params = {name: nn.Parameter(t) for name, t in self.params.items()}
+
+    @property
+    def q_mtx_luma(self):
+        return self.params['q_mtx_luma'].detach().cpu().numpy()
+
+    @property
+    def q_mtx_chroma(self):
+        return self.params['q_mtx_chroma'].detach().cpu().numpy()
 
     def __call__(self, x, params=None, q_luma=None, q_chroma=None):
         """NHWC batch → (y, coefficients), as :func:`jpeg_forward`."""
@@ -141,7 +158,13 @@ class JPEG:
         self._rng = rng or np.random.default_rng()
         self._model = DifferentiableJPEG(quality, codec, trainable=trainable, device=device)
 
+    def loss(self, batch_c, batch_C):
+        """Mean squared distortion of the channel (JPEG has no rate to train)."""
+        return torch.mean((batch_c - batch_C) ** 2)
+
     def _resolve_quality(self, quality):
+        """A quality to use now: the number, an integer drawn from [lo, hi) of
+        a 2-range, or a choice from a longer set (``self._rng``)."""
         quality = self.quality if quality is None else quality
         if not is_valid_quality(quality):
             raise ValueError('Invalid or unspecified JPEG quality!')
@@ -158,6 +181,17 @@ class JPEG:
             return self._model(batch_x)[0]
         q_luma, q_chroma = qtables(quality, batch_x.device)
         return self._model(batch_x, q_luma=q_luma, q_chroma=q_chroma)[0]
+
+    def process_with_params(self, batch_x, params):
+        """Differentiable round trip of an NHWC batch through explicit
+        (trainable) tables ``params`` {'q_mtx_luma', 'q_mtx_chroma'}: (y,
+        coefficients), as :func:`jpeg_forward`."""
+        return self._model(batch_x, params=params)
+
+    def estimate_qf(self, channel=0):
+        """The IJG quality nearest the codec's current luma (0) or chroma table."""
+        table = self._model.q_mtx_luma if channel == 0 else self._model.q_mtx_chroma
+        return jpeg_qf_estimation(table, channel)
 
     def __repr__(self):
         return f'JPEG(quality={self.quality},codec="{self.codec}",trainable={self.trainable})'

@@ -73,16 +73,26 @@ class INet(TorchModel):
 
     def __init__(self, patch_size=None, random_init=False, kernel=5,
                  trainable_upsampling=False, cfa_pattern='gbrg', conv_precision='exact',
-                 device='cuda'):
+                 loss_metric='L2', device='cuda'):
+        if loss_metric not in ops.LOSSES:
+            raise ValueError(f'Unsupported loss metric {loss_metric!r}')
+        if loss_metric == 'MS-SSIM':
+            raise NotImplementedError('the MS-SSIM loss is not ported yet')
         if conv_precision not in F32_CONV_PRECISIONS:
             raise NotImplementedError(f'INet conv_precision={conv_precision!r} is a bf16 '
                                       f'path, not ported; use one of {F32_CONV_PRECISIONS}')
         if cfa_pattern.lower() not in ('gbrg', 'rggb', 'bggr'):
             raise ValueError(f'Unsupported CFA pattern {cfa_pattern!r}')
         self.patch_size = patch_size
+        self.loss_metric = loss_metric
         super().__init__(INetCore(kernel=kernel, random_init=random_init,
                                   trainable_upsampling=trainable_upsampling,
                                   cfa_pattern=cfa_pattern), device)
+
+    def loss(self, batch_y, batch_Y):
+        """The fidelity loss ``ops.LOSSES[loss_metric]`` of the developed NHWC
+        batch ``batch_Y`` against the target ``batch_y``."""
+        return ops.LOSSES[self.loss_metric](batch_y, batch_Y)
 
     def process(self, batch_x):
         """Develop an NHWC RAW batch (N, h, w, 4) → NHWC RGB (N, 2h, 2w, 3)."""

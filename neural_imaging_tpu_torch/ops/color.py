@@ -3,8 +3,12 @@ Color space conversions on channels-first tensors (channel axis -3):
 JPEG-standard RGB↔YCbCr affine transforms and RGB↔HSV (tf.image parity, used
 by the sharpen manipulation). Port of ``neural_imaging_tpu/ops/color.py``.
 """
+import functools
+
 import numpy as np
 import torch
+
+from neural_imaging_tpu_torch.ops import ops
 
 # JPEG (JFIF) color transform: 255-scale, chroma offset by +128; the inverse
 # folds the offsets into its affine part.
@@ -19,20 +23,28 @@ _I_MATRIX = np.array([[1.0, 0.0, 1.402],
 _I_OFFSET = np.array([-1.402 * 128, 1.058272 * 128, -1.772 * 128], dtype=np.float32)
 
 
-def _affine(x, matrix, offset):
-    m = torch.as_tensor(matrix, dtype=x.dtype, device=x.device)
-    b = torch.as_tensor(offset, dtype=x.dtype, device=x.device)
-    return torch.einsum('...chw,kc->...khw', x, m) + b[:, None, None]
+@functools.lru_cache()
+def _affine_tensors(forward, dtype, device):
+    """(matrix, offset) of the forward or inverse transform on ``device``,
+    copied there once (a copy from the host waits for the device's queue)."""
+    matrix, offset = (_F_MATRIX, _F_OFFSET) if forward else (_I_MATRIX, _I_OFFSET)
+    return (torch.as_tensor(matrix, dtype=dtype, device=device),
+            torch.as_tensor(offset, dtype=dtype, device=device)[:, None, None])
+
+
+def _affine(x, forward):
+    m, b = _affine_tensors(forward, x.dtype, x.device)
+    return torch.einsum('...chw,kc->...khw', x, m) + b
 
 
 def rgb_to_ycbcr(x255):
     """255-scaled RGB (…, 3, H, W) → YCbCr (Y in [0,255], Cb/Cr centered at 128)."""
-    return _affine(x255, _F_MATRIX, _F_OFFSET)
+    return _affine(x255, True)
 
 
 def ycbcr_to_rgb(ycc):
     """YCbCr (…, 3, H, W) → 255-scaled RGB."""
-    return _affine(ycc, _I_MATRIX, _I_OFFSET)
+    return _affine(ycc, False)
 
 
 def rgb_to_hsv(rgb):
@@ -60,9 +72,9 @@ def hsv_to_rgb(hsv):
     """HSV (H in [0,1], …, 3, H, W) → RGB [0,1] (tf.image.hsv_to_rgb parity)."""
     h, s, v = hsv.unbind(-3)
     dh = torch.remainder(h, 1.0) * 6.0
-    dr = torch.clamp(torch.abs(dh - 3.0) - 1.0, 0.0, 1.0)
-    dg = torch.clamp(-torch.abs(dh - 2.0) + 2.0, 0.0, 1.0)
-    db = torch.clamp(-torch.abs(dh - 4.0) + 2.0, 0.0, 1.0)
+    dr = ops.clip(torch.abs(dh - 3.0) - 1.0, 0.0, 1.0)
+    dg = ops.clip(-torch.abs(dh - 2.0) + 2.0, 0.0, 1.0)
+    db = ops.clip(-torch.abs(dh - 4.0) + 2.0, 0.0, 1.0)
     one_minus_s = 1.0 - s
     rgb = torch.stack([one_minus_s + s * dr, one_minus_s + s * dg, one_minus_s + s * db],
                       dim=-3)

@@ -5,10 +5,10 @@ entropy of the quantized latent computed from codeword counts.
 For each latent value the kernels make their passes over the L codewords
 (the max and first argmax of the log kernel weight, and the
 softmax-weighted sums), so no (N, L) weight matrix is built, forward or
-backward. For L = 32, K2 and K4 find the max at the nearest codeword and
-make one pass with one log1p and one exp per codeword (``csrc/codebook.cu``
-says how); :func:`nearest_argmax_plain` is that rule in plain PyTorch, for
-the tests.
+backward. For L = 32, K2, K3 and K4 find the max at the nearest codeword
+and make one pass with one log1p and one exp per codeword
+(``csrc/codebook.cu`` says how); :func:`nearest_argmax_plain` is that rule in
+plain PyTorch, for the tests.
 
 - K2 :func:`codebook_fwd_cuda` → (soft value, hard index); replaces
   ``neural_imaging_tpu/ops/pallas/codebook.py::_kernel``.
@@ -163,7 +163,7 @@ def _argmax_pass(z, codebook, v, gamma, v_t):
 
 
 def nearest_argmax_plain(z, codebook, v=50.0, gamma=25.0):
-    """The max log-weight and its first argmax by K2's and K4's rule for
+    """The max log-weight and its first argmax by K2's, K3's and K4's rule for
     L = 32: the nearest codeword by the rounded |z - c| (the first on a tie)
     gives the trial max m, and the hard index is the first j with logw_j ==
     m; where some logw_j > m, none equals m or m is not above ``NEG_INF``,

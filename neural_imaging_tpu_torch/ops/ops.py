@@ -1,16 +1,21 @@
 """
 Core differentiable ops on NCHW tensors: convolutions with HWIO kernels,
 TF-order depth_to_space, padding, pooling, the clipping straight-through
-estimator, the activations, batch normalization to float and the L2 loss.
-Port of the parts of ``neural_imaging_tpu/ops/ops.py`` that the
-manipulation-classification forward path and the DCN use.
+estimator, the activations, batch normalization to float, the L2 loss and
+the NIP's image losses (``LOSSES``). Port of the parts of
+``neural_imaging_tpu/ops/ops.py`` that the manipulation-classification path
+and the DCN use.
 
 The reference's exact-f32 conv variants (``small_conv2d``, ``conv_chw``) are
 TPU layouts of the same f32 convolution, so here they are all
 :func:`conv2d`, with TF32 off (``utils.device.resolve_device``).
 """
+import functools
+
 import torch
 import torch.nn.functional as F
+
+from neural_imaging_tpu_torch.ops import ssim as ssim_ops
 
 
 def hwio_to_oihw(kernel):
@@ -99,6 +104,20 @@ def global_average_pool(x):
     return x.mean(dim=(-2, -1))
 
 
+@functools.lru_cache()
+def _bound(value, dtype, device):
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def clip(x, lo, hi):
+    """Clip to [lo, hi] with ``jnp.clip``'s gradient: 1 inside, 0 outside and
+    1/2 at a bound, where ``torch.clamp`` passes 1 (``torch.maximum`` and
+    ``torch.minimum`` split a tie's gradient as jax does). Saturated images
+    and probabilities sit exactly at a bound."""
+    return torch.minimum(torch.maximum(x, _bound(lo, x.dtype, x.device)),
+                         _bound(hi, x.dtype, x.device))
+
+
 def st_clip(x, lo=0.0, hi=1.0):
     """Clip in the forward pass, identity gradient (the reference's exact form,
     so forward values match it to the bit)."""
@@ -107,17 +126,43 @@ def st_clip(x, lo=0.0, hi=1.0):
 
 def normalize_batch(x):
     """uint8 / uint16 batches → float32 in [0, 1] (÷ 255, ÷ 65535, the same f32
-    divide as the reference); float batches are cast to float32."""
+    divide as the reference, by a divisor on x's device: CUDA multiplies by
+    the reciprocal of a Python scalar divisor); float batches are cast to
+    float32. uint16 is widened through int32, which every device converts."""
     if x.dtype == torch.uint8:
-        return x.to(torch.float32) / 255.0
+        return x.to(torch.float32) / torch.full((), 255.0, device=x.device)
     if x.dtype == torch.uint16:
-        return x.to(torch.float32) / 65535.0
+        wide = x.view(torch.int16).to(torch.int32) & 0xFFFF
+        return wide.to(torch.float32) / torch.full((), 65535.0, device=x.device)
     return x.to(torch.float32)
 
 
 def l2_loss(x):
     """0.5 * sum(x**2), the DCN objective's ``tf.nn.l2_loss`` convention."""
     return 0.5 * torch.sum(torch.square(x))
+
+
+def mse(a, b):
+    """Mean squared error of two images in [0, 1], on the 0-255 scale."""
+    return torch.mean((255.0 * a - 255.0 * b) ** 2)
+
+
+def mae(a, b):
+    """Mean absolute error of two images in [0, 1], on the 0-255 scale."""
+    return torch.mean(torch.abs(255.0 * a - 255.0 * b))
+
+
+def ssim_loss(a, b):
+    """255 (1 - SSIM), averaged over the NHWC batches a and b."""
+    return torch.mean(255.0 * (1.0 - ssim_ops.ssim(a, b, max_val=1.0)))
+
+
+def msssim_loss(a, b):
+    raise NotImplementedError('the MS-SSIM loss needs ssim.ms_ssim, which is not ported yet')
+
+
+# the NIP's fidelity losses by name; each takes (target, output), NHWC
+LOSSES = {'L2': mse, 'L1': mae, 'SSIM': ssim_loss, 'MS-SSIM': msssim_loss}
 
 
 def leaky_relu(x):

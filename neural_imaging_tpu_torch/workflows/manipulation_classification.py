@@ -1,17 +1,23 @@
 """
-The manipulation-classification forward path:
+The manipulation-classification path and its joint training step:
 
-    raw → INet → rgb → [native + K manipulations] → 2x pool → JPEG (soft) → FAN → probs
+    raw → INet → rgb → [native + K manipulations] → downsample → JPEG (soft) → FAN → probs
 
-Port of the forward part of
-``neural_imaging_tpu/workflows/manipulation_classification.py`` at fixed
-manipulation strengths, float32 throughout. Training (losses, Adam),
-randomized strengths and qualities, the DCN channel, bilinear or no
-downsampling and the bf16 knobs are not ported yet.
+Port of ``neural_imaging_tpu/workflows/manipulation_classification.py`` in
+float32: the forward at fixed or randomized strengths (``run_workflow``),
+and ``training_step``, which takes one Adam step of the FAN and the other
+trainable parts on cross-entropy plus the NIP's and the channel's weighted
+losses. Every random draw of a step (manipulation strengths, the channel's
+quality) is made on the device from ``torch.Generator``s seeded with
+``rng_seed``, so a step never waits on the host; PyTorch cannot reproduce
+JAX's PRNG, so parity tests pass the same strengths to both (``_losses``).
+The DCN channel, awgn / gamma / median, ``training_scan`` and the bf16 knobs
+are not ported yet.
 """
 import json
 import os
 
+import numpy as np
 import torch
 
 from neural_imaging_tpu_torch.models import forensics, jpeg as jpeg_models, pipelines
@@ -23,6 +29,11 @@ from neural_imaging_tpu_torch.utils.device import resolve_device
 CANONICAL_ORDER = ('sharpen', 'resample', 'gaussian', 'jpeg')
 # the channel's compression_params that the port's JPEG takes
 JPEG_PARAMS = ('quality', 'codec', 'trainable', 'rng')
+# candidate strengths of a switched manipulation (resample) across its range
+N_STRENGTH_CANDIDATES = 8
+# the parts a flow may train; the FAN always trains, 'dcn' names the channel's
+# trainable slot (here the JPEG q-tables), as in the reference
+COMPONENTS = ('fan', 'nip', 'dcn')
 
 # Agreement of two float32 runs of the full-width path on the same raw batch
 # (GPU and CPU, or the port and the JAX reference). Summation order alone moves
@@ -53,24 +64,79 @@ def compare_probabilities(p, p_ref):
     return report
 
 
+# Agreement of two float32 runs of one full-width training step (the GPU and
+# the CPU) on the same batch and weights, from ``loss_and_gradients``: the loss
+# and each of its parts within MAX_STEP_LOSS_DIFF of the reference's
+# (relative), and each trainable part's gradient norm and each leaf's within
+# MAX_GRADIENT_NORM_DIFF (relative). A dJPEG coefficient that flips by one q
+# step between the two runs moves its rows' probabilities by a few 1e-3
+# (MAX_PROBABILITY_DIFF) and their cross-entropy and its gradients with them.
+# chip_smoke.py, an H100 against the CPU on 20 raw 128-px patches of the
+# m_quality run with the NIP trainable: loss parts within 1.45e-4, gradient
+# norms within 3.06e-4; the bounds allow about 7 and 10 times that.
+MAX_STEP_LOSS_DIFF = 1e-3
+MAX_GRADIENT_NORM_DIFF = 3e-3
+
+
+def compare_steps(step, step_ref):
+    """Hold (loss, parts, gradients) of ``loss_and_gradients`` against a
+    reference run's. Raises AssertionError beyond the bounds above; returns
+    {'max_loss_rel_diff', 'max_grad_norm_rel_diff', 'grad_norms',
+    'grad_norms_ref'} (norms per trainable part)."""
+    loss, parts, grads = step
+    loss_ref, parts_ref, grads_ref = step_ref
+
+    def rel(a, b):
+        a, b = float(a), float(b)
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    loss_diff = max([rel(loss, loss_ref)] + [rel(parts[k], parts_ref[k]) for k in parts_ref
+                                             if float(parts_ref[k]) != 0])
+    norms, norms_ref, grad_diff = {}, {}, 0.0
+    for part, leaves in grads_ref.items():
+        leaf_norms = {k: float(torch.linalg.vector_norm(g.double().cpu())) for k, g in
+                      grads[part].items()}
+        leaf_norms_ref = {k: float(torch.linalg.vector_norm(g.double().cpu())) for k, g in
+                          leaves.items()}
+        norms[part] = sum(n * n for n in leaf_norms.values()) ** 0.5
+        norms_ref[part] = sum(n * n for n in leaf_norms_ref.values()) ** 0.5
+        grad_diff = max([grad_diff, rel(norms[part], norms_ref[part])]
+                        + [rel(leaf_norms[k], leaf_norms_ref[k]) for k in leaf_norms_ref])
+    report = {'max_loss_rel_diff': loss_diff, 'max_grad_norm_rel_diff': grad_diff,
+              'grad_norms': norms, 'grad_norms_ref': norms_ref}
+    if not loss_diff <= MAX_STEP_LOSS_DIFF or not grad_diff <= MAX_GRADIENT_NORM_DIFF:
+        raise AssertionError(f'training steps disagree: {report}')
+    return report
+
+
 class ManipulationClassification:
 
     def __init__(self, nip_model='INet', manipulations=None, distribution=None,
-                 fan_args=None, raw_patch_size=128, nip_args=None, device='cuda'):
+                 fan_args=None, trainable=None, raw_patch_size=128, loss_metric='L2',
+                 rng_seed=0, nip_args=None, device='cuda'):
         """
         :param nip_model: NIP class name ('INet' is the one ported)
         :param manipulations: list of '<name>[:strength]' specs
-        :param distribution: {'downsampling': 'pool[:factor]', 'compression': 'jpeg',
-                              'compression_params': {'quality': int, 'codec': 'soft'|…,
-                                                     'trainable': bool}}
+        :param distribution: {'downsampling': 'pool[:factor]' | 'bilinear' | 'none',
+                              'compression': 'jpeg',
+                              'compression_params': {'quality': int | (lo, hi) | set,
+                                                     'codec': 'soft'|…, 'trainable': bool}}
         :param fan_args: FAN constructor arguments other than n_classes/patch_size
+        :param trainable: parts to train besides the FAN: 'nip', 'dcn' (the
+            channel's q-tables, when the codec is trainable)
         :param raw_patch_size: RAW patch size (RGB patches are twice as large)
-        :param device: where the models live and the forward runs
+        :param loss_metric: the NIP's fidelity loss ('L2', 'L1', 'SSIM')
+        :param rng_seed: seeds the host draws (``_sample_strengths``) and the
+            device draws of a training step
+        :param device: where the models live and the flow runs
         """
         if raw_patch_size < 16 or raw_patch_size > 512:
             raise ValueError(f'The patch size ({raw_patch_size}) looks incorrect')
         self.device = resolve_device(device)
         self.raw_patch_size = raw_patch_size
+        self._trainable = set(trainable or ()) | {'fan'}
+        if not self._trainable <= set(COMPONENTS):
+            raise ValueError(f'Unknown trainable parts {sorted(self._trainable - set(COMPONENTS))}')
 
         self._distribution = {
             'downsampling': 'pool:2',
@@ -79,9 +145,9 @@ class ManipulationClassification:
         }
         if distribution is not None:
             self._distribution.update(distribution)
-        if not self._distribution['downsampling'].startswith('pool'):
-            raise NotImplementedError(
-                f"downsampling {self._distribution['downsampling']!r} is not ported; use 'pool'")
+        ds = self._distribution['downsampling']
+        if not (ds.startswith('pool') or ds in ('bilinear', 'none')):
+            raise ValueError(f'Unsupported channel down-sampling {ds!r}')
         if self._distribution['compression'] != 'jpeg':
             raise NotImplementedError(
                 f"compression {self._distribution['compression']!r} is not ported; use 'jpeg'")
@@ -91,13 +157,13 @@ class ManipulationClassification:
             raise NotImplementedError(f'JPEG channel parameters {unknown} are not ported; '
                                       f'the port takes {list(JPEG_PARAMS)}')
         self.codec = jpeg_models.JPEG(**params, device=self.device)
-        if not isinstance(self.codec.quality, (int, float)):
-            raise NotImplementedError('randomized channel JPEG quality is not ported')
+        if 'dcn' in self._trainable and not self.codec.trainable:
+            raise ValueError('The current codec does not appear to be trainable!')
 
         if nip_model != 'INet':
             raise NotImplementedError(f'NIP {nip_model!r} is not ported; use INet')
-        self.nip = pipelines.INet(patch_size=raw_patch_size, device=self.device,
-                                  **(nip_args or {}))
+        self.nip = pipelines.INet(patch_size=raw_patch_size, loss_metric=loss_metric,
+                                  device=self.device, **(nip_args or {}))
 
         self._strengths = dict(manips.DEFAULT_STRENGTHS)
         requested = []
@@ -113,29 +179,74 @@ class ManipulationClassification:
         self._operations = [name for name in CANONICAL_ORDER if name in requested]
         self.forensics_classes = ['native'] + [
             f'{name}:{self._strengths[name]:g}' for name in self._operations]
+        self._strength_candidates = {
+            name: np.linspace(*manips.STRENGTH_RANGES[name], N_STRENGTH_CANDIDATES)
+            for name in self._operations}
+        # the strength ranges, copied to the device once for the steps' draws
+        self._strength_lo, self._strength_hi = (
+            torch.tensor([manips.STRENGTH_RANGES[m][k] for m in self._operations],
+                         dtype=torch.float32, device=self.device) for k in (0, 1))
 
         self.fan = forensics.FAN(n_classes=self.n_classes,
                                  patch_size=2 * raw_patch_size // self.downsampling_factor,
                                  device=self.device, **(fan_args or {}))
 
+        # A step checks its gradients for NaNs and waits for that check; with
+        # nan_check False it keeps the flag on the device for assert_finite.
+        self.nan_check = True
+        self._rng_seed = rng_seed
+        self._snapshot()
+        self.reinitialize()
+
     @classmethod
-    def restore(cls, run_dir, raw_patch_size=128, device='cuda'):
+    def restore(cls, run_dir, raw_patch_size=128, trainable=None, rng_seed=0, device='cuda'):
         """Rebuild the flow of a finished JAX run directory (``training.json`` +
-        ``models/{fan,inet}/*.npz``) with its weights."""
+        ``models/{fan,inet}/*.npz``) with its weights. A run whose log records
+        a channel precision other than float32 is refused, as the port runs
+        float32 only."""
         with open(os.path.join(run_dir, 'training.json')) as f:
             log = json.load(f)
+        precision = log.get('channel_precision') or {}
+        refused = {k: v for k, v in precision.items() if v not in (None, 'float32')}
+        if refused:
+            raise NotImplementedError(f'channel_precision {refused} of {run_dir} is not ported; '
+                                      'the port runs float32')
         fan_args = {k: v for k, v in log['forensics']['args'].items() if k != 'n_classes'}
         flow = cls(log['nip']['model'],
                    manipulations=[m for m in log['manipulations'] if m != 'native'],
-                   distribution=log['distribution'], fan_args=fan_args,
-                   raw_patch_size=raw_patch_size, nip_args=log['nip'].get('args'),
-                   device=device)
+                   distribution=log['distribution'], fan_args=fan_args, trainable=trainable,
+                   raw_patch_size=raw_patch_size, rng_seed=rng_seed,
+                   nip_args=log['nip'].get('args'), device=device)
         models_dir = os.path.join(run_dir, 'models')
         flow.fan.load_model(os.path.join(models_dir, 'fan'))
         nip_dir = os.path.join(models_dir, flow.nip.scoped_name)
         if os.path.isdir(nip_dir) and flow.nip.count_parameters() > 0:
             flow.nip.load_model(nip_dir)
+        flow._snapshot()
         return flow
+
+    def _snapshot(self):
+        """Keep a copy of every parameter for :meth:`reinitialize`."""
+        self._initial_params = {name: {k: p.detach().clone() for k, p in part.items()}
+                                for name, part in self._collect_params().items()}
+
+    def reinitialize(self):
+        """Reset to the state after construction (after ``restore``, the
+        restored weights): parameters, the Adam state, the random generators
+        and the deferred NaN flags."""
+        with torch.no_grad():
+            for name, part in self._collect_params().items():
+                for k, p in part.items():
+                    p.copy_(self._initial_params[name][k])
+        self._train_params = [p for part in self._train_partition(self._collect_params()).values()
+                              for p in part.values()]
+        self.optimizer = torch.optim.Adam(self._train_params, lr=1e-4, betas=(0.9, 0.999),
+                                          eps=1e-8, weight_decay=0)
+        self._rng = np.random.default_rng(self._rng_seed)
+        self._generator = torch.Generator(device=self.device).manual_seed(self._rng_seed)
+        self._finite_flags = []
+
+    # -- properties and partitions ---------------------------------------------------
 
     @property
     def n_classes(self):
@@ -144,48 +255,257 @@ class ManipulationClassification:
     @property
     def downsampling_factor(self):
         ds = self._distribution['downsampling']
+        if ds == 'none':
+            return 1
         return int(ds.split(':')[-1]) if ':' in ds else 2
 
-    # -- the forward path on NCHW tensors --------------------------------------
+    def _collect_params(self):
+        """{'fan': {name: parameter}, 'nip': {...}} and, for a trainable JPEG
+        channel, its q-tables under 'dcn'."""
+        params = {'fan': dict(self.fan.module.named_parameters()),
+                  'nip': dict(self.nip.module.named_parameters())}
+        if self.codec.trainable:
+            params['dcn'] = dict(self.codec._model.params)
+        return params
 
-    def _manipulate(self, batch_Y):
-        """(K+1)-way batch expansion: [native] + each manipulation, class-major."""
-        return torch.cat([batch_Y] + [manips.MANIPULATIONS[name](batch_Y, self._strengths[name])
-                                      for name in self._operations], dim=0)
+    def _train_partition(self, params):
+        return {k: v for k, v in params.items() if k in self._trainable}
+
+    def _frozen_partition(self, params):
+        return {k: v for k, v in params.items() if k not in self._trainable}
+
+    # -- the path on NCHW tensors -------------------------------------------------------
+
+    def _manipulate(self, batch_Y, strength_scalars=None, strength_indices=None):
+        """(K+1)-way batch expansion: [native] + each manipulation, class-major.
+        ``strength_scalars`` (K,) and ``strength_indices`` (K,), tensors on
+        the device, randomize the strengths: manipulation i takes scalar i,
+        or (resample) candidate ``strength_indices[i]`` of its range."""
+        y_list = [batch_Y]
+        for i, name in enumerate(self._operations):
+            if strength_scalars is None:
+                y_list.append(manips.MANIPULATIONS[name](batch_Y, self._strengths[name]))
+            elif name in manips.TRACED_MANIPULATIONS:
+                y_list.append(manips.TRACED_MANIPULATIONS[name](batch_Y, strength_scalars[i]))
+            else:
+                y_list.append(manips.resample_switch(batch_Y, strength_indices[i],
+                                                     self._strength_candidates[name]))
+        return torch.cat(y_list, dim=0)
 
     def _downsample(self, batch):
-        return ops.avg_pool(batch, self.downsampling_factor)
+        ds = self._distribution['downsampling']
+        factor = self.downsampling_factor
+        if ds.startswith('pool'):
+            return ops.avg_pool(batch, factor)
+        if ds == 'bilinear':
+            return manips.resize_bilinear(batch, batch.shape[-2] // factor,
+                                          batch.shape[-1] // factor)
+        return batch
 
-    def _compress(self, batch):
-        """The channel through the codec's own q-tables (trainable or not), as
-        the reference runs a trainable codec's."""
-        tables = self.codec._model.params
-        y, _ = jpeg_models.jpeg_forward_nchw(batch, tables['q_mtx_luma'], tables['q_mtx_chroma'],
-                                             rounding=self.codec.codec)
+    def _compress(self, batch, q_luma, q_chroma):
+        """The JPEG channel: through the codec's own (trainable) q-tables when
+        it has them, else through ``q_luma``, ``q_chroma``."""
+        if self.codec.trainable:
+            tables = self.codec._model.params
+            q_luma, q_chroma = tables['q_mtx_luma'], tables['q_mtx_chroma']
+        y, _ = jpeg_models.jpeg_forward_nchw(batch, q_luma, q_chroma, rounding=self.codec.codec)
         return y
 
-    def _forward(self, batch_x):
+    def _forward(self, batch_x, q_luma, q_chroma, strength_scalars=None, strength_indices=None):
         batch_Y = self.nip.module(batch_x)
-        batch_c = self._downsample(self._manipulate(batch_Y))
-        batch_C = self._compress(batch_c)
-        probabilities = self.fan.module(batch_C)
-        return batch_Y, batch_c, batch_C, probabilities
+        batch_c = self._downsample(self._manipulate(batch_Y, strength_scalars, strength_indices))
+        batch_C = self._compress(batch_c, q_luma, q_chroma)
+        return batch_Y, batch_c, batch_C, self.fan.module(batch_C)
 
-    # -- public API ----------------------------------------------------------------
+    def _batch_labels(self, batch_size):
+        """Class-major labels of an expanded batch, on the device."""
+        return torch.arange(self.n_classes, device=self.device).repeat_interleave(batch_size)
 
-    def run_workflow(self, batch_x):
+    def _losses(self, batch_x, batch_y, q_luma, q_chroma, lambda_nip, lambda_dcn,
+                strength_scalars=None, strength_indices=None):
+        """(loss, {'ce', 'nip', 'dcn'}) of NHWC float batches: RAW ``batch_x``
+        and the target RGB ``batch_y`` (or None). The loss is the
+        cross-entropy plus λ_nip times the NIP's loss if the NIP trains and
+        λ_dcn times the channel's if it trains."""
+        batch_Y, batch_c, batch_C, probs = self._forward(
+            batch_x.permute(0, 3, 1, 2), q_luma, q_chroma, strength_scalars, strength_indices)
+        loss_ce = forensics.sparse_categorical_crossentropy(
+            self._batch_labels(batch_x.shape[0]), probs)
+        zero = torch.zeros((), device=probs.device)
+        loss_nip = (self.nip.loss(batch_y, batch_Y.permute(0, 2, 3, 1))
+                    if batch_y is not None else zero)
+        loss_dcn = self.codec.loss(batch_c, batch_C)
+        loss = loss_ce
+        if 'nip' in self._trainable:
+            loss = loss + lambda_nip * loss_nip
+        if 'dcn' in self._trainable:
+            loss = loss + lambda_dcn * loss_dcn
+        return loss, {'ce': loss_ce, 'nip': loss_nip, 'dcn': loss_dcn}
+
+    # -- random draws -----------------------------------------------------------------
+
+    def _channel_qtables(self):
+        """The channel's (luma, chroma) tables for a forward, a randomized
+        quality drawn on the host by the codec."""
+        quality = self.codec._resolve_quality(None) if self.codec.quality is not None else 50
+        return jpeg_models.qtables(quality, self.device)
+
+    def _channel_qtables_in_graph(self):
+        """The channel's tables for a training step, drawn on the device: a
+        fixed quality's tables, a quality drawn from [lo, hi) of a 2-range, or
+        one of a longer set's tables."""
+        quality = self.codec.quality if self.codec.quality is not None else 50
+        if jpeg_models._is_number(quality):
+            return jpeg_models.qtables(int(quality), self.device)
+        if len(quality) == 2:
+            q = torch.randint(int(quality[0]), int(quality[1]), (), generator=self._generator,
+                              device=self.device).to(torch.float32)
+            return jpeg_models.jpeg_qtable_traced(q, 0), jpeg_models.jpeg_qtable_traced(q, 1)
+        tables = [jpeg_models.qtables(int(q), self.device) for q in quality]
+        idx = torch.randint(0, len(quality), (1,), generator=self._generator, device=self.device)
+        return tuple(torch.index_select(torch.stack(t), 0, idx)[0] for t in zip(*tables))
+
+    def _sample_strengths(self):
+        """Randomized strengths drawn on the host from ``rng_seed``'s numpy
+        generator, as the reference draws them for a forward: (scalars,
+        indices) on the device."""
+        scalars = np.zeros(len(self._operations), dtype=np.float32)
+        indices = np.zeros(len(self._operations), dtype=np.int64)
+        for i, name in enumerate(self._operations):
+            lo, hi = manips.STRENGTH_RANGES[name]
+            scalars[i] = self._rng.uniform(lo, hi)
+            indices[i] = self._rng.integers(0, N_STRENGTH_CANDIDATES)
+        return (torch.as_tensor(scalars, device=self.device),
+                torch.as_tensor(indices, device=self.device))
+
+    def _sample_strengths_in_graph(self):
+        """Randomized strengths of a training step, drawn on the device."""
+        n = len(self._operations)
+        lo, hi = self._strength_lo, self._strength_hi
+        scalars = lo + (hi - lo) * torch.rand(n, generator=self._generator, device=self.device)
+        indices = torch.randint(0, N_STRENGTH_CANDIDATES, (n,), generator=self._generator,
+                                device=self.device)
+        return scalars, indices
+
+    # -- training -----------------------------------------------------------------------
+
+    def _batch(self, batch):
+        """An NHWC batch (numpy or tensor; uint8 / uint16 / float) as float32
+        in [0, 1] on the flow's device."""
+        return ops.normalize_batch(torch.as_tensor(batch).to(self.device))
+
+    def loss_and_gradients(self, batch_x, batch_y, lambda_nip=0, lambda_dcn=0,
+                           q_tables=None, strength_scalars=None, strength_indices=None):
+        """The loss, its parts and the gradient of every trainable parameter,
+        without an update: (loss, {'ce', 'nip', 'dcn'}, {part: {name:
+        gradient}}). ``q_tables`` (luma, chroma) default to the channel's
+        fixed quality; the strengths to the fixed ones."""
+        x = self._batch(batch_x)
+        y = None if batch_y is None else self._batch(batch_y)
+        q_luma, q_chroma = q_tables if q_tables is not None else self._channel_qtables()
+        loss, parts = self._losses(x, y, q_luma, q_chroma, lambda_nip, lambda_dcn,
+                                   strength_scalars, strength_indices)
+        names = [(part, k) for part, ps in self._train_partition(self._collect_params()).items()
+                 for k in ps]
+        grads = torch.autograd.grad(loss, self._train_params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self._train_params, grads)]
+        by_part = {}
+        for (part, k), g in zip(names, grads):
+            by_part.setdefault(part, {})[k] = g
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, by_part
+
+    def training_step(self, batch_x, batch_y, lambda_nip=0, lambda_dcn=0,
+                      augment=False, learning_rate=1e-4):
+        """One joint step: the loss of an NHWC RAW batch and its target RGB
+        (or None), its gradient over the trainable partition and one Adam
+        step (optax's ``scale_by_adam`` then −lr·u) at ``learning_rate``.
+        ``augment`` draws the manipulation strengths on the device; a
+        randomized channel quality is drawn there in any case. Returns (loss,
+        {'ce', 'nip', 'dcn'}) as 0-d tensors on the device. Raises
+        RuntimeError on a non-finite gradient (with ``nan_check``; the update
+        has been applied then, and ``reinitialize`` restores the flow)."""
+        q_tables = self._channel_qtables_in_graph()
+        scalars, indices = self._sample_strengths_in_graph() if augment else (None, None)
+        loss, parts, grads = self.loss_and_gradients(batch_x, batch_y, lambda_nip, lambda_dcn,
+                                                     q_tables, scalars, indices)
+        flat = [g for part in grads.values() for g in part.values()]
+        finite = torch.stack([torch.isfinite(g).all() for g in flat]).all()
+        for p, g in zip(self._train_params, flat):
+            p.grad = g
+        for group in self.optimizer.param_groups:
+            group['lr'] = float(learning_rate)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.nan_check:
+            if not bool(finite):
+                raise RuntimeError('∇ NaNs encountered in the joint training step')
+        else:
+            self._finite_flags.append(finite)
+        return loss, parts
+
+    def assert_finite(self):
+        """The deferred NaN check of the steps run with ``nan_check`` False:
+        one device→host copy for all of them."""
+        if not self._finite_flags:
+            return
+        flags = torch.stack(self._finite_flags)
+        self._finite_flags = []
+        if not bool(flags.all()):
+            raise RuntimeError('∇ NaNs encountered in a joint training step')
+
+    # -- public API -------------------------------------------------------------------
+
+    def run_workflow(self, batch_x, augment=False):
         """NHWC RAW batch (N, h, w, 4) in [0,1] → (batch_Y, batch_c, batch_C,
-        entropy, probabilities): the developed RGB, the pooled expanded batch
-        and its JPEG (NHWC views), 0 for the JPEG channel's entropy, and the
-        class probabilities ((K+1)·N, K+1), rows class-major."""
+        entropy, probabilities): the developed RGB, the downsampled expanded
+        batch and its JPEG (NHWC views), 0 for the JPEG channel's entropy, and
+        the class probabilities ((K+1)·N, K+1), rows class-major. ``augment``
+        draws the strengths (and a randomized channel quality) on the host."""
         x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device)
+        q_luma, q_chroma = self._channel_qtables()
+        scalars, indices = self._sample_strengths() if augment else (None, None)
         with torch.no_grad():
             batch_Y, batch_c, batch_C, probs = self._forward(
-                x.permute(0, 3, 1, 2).contiguous())
+                x.permute(0, 3, 1, 2), q_luma, q_chroma, scalars, indices)
         nhwc = [t.permute(0, 2, 3, 1) for t in (batch_Y, batch_c, batch_C)]
         return (*nhwc, torch.zeros((), device=self.device), probs)
 
-    def run_workflow_to_decisions(self, batch_x):
+    def run_workflow_to_decisions(self, batch_x, augment=False):
         """Predicted class of every row of :meth:`run_workflow`, as a numpy array."""
-        probs = self.run_workflow(batch_x)[-1]
+        probs = self.run_workflow(batch_x, augment=augment)[-1]
         return probs.argmax(dim=1).cpu().numpy()
+
+    def run_manipulations(self, batch_y, randomize=False, override=None):
+        """The expanded NHWC batch of an NHWC RGB batch: at the fixed
+        strengths, at host-drawn ones (``randomize``) or at ``override``
+        {name: strength}."""
+        y = self._batch(batch_y).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            if randomize:
+                out = self._manipulate(y, *self._sample_strengths())
+            elif override is not None:
+                out = torch.cat([y] + [manips.MANIPULATIONS[name](y, override[name])
+                                       for name in self._operations], dim=0)
+            else:
+                out = self._manipulate(y)
+        return out.permute(0, 2, 3, 1)
+
+    def run_downsampling(self, batch_y):
+        with torch.no_grad():
+            return self._downsample(self._batch(batch_y).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def run_compression(self, batch_y, return_entropy=False):
+        with torch.no_grad():
+            out = self._compress(self._batch(batch_y).permute(0, 3, 1, 2),
+                                 *self._channel_qtables()).permute(0, 2, 3, 1)
+        return (out, torch.zeros((), device=self.device)) if return_entropy else out
+
+    def run_rgb_to_fan(self, batch_Y):
+        """The FAN's input (numpy NHWC) for an NHWC RGB batch."""
+        batch_c = self.run_downsampling(self.run_manipulations(batch_Y))
+        return self.run_compression(batch_c).cpu().numpy()
+
+    def run_rgb_to_probabilities(self, batch_Y):
+        """Class probabilities (numpy) for an NHWC RGB batch."""
+        return self.fan.process(self.run_rgb_to_fan(batch_Y)).cpu().numpy()

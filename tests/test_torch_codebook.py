@@ -191,7 +191,7 @@ def trainable_style_codebook(kind, seed):
 @pytest.mark.parametrize('v,gamma', KERNELS)
 @pytest.mark.parametrize('kind', ['sorted', 'unsorted', 'repeated'])
 def test_nearest_codeword_argmax_is_the_first_argmax(kind, v, gamma):
-    """K2's and K4's max rule (nearest codeword, then the first j with
+    """K2's, K3's and K4's max rule (nearest codeword, then the first j with
     logw_j == m) gives the max and the first argmax of the two-pass rule,
     bit for bit, at exact and near ties."""
     codebook = torch.from_numpy(trainable_style_codebook(kind, 14))
@@ -205,7 +205,7 @@ def test_nearest_codeword_argmax_is_the_first_argmax(kind, v, gamma):
 
 
 def test_division_by_v_through_its_reciprocal_is_the_ieee_quotient():
-    """K2's and K4's t / v at L = 32 (two FMAs from 1/v) has the IEEE
+    """K2's, K3's and K4's t / v at L = 32 (two FMAs from 1/v) has the IEEE
     quotient's bits, sampled over the t and v where they use it
     (``check_division.py`` checks every t)."""
     mismatches, checked = check_division.check(sample=200_000, seed=16)

@@ -6,6 +6,8 @@ one; on a GPU machine, which has no JAX, run them without the JAX conftest:
 Each kernel is held against its plain PyTorch version on the same inputs,
 with the tolerance of ``jpeg8x8.check_cores`` (K1) and of
 ``codebook.check_forward`` / ``codebook.check_backward`` (K2-K4)."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -97,6 +99,11 @@ def test_codebook_kernels_match_plain(cuda, n, bpf, v, gamma):
     codebook.check_backward(dcb, dcb_ref, dcb_scale, 'dcb')
     # K4's reduction has a fixed order: the same inputs give the same bits
     assert torch.equal(codebook.codebook_bwd_train_cuda(z, g, cb, pc, v, gamma)[1], dcb)
+    # K3's own case, a fixed codebook on the integers
+    z, g, cb, pc = codebook_inputs(n + bpf, n, bpf, cuda)
+    codebook.check_backward(codebook.codebook_bwd_cuda(z, g, cb, pc, v, gamma),
+                            codebook.codebook_bwd_plain(z, g, cb, pc, v, gamma),
+                            codebook.backward_error_scale(z, g, cb, pc, v, gamma)[0])
 
 
 def near_tie_inputs(seed, n, bpf, kind, device):
@@ -126,10 +133,11 @@ def near_tie_inputs(seed, n, bpf, kind, device):
     return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
 
 
-# K2 and K4 at exact and near ties: the compiled L = 32 and the generic
+# K2, K3 and K4 at exact and near ties: the compiled L = 32 and the generic
 # path (L = 16, 64, 256), codebooks in order, shuffled or with repeats; N
-# from 1 to past both grid caps. Not one hard index may differ from the
-# plain version's, and K4's dcb must repeat bit for bit.
+# from 1 to past the grid caps. Not one hard index may differ from the
+# plain version's (K3 and K4 read pc at the hard index, so a flip shows in
+# dz), and K4's dcb must repeat bit for bit.
 @pytest.mark.parametrize('n,bpf,kind', [
     (1, 5, 'sorted'), (1, 4, 'unsorted'), (1000, 5, 'sorted'), (1000, 5, 'unsorted'),
     (1000, 5, 'repeated'), (1000, 4, 'unsorted'), (1000, 6, 'repeated'), (1000, 8, 'unsorted'),
@@ -137,16 +145,19 @@ def near_tie_inputs(seed, n, bpf, kind, device):
 @pytest.mark.parametrize('v,gamma', [(50.0, 25.0), (7.5, 25.0), (0.0, 5.0)])
 def test_k2_and_k4_break_ties_as_the_plain_versions(cuda, n, bpf, kind, v, gamma):
     z, g, cb, pc = near_tie_inputs(n + bpf, n, bpf, kind, cuda)
-    before = codebook.codebook_fwd_cuda.launches, codebook.codebook_bwd_train_cuda.launches
+    wrappers = (codebook.codebook_fwd_cuda, codebook.codebook_bwd_cuda,
+                codebook.codebook_bwd_train_cuda)
+    before = [f.launches for f in wrappers]
     soft, hard = codebook.codebook_fwd_cuda(z, cb, v, gamma)
+    dz3 = codebook.codebook_bwd_cuda(z, g, cb, pc, v, gamma)
     dz, dcb = codebook.codebook_bwd_train_cuda(z, g, cb, pc, v, gamma)
     torch.cuda.synchronize()
-    assert (codebook.codebook_fwd_cuda.launches,
-            codebook.codebook_bwd_train_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert [f.launches for f in wrappers] == [c + 1 for c in before]
     soft_ref, hard_ref = codebook.codebook_fwd_plain(z, cb, v, gamma)
     assert codebook.check_forward(soft, hard, soft_ref, hard_ref, cb)['index_flips'] == 0
     dz_ref, dcb_ref = codebook.codebook_bwd_train_plain(z, g, cb, pc, v, gamma)
     dz_scale, dcb_scale = codebook.backward_error_scale(z, g, cb, pc, v, gamma)
+    codebook.check_backward(dz3, dz_ref, dz_scale)
     codebook.check_backward(dz, dz_ref, dz_scale)
     codebook.check_backward(dcb, dcb_ref, dcb_scale, 'dcb')
     assert torch.equal(codebook.codebook_bwd_train_cuda(z, g, cb, pc, v, gamma)[1], dcb)
@@ -179,3 +190,31 @@ def test_codebook_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         codebook.codebook_bwd_train_cuda(z.cpu(), g.cpu(), cb.cpu(), pc.cpu())
     with pytest.raises(ValueError, match='must match'):
         codebook.codebook_bwd_cuda(z, g[:-1], cb, pc)
+
+
+def test_full_width_training_step_on_the_card(cuda):
+    """The joint step of the shipped m_quality run at full width (batch 20,
+    raw 128 px, NIP trainable): K1 twice, finite losses, and the loss parts
+    and gradient norms within ``compare_steps`` of the port's CPU step on the
+    same batch and weights."""
+    import chip_smoke
+    from neural_imaging_tpu_torch.workflows.manipulation_classification import (
+        ManipulationClassification, compare_steps)
+    run = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       chip_smoke.RUN_DIR)
+    flow = ManipulationClassification.restore(run, 128, trainable={'nip'}, device=cuda)
+    cpu = ManipulationClassification.restore(run, 128, trainable={'nip'}, device='cpu')
+    (bx, by), = chip_smoke.training_batches(5, 1, 20)
+    compare_steps(flow.loss_and_gradients(bx, by, 0.1),
+                  cpu.loss_and_gradients(bx.cpu(), by.cpu(), 0.1))
+    before = jpeg8x8.jpeg_core_cuda.launches
+    loss, parts = flow.training_step(bx, by, 0.1)
+    torch.cuda.synchronize()
+    assert jpeg8x8.jpeg_core_cuda.launches == before + 2
+    assert all(np.isfinite(float(v)) for v in (loss, *parts.values()))
+    # quantized batches are normalized on the card as on the CPU
+    from neural_imaging_tpu_torch.ops import ops
+    for dtype, top in ((np.uint16, 65535), (np.uint8, 255)):
+        q = torch.from_numpy(np.random.default_rng(6).integers(0, top + 1, (2, 8, 8, 3))
+                             .astype(dtype))
+        assert torch.equal(ops.normalize_batch(q.to(cuda)).cpu(), ops.normalize_batch(q))

@@ -156,7 +156,8 @@ def test_depthwise_conv2d(mode, per_channel):
     np.testing.assert_allclose(nhwc(out), np.asarray(ref), atol=1e-5)
 
 
-@pytest.mark.parametrize('n_in,n_out', [(16, 8), (32, 16), (16, 4), (8, 16), (10, 5), (12, 7)])
+@pytest.mark.parametrize('n_in,n_out', [(16, 8), (32, 16), (16, 4), (8, 16), (10, 5), (12, 7),
+                                         (230, 172), (209, 256), (256, 104), (32, 26)])
 def test_resize_matrix_matches_jax_image_resize(n_in, n_out):
     m = manipulations._resize_matrix(n_in, n_out)
     ref = np.asarray(jax.image.resize(jnp.eye(n_in, dtype=jnp.float32), (n_out, n_in),

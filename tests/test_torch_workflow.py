@@ -115,7 +115,6 @@ def test_restored_flow_shape(flows):
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'distribution': {'downsampling': 'bilinear'}},
     {'distribution': {'compression': 'dcn'}},
     {'manipulations': ['awgn']},
     {'nip_model': 'UNet'},
