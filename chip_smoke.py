@@ -22,12 +22,21 @@ NVIDIA GPU:
    against the port's own CPU step (``compare_steps``), then timed steps at
    fixed strengths and a few with ``augment=True``, K1 twice a step; check
    the losses and that the NIP and the FAN moved;
-6. DCN serving: restore the 32c codec and answer requests of one 512x768
+6. the trainer: ``train_manipulation_nip`` on 60 procedural 256x384 pairs
+   (the port's ``fixtures.make_dataset``, split 40:20:2) with the same run's
+   flow, its pre-trained SyntheticCam INet and the NIP trainable, raw patch
+   128, batch 10, 6 epochs with validation every 2: host-fed, then from
+   device-resident data; the host-fed first epoch against the port's CPU
+   trainer, the written run directory restored and revalidated to its
+   logged accuracy, K1 twice a step and twice a validation batch; epoch
+   times (timed by the trainer's own validation log lines), steps/s, the
+   validation share and the device's busy share;
+7. DCN serving: restore the 32c codec and answer requests of one 512x768
    RGB image each, ``codec.compress`` → bytes → ``codec.decompress``; check
    the bitstream round trip, and the latent and decode against the CPU;
-7. DCN training: steps of the 32c codec (fixed codebook, K2 + K3) and of a
+8. DCN training: steps of the 32c codec (fixed codebook, K2 + K3) and of a
    trainable-codebook copy (K2 + K4) at batch 16 of 128-px patches;
-8. print one JSON line of the kernels, then the last line
+9. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -40,22 +49,36 @@ device it exits non-zero before doing anything.
 """
 import argparse
 import json
+import logging
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
 from neural_imaging_tpu_torch.compression import codec, entropy
+from neural_imaging_tpu_torch.data import fixtures
+from neural_imaging_tpu_torch.data.dataset import Dataset
+from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
+from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
 from neural_imaging_tpu_torch.models import base, compression
 from neural_imaging_tpu_torch.models.jpeg import qtables
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops.hopper import _build, codebook, jpeg8x8
+from neural_imaging_tpu_torch.training import validation
+from neural_imaging_tpu_torch.training.manipulation import train_manipulation_nip
 from neural_imaging_tpu_torch.utils.device import resolve_device
+from neural_imaging_tpu_torch.utils.utils import logger
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
-    ManipulationClassification, compare_probabilities, compare_steps)
+    MAX_STEP_LOSS_DIFF, ManipulationClassification, compare_probabilities, compare_steps)
 
 RUN_DIR = 'data/m_quality/QualityRef/INet/fixed-nip/fixed-codec/000'
 RAW_PATCH = 128
@@ -66,6 +89,11 @@ DCN_LR = 1e-4
 DCN_REQUESTS, DCN_STEPS, DCN_TRAIN_CODEBOOK_STEPS = 5, 5, 3
 TRAIN_STEPS, TRAIN_AUGMENTED_STEPS = 10, 3   # main-path steps, after a warm-up
 TRAIN_LAMBDA_NIP, TRAIN_LR = 0.1, 1e-4
+# the trainer: the m_quality run's data shape (60 images of 256x384, split
+# 40:20:2, 256-px validation patches) and its batch of 10, made procedurally
+TRAINER_IMAGES, TRAINER_SIZE, TRAINER_SPLIT = 60, (256, 384), (40, 20, 2)
+TRAINER_BATCH, TRAINER_EPOCHS, TRAINER_VALIDATION = 10, 6, 2
+TRAINER_PROFILE_EPOCHS = 3
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
 # kernel's work is the larger of bytes / memory rate and FLOPs / peak rate.
@@ -187,8 +215,6 @@ def kernel_ms(fn, reps, flush, match=HAND_KERNELS):
     a string of ``match``, from ``torch.profiler`` over ``reps`` calls (L2
     flushed before each), by the kernel's function name: splits a function
     into its launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -199,6 +225,45 @@ def kernel_ms(fn, reps, flush, match=HAND_KERNELS):
     return {re.search(r'(\w+(<[^()]*>)?)\(', e.key).group(1): e.self_device_time_total / 1e3 / reps
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and any(m in e.key for m in match)}
+
+
+def device_profile(fn, reps, n_top=12, match=()):
+    """Run ``fn`` ``reps`` times under torch.profiler; device ms per call,
+    busy share of the window, device operations per call, the ``n_top``
+    kernels that take the most time, and the ms per call of the kernels whose
+    names hold a string of ``match``."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    # device-side events only (host ops also carry the device time of the
+    # kernels they launch), without user annotations such as Optimizer.step,
+    # whose device-track spans cover kernels that are counted themselves
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
+    device_us = sum(e.self_device_time_total for e in events)
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    top = [{'kernel': e.key[:90], 'calls_per_call': e.count / reps,
+            'ms_per_call': e.self_device_time_total / 1e3 / reps} for e in events[:n_top]]
+    matched_ms = sum(e.self_device_time_total for e in events
+                     if any(m in e.key for m in match)) / 1e3 / reps
+    return {'profiled_wall_ms_per_call': 1e3 * window / reps,
+            'device_ms_per_call': device_us / 1e3 / reps,
+            'device_busy_share': device_us / 1e6 / window,
+            'device_ops_per_call': sum(e.count for e in events) / reps,
+            'matched_kernels_ms_per_call': matched_ms, 'top_kernels': top}
+
+
+def print_profile(label, p):
+    print(f'[{label}] device {p["device_ms_per_call"]:.3f} ms of '
+          f'{p["profiled_wall_ms_per_call"]:.3f} ms wall per call, busy '
+          f'{100 * p["device_busy_share"]:.1f}%, {p["device_ops_per_call"]:.0f} device ops, '
+          f'matched kernels {p["matched_kernels_ms_per_call"]:.4f} ms', flush=True)
+    for row in p['top_kernels']:
+        print(f"[{label}]   {row['ms_per_call']:8.3f} ms x{row['calls_per_call']:5.1f} "
+              f"{row['kernel']}", flush=True)
 
 
 def format_launches(launch_ms):
@@ -392,6 +457,214 @@ def main_path_training(args, device):
                                                                  + TRAIN_AUGMENTED_STEPS),
                     'losses': losses, 'largest_change': moved,
                     'cpu_first_step': agreement}
+
+def trainer_flow(device):
+    """The m_quality run's flow (its manipulations, channel and FAN) with
+    fresh weights and the NIP trainable, on ``device``."""
+    with open(os.path.join(RUN_DIR, 'training.json')) as f:
+        log = json.load(f)
+    fan_args = {k: v for k, v in log['forensics']['args'].items() if k != 'n_classes'}
+    return ManipulationClassification(
+        log['nip']['model'], manipulations=[m for m in log['manipulations'] if m != 'native'],
+        distribution=log['distribution'], fan_args=fan_args, trainable={'nip'},
+        raw_patch_size=RAW_PATCH, device=device)
+
+
+class ValidationClock(logging.Handler):
+    """The host times of the trainer's validation log lines: where each
+    validation starts (logged once the epochs before it have run on the
+    device) and where it ends (after its results and snapshots reached the
+    host)."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.starts, self.ends = [], []
+
+    def emit(self, record):
+        message = record.getMessage()
+        if message.endswith(': validating'):
+            self.starts.append(record.created)
+        elif record.funcName == 'validate' and 'accuracy' in message:
+            self.ends.append(record.created)
+
+
+def trainer_run(flow, data_dir, root, n_epochs, device_data=False):
+    """``train_manipulation_nip`` of ``flow`` on a fresh Dataset of
+    ``data_dir``; returns (timings, training.json, run directory): the wall
+    times of the call and of its validation log lines."""
+    n_images, v_images, val_patches = TRAINER_SPLIT
+    data = Dataset(data_dir, n_images=n_images, v_images=v_images,
+                   val_rgb_patch_size=2 * RAW_PATCH, val_n_patches=val_patches)
+    training = {'camera_name': 'SyntheticCam', 'use_pretrained_nip': True,
+                'patch_size': RAW_PATCH, 'batch_size': TRAINER_BATCH, 'n_epochs': n_epochs,
+                'validation_schedule': TRAINER_VALIDATION, 'learning_rate': TRAIN_LR,
+                'lambda_nip': TRAIN_LAMBDA_NIP, 'lambda_dcn': 0.0, 'run_number': 0,
+                'augment': False}
+    clock, level = ValidationClock(), logger.level
+    logger.addHandler(clock)
+    logger.setLevel(logging.DEBUG)
+    start = time.time()
+    try:
+        models = train_manipulation_nip(
+            flow, training, data, device_data=device_data,
+            directories={'root': root, 'nip_snapshots': str(base.REPO_ROOT / 'data/models/nip')})
+    finally:
+        logger.removeHandler(clock)
+        logger.setLevel(level)
+    timings = {'start': start, 'end': time.time(), 'validation_starts': clock.starts,
+               'validation_ends': clock.ends}
+    run_dir = os.path.dirname(models)
+    with open(os.path.join(run_dir, 'training.json')) as f:
+        return timings, json.load(f), run_dir
+
+
+def trainer_results(label, timings, log, steps_per_epoch, busy):
+    """Epoch times, rates and shares of one trainer run, from its validation
+    log lines: the training between two validations over the epochs it ran
+    (the first span, epoch 0, also holds the run's set-up and first calls)."""
+    starts, ends = timings['validation_starts'], timings['validation_ends']
+    marks = [e for e in range(TRAINER_EPOCHS) if e % TRAINER_VALIDATION == 0]
+    marks.append(TRAINER_EPOCHS - 1)     # the final validation
+    if not len(starts) == len(ends) == len(marks):
+        raise AssertionError(f'{label}: {len(starts)} validation starts and {len(ends)} ends '
+                             f'logged, {len(marks)} expected')
+    spans = [starts[0] - timings['start']] + [s - e for s, e in zip(starts[1:], ends)]
+    span_epochs = [1] + [b - a for a, b in zip(marks, marks[1:])]
+    validations = [e - s for s, e in zip(starts, ends)]
+    run_s = timings['end'] - timings['start']
+    steady = sum(spans[1:])
+    steps = steps_per_epoch * sum(span_epochs[1:])
+    out = {'training_s': spans, 'epochs_per_span': span_epochs, 'validation_s': validations,
+           'run_s': run_s, 'epoch_s_after_first': steady / sum(span_epochs[1:]),
+           'steps_per_s': steps / steady, 'raw_patches_per_s': TRAINER_BATCH * steps / steady,
+           'validation_share': sum(validations) / run_s,
+           'validation_s_median': float(np.median(validations)),
+           'epoch_losses': log['forensics']['performance']['loss']['training'],
+           'nip_losses': log['nip']['performance']['loss']['training'],
+           'accuracy': log['forensics']['performance']['accuracy']['validation'],
+           'nip_psnr': log['nip']['performance']['psnr']['validation'],
+           'device_busy_share': busy['device_busy_share'],
+           'device_ms_per_epoch': busy['device_ms_per_call'],
+           'profiled_wall_ms_per_epoch': busy['profiled_wall_ms_per_call']}
+    print(f'[trainer] {label}: training between validations '
+          f'{", ".join(f"{1e3 * t:.1f} ms / {n}" for t, n in zip(spans, span_epochs))} epochs '
+          f'(the first holds the set-up); after the first {1e3 * out["epoch_s_after_first"]:.1f} '
+          f'ms an epoch, {out["steps_per_s"]:.2f} steps/s, {out["raw_patches_per_s"]:.1f} raw '
+          f'patches/s; validation {", ".join(f"{1e3 * t:.1f}" for t in validations)} ms, '
+          f'{100 * out["validation_share"]:.1f}% of the {run_s:.2f} s run; device busy '
+          f'{100 * busy["device_busy_share"]:.1f}% of an epoch\'s profiled window '
+          f'({busy["device_ms_per_call"]:.2f} of {busy["profiled_wall_ms_per_call"]:.2f} ms); '
+          f'losses {out["epoch_losses"]}; accuracy {out["accuracy"]}', flush=True)
+    return out
+
+
+def check_trainer_run(label, flow, log, run_dir, data_dir, nip_start, fan_start, device):
+    """Losses finite, the FAN and the NIP moved, the run directory's files,
+    and its restore reclassifying the validation set to the logged accuracy."""
+    for part in ('forensics', 'nip'):
+        losses = log[part]['performance']['loss']['training']
+        if len(losses) != TRAINER_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f'{label}: bad {part} losses {losses}')
+    for name in ('training.json', 'models/fan/fan.npz', 'models/inet/inet.npz'):
+        if not os.path.isfile(os.path.join(run_dir, name)):
+            raise AssertionError(f'{label}: {name} missing from {run_dir}')
+    saved = {m: base.load_flax_npz(os.path.join(run_dir, 'models', m, f'{m}.npz'))
+             for m in ('fan', 'inet')}
+    moved = {m: max(float(np.abs(saved[m][k] - v).max()) for k, v in start.items())
+             for m, start in (('fan', fan_start), ('inet', nip_start))}
+    if not (moved['fan'] > 0 and moved['inet'] > 0):
+        raise AssertionError(f'{label}: parameters did not move: {moved}')
+    n_images, v_images, val_patches = TRAINER_SPLIT
+    data = Dataset(data_dir, n_images=n_images, v_images=v_images,
+                   val_rgb_patch_size=2 * RAW_PATCH, val_n_patches=val_patches)
+    restored = ManipulationClassification.restore(run_dir, RAW_PATCH, device=device)
+    accuracy, _ = validation.validate_fan(restored, data)
+    logged = log['forensics']['performance']['accuracy']['validation'][-1]
+    if accuracy != logged:
+        raise AssertionError(f'{label}: the restored run classifies at {accuracy}, '
+                             f'its log says {logged}')
+    print(f'[trainer] {label}: largest change FAN {moved["fan"]:.3g}, INet '
+          f'{moved["inet"]:.3g}; restored on the card: accuracy {accuracy} as logged',
+          flush=True)
+    return moved
+
+
+def trainer(args, device):
+    """The trainer on procedural data, host-fed and device-resident; returns
+    (launch counts of each run, results)."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_trainer_')
+    try:
+        return trainer_phase(args, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def trainer_phase(args, device, tmp):
+    t0 = time.perf_counter()
+    height, width = TRAINER_SIZE
+    data_dir = fixtures.make_dataset(os.path.join(tmp, 'data'), n_images=TRAINER_IMAGES,
+                                     height=height, width=width, seed=args.seed + 1000)
+    dataset_s = time.perf_counter() - t0
+    print(f'[trainer] {TRAINER_IMAGES} procedural {height}x{width} pairs written in '
+          f'{dataset_s:.2f} s', flush=True)
+    n_images, v_images, val_patches = TRAINER_SPLIT
+    steps_per_epoch = n_images // TRAINER_BATCH
+    val_points = len(range(0, TRAINER_EPOCHS, TRAINER_VALIDATION)) + 1
+    val_batches = v_images * val_patches // min(10, v_images * val_patches)
+    expected = {'jpeg8x8': 2 * TRAINER_EPOCHS * steps_per_epoch + 2 * val_points * val_batches}
+    nip_start = base.load_flax_npz(base.REPO_ROOT / 'data/models/nip/SyntheticCam'
+                                   / 'INet_gbrg_5x5/inet/inet.npz')
+
+    flow = trainer_flow(device)
+    fan_start = base.flax_params(flow.fan.module.named_parameters())
+    results, counts = {}, {}
+    for label, device_data in (('host-fed', False), ('device-resident', True)):
+        if device_data:
+            flow.reinitialize()          # as the CLI's sweeps do
+        torch.cuda.synchronize()
+        zero_counts()
+        timings, log, run_dir = trainer_run(flow, data_dir, os.path.join(tmp, label),
+                                            TRAINER_EPOCHS, device_data)
+        counts[label] = read_counts()
+        expect_counts(f'trainer ({label})', counts[label], expected)
+        moved = check_trainer_run(label, flow, log, run_dir, data_dir, nip_start, fan_start,
+                                  device)
+        data = Dataset(data_dir, n_images=n_images, v_images=v_images,
+                       val_rgb_patch_size=2 * RAW_PATCH, val_n_patches=val_patches)
+        if device_data:
+            sampler = DeviceSampler(data, TRAINER_BATCH, 2 * RAW_PATCH, device=device)
+            epoch = lambda: flow.training_scan(sampler, steps_per_epoch, TRAIN_LAMBDA_NIP,
+                                               learning_rate=TRAIN_LR)
+        else:
+            prefetcher = EpochPrefetcher(data, TRAINER_BATCH, 2 * RAW_PATCH, device)
+            epoch = lambda: [flow.training_step(bx, by, TRAIN_LAMBDA_NIP, learning_rate=TRAIN_LR)
+                             for bx, by in prefetcher]
+        busy = device_profile(epoch, TRAINER_PROFILE_EPOCHS)
+        flow.assert_finite()
+        results[label] = {**trainer_results(label, timings, log, steps_per_epoch, busy),
+                          'largest_change': moved,
+                          'k1_launches': counts[label]['jpeg8x8']}
+        if label == 'host-fed':
+            host_log = log
+
+    # the first epoch against the port's CPU trainer on the same data and weights
+    _, cpu_log, _ = trainer_run(trainer_flow('cpu'), data_dir, os.path.join(tmp, 'cpu'), 1)
+    card, cpu = (log_['forensics']['performance']['loss']['training'][0]
+                 for log_ in (host_log, cpu_log))
+    rel = abs(card - cpu) / abs(cpu)
+    if not rel <= MAX_STEP_LOSS_DIFF:
+        raise AssertionError(f'trainer: first epoch loss {card} on the card, {cpu} on the CPU')
+    print(f'[trainer] first epoch mean loss: card {card:.6f}, CPU {cpu:.6f}, relative '
+          f'difference {rel:.3g} (bound {MAX_STEP_LOSS_DIFF:g}); K1 launches '
+          f'{counts["host-fed"]["jpeg8x8"]} and {counts["device-resident"]["jpeg8x8"]} '
+          f'(2 a step x {TRAINER_EPOCHS * steps_per_epoch} + 2 a validation batch x '
+          f'{val_points * val_batches})', flush=True)
+    return counts, {'images': TRAINER_IMAGES, 'size': list(TRAINER_SIZE),
+                    'split': list(TRAINER_SPLIT), 'batch': TRAINER_BATCH, 'raw_patch': RAW_PATCH,
+                    'epochs': TRAINER_EPOCHS, 'validation_schedule': TRAINER_VALIDATION,
+                    'lambda_nip': TRAIN_LAMBDA_NIP, 'lr': TRAIN_LR, 'dataset_s': dataset_s,
+                    'cpu_first_epoch_loss': cpu, 'card_first_epoch_loss': card,
+                    'cpu_first_epoch_rel_diff': rel, **results}
 
 
 def dcn_serving(args, device):
@@ -624,13 +897,17 @@ def main():
     train_main_counts, train_main = main_path_training(args, device)
     print('[train] ' + json.dumps(train_main), flush=True)
 
-    # 6.-7. the DCN paths
+    # 6. the trainer
+    trainer_counts, trainer_results_ = trainer(args, device)
+    print('[trainer] ' + json.dumps(trainer_results_), flush=True)
+
+    # 7.-8. the DCN paths
     serve_counts, serving = dcn_serving(args, device)
     fixed_counts, train_counts, training = dcn_training(args, device)
     print('[dcn] ' + json.dumps({'serving': serving, 'training': training,
                                  'kernel_shapes': k234}), flush=True)
 
-    # 8. results: K1's numbers are its two launches of one request, summed;
+    # 9. results: K1's numbers are its two launches of one request, summed;
     # K2's are at the serving shape, K3's and K4's at the training shape
     print('[slice] ' + json.dumps({
         'requests': args.requests, 'batch': args.batch,
@@ -640,7 +917,8 @@ def main():
     kernels = [{'name': 'jpeg8x8', 'route': 'cuda',
                 'source': 'neural_imaging_tpu_torch/csrc/jpeg8x8.cu',
                 'replaces': 'neural_imaging_tpu/ops/pallas/jpeg8x8.py:34',
-                'launches': slice_counts['jpeg8x8'] + train_main_counts['jpeg8x8'],
+                'launches': (slice_counts['jpeg8x8'] + train_main_counts['jpeg8x8']
+                             + sum(c['jpeg8x8'] for c in trainer_counts.values())),
                 'max_abs_err': max(r['max_abs_err'] for r in k1),
                 'ms': sum(r['ms'] for r in k1),
                 'plain_ms': sum(r['plain_ms'] for r in k1),

@@ -4,7 +4,9 @@ Model shell and checkpoint I/O in the JAX package's format.
 A checkpoint is ``<dir>/<class>.npz`` of flax parameter paths (``conv0/kernel``,
 ``head/bias``, …) with HWIO conv kernels and Dense kernels of shape (in, out).
 :func:`convert_params` turns such a file into a PyTorch ``state_dict``; that is
-how weights trained by the JAX package are carried into the port.
+how weights trained by the JAX package are carried into the port, and
+:func:`flax_params` is its inverse, with which the port writes checkpoints
+that the JAX package loads.
 :func:`restore` builds a model from a training directory or a preset name,
 as the JAX package's ``models.base.restore`` does.
 """
@@ -18,7 +20,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from neural_imaging_tpu_torch.utils import utils
 from neural_imaging_tpu_torch.utils.device import resolve_device
+from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
+from neural_imaging_tpu_torch.utils.utils import logger
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 PRESETS_ROOT = REPO_ROOT / 'config' / 'presets'
@@ -115,13 +120,59 @@ def convert_params(flax_flat):
     return state
 
 
+def flax_params(named_parameters):
+    """PyTorch parameters → flat flax parameters, the inverse of
+    :func:`convert_params`: '.' → '/', a last component 'weight' becomes
+    'kernel', 4-D OIHW kernels become HWIO and 2-D (out, in) kernels (in,
+    out). Values are float32 numpy arrays."""
+    flat = {}
+    for name, value in named_parameters:
+        parts = name.split('.')
+        if parts[-1] == 'weight':
+            parts[-1] = 'kernel'
+        t = value.detach().to('cpu', torch.float32)
+        if t.ndim == 4:
+            t = t.permute(2, 3, 1, 0)
+        elif t.ndim == 2:
+            t = t.T
+        flat['/'.join(parts)] = t.contiguous().numpy()
+    return flat
+
+
 class TorchModel:
-    """Shell around an ``nn.Module`` core: device placement, naming and
-    loading of JAX-format checkpoints. The core runs in eval mode."""
+    """Shell around an ``nn.Module`` core: device placement, naming, the
+    history of metrics (``performance``) and checkpoints in the JAX
+    package's format. The core runs in eval mode. Subclasses that record
+    hyper-parameters as the JAX package does keep them in ``self._h``, a
+    ``ParamSpec``."""
 
     def __init__(self, module, device='cuda'):
         self.device = resolve_device(device)
-        self.module = module.to(self.device).eval()
+        self.module = None if module is None else module.to(self.device).eval()
+        self.reset_performance_stats()
+
+    # -- performance stats ------------------------------------------------------
+
+    @staticmethod
+    def _reset_performance(metric_names):
+        return {k: {'training': [], 'validation': []} for k in metric_names}
+
+    def reset_performance_stats(self):
+        self.performance = self._reset_performance(['loss'])
+
+    def log_metric(self, metric, scope, value, raw=False):
+        """Append ``value`` (its mean, unless a number or ``raw``) to the
+        history of ``metric`` in ``scope`` ('training' or 'validation')."""
+        if not raw:
+            if torch.is_tensor(value):
+                value = value.detach().cpu().numpy()
+            value = float(value) if utils.is_number(value) else float(np.mean(np.asarray(value)))
+        self.performance[metric][scope].append(value)
+
+    def pop_metric(self, metric, scope):
+        return self.performance[metric][scope][-1]
+
+    # -- naming -----------------------------------------------------------------------
 
     @property
     def class_name(self):
@@ -131,13 +182,60 @@ class TorchModel:
     def scoped_name(self):
         return type(self).__name__.lower()
 
-    def load_model(self, dirname):
-        """Load ``<dirname>[/<scoped name>]/<class>.npz`` (strict: every
-        parameter present, no extra ones)."""
-        if not dirname.rstrip('/').endswith(self.scoped_name):
-            dirname = os.path.join(dirname, self.scoped_name)
-        filename = os.path.join(dirname, f'{self.class_name.lower()}.npz')
-        self.module.load_state_dict(convert_params(load_flax_npz(filename)), strict=True)
+    @property
+    def model_code(self):
+        raise NotImplementedError()
+
+    def _spec(self):
+        h = getattr(self, '_h', None)
+        return h if isinstance(h, ParamSpec) else None
+
+    def get_hyperparameters(self):
+        return self._spec().to_json() if self._spec() else None
+
+    def summary(self):
+        return f'{self.class_name} model [{self.count_parameters():,} parameters]'
+
+    def summary_compact(self):
+        return self.class_name
+
+    def __repr__(self):
+        extra = utils.join_args(self._spec().changed_params()) if self._spec() else ''
+        return f'{self.class_name}({extra})'
+
+    # -- parameters and checkpoints ------------------------------------------------
 
     def count_parameters(self):
         return sum(p.numel() for p in self.module.parameters())
+
+    def checkpoint(self):
+        """{flax path: float32 array} of the weights, as ``save_model`` writes them."""
+        return flax_params(self.module.named_parameters())
+
+    def save_model(self, dirname, epoch=0, save_args=False, quiet=False):
+        """Write ``<dirname>[/<scoped name>]/<class>.npz`` in the JAX package's
+        format (and with ``save_args`` the ``<class>.json`` of the class and
+        its hyper-parameters). ``epoch`` is accepted for the reference's
+        signature; the file holds the current weights."""
+        if not dirname.endswith(self.scoped_name):
+            dirname = os.path.join(dirname, self.scoped_name)
+        os.makedirs(dirname, exist_ok=True)
+        stem = os.path.join(dirname, self.class_name.lower())
+        if not quiet:
+            logger.info('> %s --> %s.npz %s', self.class_name, stem, 'JSON' if save_args else '')
+        np.savez(stem + '.npz', **self.checkpoint())
+        if save_args:
+            with open(stem + '.json', 'w') as f:
+                json.dump({'model': self.class_name, 'args': self.get_hyperparameters()},
+                          f, indent=4)
+
+    def load_model(self, dirname, quiet=False):
+        """Load ``<dirname>[/<scoped name>]/<class>.npz`` (strict: every
+        parameter present, no extra ones) and reset the metric history."""
+        if not dirname.rstrip('/').endswith(self.scoped_name):
+            dirname = os.path.join(dirname, self.scoped_name)
+        filename = os.path.join(dirname, f'{self.class_name.lower()}.npz')
+        if not quiet:
+            logger.info('> %s <-- %s', self.class_name, filename)
+        self.module.load_state_dict(convert_params(load_flax_npz(filename)), strict=True)
+        self.reset_performance_stats()

@@ -14,6 +14,7 @@ from torch import nn
 from neural_imaging_tpu_torch.models.base import TorchModel, flax_default_init
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops.kernels import center_mask_2dfilter, repeat_2dfilter
+from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 
 
 class ConstrainedConv(nn.Module):
@@ -124,6 +125,17 @@ class FAN(TorchModel):
             raise ValueError(f'Unsupported constrained_impl {constrained_impl!r}')
         if activation not in ops.ACTIVATIONS:
             raise ValueError(f'Unsupported activation {activation!r}')
+        # the JAX package's spec: its defaults make the logs' repr
+        self._h = ParamSpec({
+            'n_classes': (7, int), 'n_filters': (32, int), 'n_fscale': (2.0, float),
+            'n_convolutions': (4, int), 'kernel': (5, int), 'dropout': (0.0, float),
+            'use_gap': (False, bool), 'n_dense': (2, int), 'activation': ('leaky_relu', str),
+            'dtype': ('float32', str), 'stem': ('separate', str),
+            'constrained_impl': ('auto', str)})
+        self._h.update(n_classes=n_classes, n_filters=n_filters, n_fscale=n_fscale,
+                       n_convolutions=n_convolutions, kernel=kernel, dropout=dropout,
+                       use_gap=use_gap, n_dense=n_dense, activation=activation,
+                       dtype=dtype, stem=stem, constrained_impl=constrained_impl)
         self.patch_size = patch_size
         super().__init__(FANCore(n_classes=n_classes, n_filters=n_filters,
                                  n_fscale=n_fscale, n_convolutions=n_convolutions,
@@ -149,3 +161,21 @@ class FAN(TorchModel):
         if with_confidence:
             return probs.argmax(axis=1), probs.max(axis=1)
         return probs.argmax(axis=1)
+
+    def reset_performance_stats(self):
+        self.performance = {
+            'loss': {'training': [], 'validation': []},
+            'accuracy': {'validation': []},
+            'confusion': [],
+        }
+
+    @property
+    def model_code(self):
+        h = self._h
+        return f'FAN_{h.n_classes}x{h.n_filters}x{h.n_convolutions}C_{h.kernel}x{h.kernel}'
+
+    def summary(self):
+        return ('{k}x{k} CNN: 1+{conv}+1 conv layers {gap}+ {fc} fc layers '
+                '[{params:,} parameters]').format(
+            k=self._h.kernel, conv=self._h.n_convolutions, fc=self._h.n_dense,
+            gap='+ (GAP) ' if self._h.use_gap else '', params=self.count_parameters())

@@ -17,9 +17,11 @@ from torch import nn
 
 from neural_imaging_tpu_torch.compression.jpeg_helpers import (K1_LUMA, K2_CHROMA, jpeg_qf_estimation,
                                                               jpeg_qtable)
+from neural_imaging_tpu_torch.models.base import TorchModel
 from neural_imaging_tpu_torch.ops import color, dct, ops
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops.hopper.jpeg8x8 import jpeg_core
+from neural_imaging_tpu_torch.utils import stats
 from neural_imaging_tpu_torch.utils.device import resolve_device
 
 ROUNDING_APPROXIMATIONS = ('sin', 'harmonic', 'soft')
@@ -143,20 +145,33 @@ class DifferentiableJPEG:
                             taylor_terms=self.rounding_approximation_steps)
 
 
-class JPEG:
+class JPEG(TorchModel):
     """JPEG channel codec with the differentiable approximation ('soft' /
     'sin' / 'harmonic') and scalar, range or set quality randomization. The
-    reference's 'libjpeg' codec is not ported."""
+    reference's 'libjpeg' codec is not ported. Its checkpoint holds the
+    q-tables of a trainable codec and nothing otherwise."""
 
     def __init__(self, quality=None, codec='soft', trainable=False, rng=None,
                  device='cuda'):
         if codec not in ('soft', 'sin', 'harmonic'):
             raise ValueError(f'Unsupported codec version: {codec}')
+        super().__init__(None, device)
         self.codec = codec
         self.quality = quality
         self.trainable = trainable
         self._rng = rng or np.random.default_rng()
         self._model = DifferentiableJPEG(quality, codec, trainable=trainable, device=device)
+
+    def reset_performance_stats(self):
+        self.performance = self._reset_performance(['entropy', 'ssim', 'psnr'])
+
+    def count_parameters(self):
+        return sum(t.numel() for t in self._model.params.values()) if self.trainable else 0
+
+    def checkpoint(self):
+        if not self.trainable:
+            return {}
+        return {name: t.detach().cpu().numpy() for name, t in self._model.params.items()}
 
     def loss(self, batch_c, batch_C):
         """Mean squared distortion of the channel (JPEG has no rate to train)."""
@@ -174,13 +189,22 @@ class JPEG:
             return int(self._rng.integers(quality[0], quality[1]))
         return int(quality)
 
-    def process(self, batch_x, quality=None):
-        """Compress an NHWC RGB batch; quality as in the constructor."""
+    def process(self, batch_x, quality=None, return_entropy=False):
+        """Compress an NHWC RGB batch; quality as in the constructor. With
+        ``return_entropy`` also the empirical entropy (bits) of the rounded
+        dequantized coefficients, as (image, entropy)."""
         quality = self._resolve_quality(quality)
-        if self.trainable or quality == self.quality:
-            return self._model(batch_x)[0]
-        q_luma, q_chroma = qtables(quality, batch_x.device)
-        return self._model(batch_x, q_luma=q_luma, q_chroma=q_chroma)[0]
+        x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            if self.trainable or quality == self.quality:
+                y, coeffs = self._model(x)
+            else:
+                q_luma, q_chroma = qtables(quality, self.device)
+                y, coeffs = self._model(x, q_luma=q_luma, q_chroma=q_chroma)
+        if return_entropy:
+            coeffs = coeffs.cpu().numpy()
+            return y, stats.entropy(np.round(coeffs), np.arange(-1024, 1025))
+        return y
 
     def process_with_params(self, batch_x, params):
         """Differentiable round trip of an NHWC batch through explicit
@@ -195,3 +219,27 @@ class JPEG:
 
     def __repr__(self):
         return f'JPEG(quality={self.quality},codec="{self.codec}",trainable={self.trainable})'
+
+    def summary(self, quality=None):
+        return f'JPEG ({self.codec}) {self._quality_mode(quality)}'
+
+    def summary_compact(self, quality=None):
+        return self.summary(quality)
+
+    @property
+    def model_code(self):
+        return f'JPEG-{self.codec}-{self._quality_mode()}'
+
+    def _quality_mode(self, quality=None):
+        quality = quality or self.quality
+        if self.trainable:
+            return 'trainable QF~{}/{}'.format(
+                jpeg_qf_estimation(self._model.q_mtx_luma, 0),
+                jpeg_qf_estimation(self._model.q_mtx_chroma, 1))
+        if _is_number(quality):
+            return f'QF={quality}'
+        if hasattr(quality, '__getitem__') and len(quality) == 2:
+            return 'QF~[{},{}]'.format(*quality)
+        if hasattr(quality, '__getitem__') and len(quality) > 2:
+            return 'QF~{{{}}}'.format(','.join(str(x) for x in quality))
+        return 'QF=?'

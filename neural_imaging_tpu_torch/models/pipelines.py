@@ -14,6 +14,8 @@ from neural_imaging_tpu_torch.models.base import TorchModel
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops.kernels import (EXAMPLE_SRGB, bilin_kernel, gamma_kernels,
                                                   upsampling_kernel)
+from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
+from neural_imaging_tpu_torch.utils.utils import format_patch_shape
 
 # The reference's conv precisions that are plain f32 convolutions. Its 'high'
 # and 'default' are bf16 matrix-unit paths, not ported yet.
@@ -83,7 +85,14 @@ class INet(TorchModel):
                                       f'path, not ported; use one of {F32_CONV_PRECISIONS}')
         if cfa_pattern.lower() not in ('gbrg', 'rggb', 'bggr'):
             raise ValueError(f'Unsupported CFA pattern {cfa_pattern!r}')
+        self._h = ParamSpec({'random_init': (False, bool), 'kernel': (5, int),
+                             'trainable_upsampling': (False, bool),
+                             'cfa_pattern': ('gbrg', str), 'conv_precision': ('exact', str)})
+        self._h.update(random_init=random_init, kernel=kernel,
+                       trainable_upsampling=trainable_upsampling, cfa_pattern=cfa_pattern,
+                       conv_precision=conv_precision)
         self.patch_size = patch_size
+        self.in_channels = 4
         self.loss_metric = loss_metric
         super().__init__(INetCore(kernel=kernel, random_init=random_init,
                                   trainable_upsampling=trainable_upsampling,
@@ -101,3 +110,34 @@ class INet(TorchModel):
             x = x[None]
         with torch.no_grad():
             return self.module(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def reset_performance_stats(self):
+        self.performance = {
+            'loss': {'training': [], 'validation': []},
+            'psnr': {'validation': []},
+            'ssim': {'validation': []},
+        }
+
+    def get_hyperparameters(self):
+        return {'in_channels': self.in_channels, **self._h.to_json()}
+
+    @property
+    def patch_size_raw(self):
+        return (self.patch_size, self.patch_size, self.in_channels)
+
+    @property
+    def patch_size_rgb(self):
+        if self.patch_size is None:
+            return None
+        return (2 * self.patch_size, 2 * self.patch_size, 3)
+
+    @property
+    def model_code(self):
+        return '{c}_{cfa}{tu}{r}_{k}x{k}'.format(
+            c=self.class_name, cfa=self._h.cfa_pattern, k=self._h.kernel,
+            tu='T' if self._h.trainable_upsampling else '',
+            r='R' if self._h.random_init else '')
+
+    def summary(self):
+        return '{} : {} -> {}'.format(super().summary(), format_patch_shape(self.patch_size_raw),
+                                      format_patch_shape(self.patch_size_rgb))

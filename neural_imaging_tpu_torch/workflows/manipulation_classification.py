@@ -11,8 +11,9 @@ losses. Every random draw of a step (manipulation strengths, the channel's
 quality) is made on the device from ``torch.Generator``s seeded with
 ``rng_seed``, so a step never waits on the host; PyTorch cannot reproduce
 JAX's PRNG, so parity tests pass the same strengths to both (``_losses``).
-The DCN channel, awgn / gamma / median, ``training_scan`` and the bf16 knobs
-are not ported yet.
+``training_scan`` runs steps on batches that a ``DeviceSampler`` draws on
+the device. The DCN channel, awgn / gamma / median and the bf16 knobs are
+not ported yet.
 """
 import json
 import os
@@ -118,7 +119,7 @@ class ManipulationClassification:
         :param nip_model: NIP class name ('INet' is the one ported)
         :param manipulations: list of '<name>[:strength]' specs
         :param distribution: {'downsampling': 'pool[:factor]' | 'bilinear' | 'none',
-                              'compression': 'jpeg',
+                              'compression': 'jpeg' | 'none',
                               'compression_params': {'quality': int | (lo, hi) | set,
                                                      'codec': 'soft'|…, 'trainable': bool}}
         :param fan_args: FAN constructor arguments other than n_classes/patch_size
@@ -134,7 +135,9 @@ class ManipulationClassification:
             raise ValueError(f'The patch size ({raw_patch_size}) looks incorrect')
         self.device = resolve_device(device)
         self.raw_patch_size = raw_patch_size
-        self._trainable = set(trainable or ()) | {'fan'}
+        # built as the reference builds it, so that both iterate it in one order
+        self._trainable = set(trainable or ())
+        self._trainable.add('fan')
         if not self._trainable <= set(COMPONENTS):
             raise ValueError(f'Unknown trainable parts {sorted(self._trainable - set(COMPONENTS))}')
 
@@ -148,16 +151,19 @@ class ManipulationClassification:
         ds = self._distribution['downsampling']
         if not (ds.startswith('pool') or ds in ('bilinear', 'none')):
             raise ValueError(f'Unsupported channel down-sampling {ds!r}')
-        if self._distribution['compression'] != 'jpeg':
-            raise NotImplementedError(
-                f"compression {self._distribution['compression']!r} is not ported; use 'jpeg'")
-        params = dict(self._distribution.get('compression_params') or {})
-        unknown = sorted(set(params) - set(JPEG_PARAMS))
-        if unknown:
-            raise NotImplementedError(f'JPEG channel parameters {unknown} are not ported; '
-                                      f'the port takes {list(JPEG_PARAMS)}')
-        self.codec = jpeg_models.JPEG(**params, device=self.device)
-        if 'dcn' in self._trainable and not self.codec.trainable:
+        compression = self._distribution['compression']
+        if compression not in ('jpeg', 'none'):
+            raise NotImplementedError(f"compression {compression!r} is not ported; use 'jpeg' "
+                                      "or 'none'")
+        self.codec = None
+        if compression == 'jpeg':
+            params = dict(self._distribution.get('compression_params') or {})
+            unknown = sorted(set(params) - set(JPEG_PARAMS))
+            if unknown:
+                raise NotImplementedError(f'JPEG channel parameters {unknown} are not ported; '
+                                          f'the port takes {list(JPEG_PARAMS)}')
+            self.codec = jpeg_models.JPEG(**params, device=self.device)
+        if 'dcn' in self._trainable and not self._codec_is_trainable():
             raise ValueError('The current codec does not appear to be trainable!')
 
         if nip_model != 'INet':
@@ -177,7 +183,7 @@ class ManipulationClassification:
             if strength:
                 self._strengths[name] = float(strength[-1])
         self._operations = [name for name in CANONICAL_ORDER if name in requested]
-        self.forensics_classes = ['native'] + [
+        self._forensics_classes = ['native'] + [
             f'{name}:{self._strengths[name]:g}' for name in self._operations]
         self._strength_candidates = {
             name: np.linspace(*manips.STRENGTH_RANGES[name], N_STRENGTH_CANDIDATES)
@@ -232,8 +238,8 @@ class ManipulationClassification:
 
     def reinitialize(self):
         """Reset to the state after construction (after ``restore``, the
-        restored weights): parameters, the Adam state, the random generators
-        and the deferred NaN flags."""
+        restored weights): parameters, the Adam state, the random generators,
+        the deferred NaN flags and the models' metric histories."""
         with torch.no_grad():
             for name, part in self._collect_params().items():
                 for k, p in part.items():
@@ -245,6 +251,10 @@ class ManipulationClassification:
         self._rng = np.random.default_rng(self._rng_seed)
         self._generator = torch.Generator(device=self.device).manual_seed(self._rng_seed)
         self._finite_flags = []
+        self._scan_step = 0
+        for model in (self.fan, self.nip, self.codec):
+            if model is not None:
+                model.reset_performance_stats()
 
     # -- properties and partitions ---------------------------------------------------
 
@@ -259,12 +269,15 @@ class ManipulationClassification:
             return 1
         return int(ds.split(':')[-1]) if ':' in ds else 2
 
+    def _codec_is_trainable(self):
+        return self.codec is not None and self.codec.trainable
+
     def _collect_params(self):
         """{'fan': {name: parameter}, 'nip': {...}} and, for a trainable JPEG
         channel, its q-tables under 'dcn'."""
         params = {'fan': dict(self.fan.module.named_parameters()),
                   'nip': dict(self.nip.module.named_parameters())}
-        if self.codec.trainable:
+        if self._codec_is_trainable():
             params['dcn'] = dict(self.codec._model.params)
         return params
 
@@ -304,7 +317,10 @@ class ManipulationClassification:
 
     def _compress(self, batch, q_luma, q_chroma):
         """The JPEG channel: through the codec's own (trainable) q-tables when
-        it has them, else through ``q_luma``, ``q_chroma``."""
+        it has them, else through ``q_luma``, ``q_chroma``; the batch itself
+        without a codec."""
+        if self.codec is None:
+            return batch
         if self.codec.trainable:
             tables = self.codec._model.params
             q_luma, q_chroma = tables['q_mtx_luma'], tables['q_mtx_chroma']
@@ -334,7 +350,7 @@ class ManipulationClassification:
         zero = torch.zeros((), device=probs.device)
         loss_nip = (self.nip.loss(batch_y, batch_Y.permute(0, 2, 3, 1))
                     if batch_y is not None else zero)
-        loss_dcn = self.codec.loss(batch_c, batch_C)
+        loss_dcn = self.codec.loss(batch_c, batch_C) if self.codec is not None else zero
         loss = loss_ce
         if 'nip' in self._trainable:
             loss = loss + lambda_nip * loss_nip
@@ -346,14 +362,18 @@ class ManipulationClassification:
 
     def _channel_qtables(self):
         """The channel's (luma, chroma) tables for a forward, a randomized
-        quality drawn on the host by the codec."""
+        quality drawn on the host by the codec; (None, None) without a codec."""
+        if self.codec is None:
+            return None, None
         quality = self.codec._resolve_quality(None) if self.codec.quality is not None else 50
         return jpeg_models.qtables(quality, self.device)
 
     def _channel_qtables_in_graph(self):
         """The channel's tables for a training step, drawn on the device: a
         fixed quality's tables, a quality drawn from [lo, hi) of a 2-range, or
-        one of a longer set's tables."""
+        one of a longer set's tables; (None, None) without a codec."""
+        if self.codec is None:
+            return None, None
         quality = self.codec.quality if self.codec.quality is not None else 50
         if jpeg_models._is_number(quality):
             return jpeg_models.qtables(int(quality), self.device)
@@ -415,16 +435,9 @@ class ManipulationClassification:
             by_part.setdefault(part, {})[k] = g
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, by_part
 
-    def training_step(self, batch_x, batch_y, lambda_nip=0, lambda_dcn=0,
-                      augment=False, learning_rate=1e-4):
-        """One joint step: the loss of an NHWC RAW batch and its target RGB
-        (or None), its gradient over the trainable partition and one Adam
-        step (optax's ``scale_by_adam`` then −lr·u) at ``learning_rate``.
-        ``augment`` draws the manipulation strengths on the device; a
-        randomized channel quality is drawn there in any case. Returns (loss,
-        {'ce', 'nip', 'dcn'}) as 0-d tensors on the device. Raises
-        RuntimeError on a non-finite gradient (with ``nan_check``; the update
-        has been applied then, and ``reinitialize`` restores the flow)."""
+    def _step(self, batch_x, batch_y, lambda_nip, lambda_dcn, augment, learning_rate):
+        """One joint step; returns (loss, parts, finite), ``finite`` a 0-d bool
+        tensor on the device saying whether every gradient was finite."""
         q_tables = self._channel_qtables_in_graph()
         scalars, indices = self._sample_strengths_in_graph() if augment else (None, None)
         loss, parts, grads = self.loss_and_gradients(batch_x, batch_y, lambda_nip, lambda_dcn,
@@ -437,12 +450,46 @@ class ManipulationClassification:
             group['lr'] = float(learning_rate)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        return loss, parts, finite
+
+    def training_step(self, batch_x, batch_y, lambda_nip=0, lambda_dcn=0,
+                      augment=False, learning_rate=1e-4):
+        """One joint step: the loss of an NHWC RAW batch and its target RGB
+        (or None), its gradient over the trainable partition and one Adam
+        step (optax's ``scale_by_adam`` then −lr·u) at ``learning_rate``.
+        ``augment`` draws the manipulation strengths on the device; a
+        randomized channel quality is drawn there in any case. Returns (loss,
+        {'ce', 'nip', 'dcn'}) as 0-d tensors on the device. Raises
+        RuntimeError on a non-finite gradient (with ``nan_check``; the update
+        has been applied then, and ``reinitialize`` restores the flow)."""
+        loss, parts, finite = self._step(batch_x, batch_y, lambda_nip, lambda_dcn, augment,
+                                         learning_rate)
         if self.nan_check:
             if not bool(finite):
                 raise RuntimeError('∇ NaNs encountered in the joint training step')
         else:
             self._finite_flags.append(finite)
         return loss, parts
+
+    def training_scan(self, sampler, n_steps, lambda_nip=0, lambda_dcn=0, augment=False,
+                      learning_rate=1e-4):
+        """``n_steps`` training steps on batches that ``sampler`` (a
+        ``DeviceSampler`` on the flow's device) draws on the device, numbered
+        on from the flow's last scanned step (0 after ``reinitialize``).
+        Returns (losses, nip_losses), tensors of length ``n_steps`` on the
+        device; the finite flags wait for ``assert_finite``."""
+        losses, nip_losses = [], []
+        for _ in range(n_steps):
+            batch = sampler(self._scan_step)
+            self._scan_step += 1
+            batch_x, batch_y = {'xy': batch, 'y': (batch, batch),
+                                'x': (batch, None)}[sampler._loaded]
+            loss, parts, finite = self._step(batch_x, batch_y, lambda_nip, lambda_dcn, augment,
+                                             learning_rate)
+            losses.append(loss)
+            nip_losses.append(parts['nip'])
+            self._finite_flags.append(finite)
+        return torch.stack(losses), torch.stack(nip_losses)
 
     def assert_finite(self):
         """The deferred NaN check of the steps run with ``nan_check`` False:
@@ -509,3 +556,40 @@ class ManipulationClassification:
     def run_rgb_to_probabilities(self, batch_Y):
         """Class probabilities (numpy) for an NHWC RGB batch."""
         return self.fan.process(self.run_rgb_to_fan(batch_Y)).cpu().numpy()
+
+    # -- summaries ----------------------------------------------------------------------
+
+    def is_trainable(self, model):
+        return model in self._trainable
+
+    @property
+    def trainable_models(self):
+        return tuple(self._trainable)
+
+    def _summary_parts(self):
+        ds = self._distribution['downsampling']
+        return {'cls': type(self).__name__, 'nip': self.nip.class_name,
+                'mn': ''.join(x[0] for x in self._forensics_classes),
+                'tr': ''.join(x[0] for x in self.trainable_models),
+                'pool': '' if ds == 'none' else f'-> {ds} ',
+                'codec': '' if self.codec is None else f'-> {self.codec.summary_compact()} '}
+
+    def summary_compact(self):
+        return '{cls}[{tr}]: {nip} -> [{mn}] {pool}{codec}-> FAN'.format(**self._summary_parts())
+
+    def summary(self):
+        return ('{cls}[opt={tr}]: {inp} -> {nip} -> {n} manipulations [{mn}] '
+                '{pool}{codec}-> FAN -> (prob. {k} classes)').format(
+            inp='(rgb)' if self.nip.in_channels == 3 else '(raw)', n=self.n_classes - 1,
+            k=self.n_classes, **self._summary_parts())
+
+    def details(self):
+        inp = '(rgb)' if self.nip.in_channels == 3 else '(raw)'
+        return '\n'.join([
+            self.summary(),
+            f'Input         : raw patch {self.raw_patch_size} {inp}',
+            f'Camera ISP    : {self.nip.summary()}',
+            f'Manipulations : {self.n_classes} -> {self._forensics_classes}',
+            f"Downsampling  : {self._distribution['downsampling']}",
+            f"Codec         : {'' if self.codec is None else self.codec.summary()}",
+            f'Forensics     : {self.fan.summary()}'])

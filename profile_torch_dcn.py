@@ -26,10 +26,9 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import (DCN_BATCH, DCN_IMAGE, DCN_LR, DCN_PATCH, DCN_PRESET, synthetic_rgb,
-                        trainable_dcn)
+from chip_smoke import (DCN_BATCH, DCN_IMAGE, DCN_LR, DCN_PATCH, DCN_PRESET, device_profile,
+                        print_profile, synthetic_rgb, trainable_dcn)
 from neural_imaging_tpu_torch.compression import codec
-from profile_torch_slice import device_profile, print_profile
 
 # the names of K2-K4 and K4's row sum in the profiler's kernel list
 CODEBOOK_KERNELS = ('codebook', 'sum_rows')

@@ -7,8 +7,7 @@ composed as ``ManipulationClassification._forward`` composes them, with a
 synchronize between stages, so kernels plus any gaps while the host
 enqueues), the request's wall time, and, from ``torch.profiler``, the GPU
 kernels' own time, the device's busy share over a profiled window, and the
-kernels that take the most time (``device_profile``, which
-``profile_torch_dcn.py`` uses too).
+kernels that take the most time (``chip_smoke.device_profile``).
 
 ``--train`` does the same for one joint training step of the same run with
 the NIP trainable (λ_nip 0.1, as ``chip_smoke.py`` runs it): the stream time
@@ -16,22 +15,37 @@ of each stage's forward and of its backward (each stage's VJP taken alone
 with ``torch.autograd.grad``, in reverse order), the loss, and the Adam
 update; the step's wall time; and the device profile of whole steps.
 
-    python3 profile_torch_slice.py [--seed 0] [--batch 20] [--requests 10] [--train]
+``--trainer`` splits the trainer's costs (``chip_smoke.py``'s trainer
+configuration, batch 10): the host's sampling of a quantized batch and its
+copy, what the host spends queuing a step against the step's wall and
+device time, a device-resident draw and step, an epoch of 4 steps fed by
+the prefetcher, fed inline and device-resident, and a validation point's
+parts (the FAN's validation, the NIP's on the card and its host metrics,
+the log and snapshots).
+
+    python3 profile_torch_slice.py [--seed 0] [--batch 20] [--requests 10] [--train | --trainer]
 
 Needs a CUDA device. Prints one JSON line last.
 """
 import argparse
 import json
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
-
-from chip_smoke import (RAW_PATCH, RUN_DIR, TRAIN_LAMBDA_NIP, synthetic_raw,
-                        training_batches)
-from neural_imaging_tpu_torch.models import forensics
+from chip_smoke import (RAW_PATCH, RUN_DIR, TRAIN_LAMBDA_NIP, TRAIN_LR, TRAINER_BATCH,
+                        TRAINER_IMAGES, TRAINER_SIZE, TRAINER_SPLIT, device_profile, print_profile,
+                        synthetic_raw, trainer_flow, training_batches)
+from neural_imaging_tpu_torch.data import fixtures
+from neural_imaging_tpu_torch.data.dataset import Dataset
+from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
+from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher, to_device
+from neural_imaging_tpu_torch.models import base, forensics
+from neural_imaging_tpu_torch.training import validation
+from neural_imaging_tpu_torch.utils import metrics
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
     ManipulationClassification)
 
@@ -151,43 +165,98 @@ def train(args):
             'stage_stream_ms': stages, 'stage_stream_ms_sum': sum(stages.values()), **p}
 
 
-def device_profile(fn, reps, n_top=12, match=()):
-    """Run ``fn`` ``reps`` times under torch.profiler; device ms per call,
-    busy share of the window, device operations per call, the ``n_top``
-    kernels that take the most time, and the ms per call of the kernels whose
-    names hold a string of ``match``."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+def median_ms(fn, reps, sync=True):
+    """Median wall ms of ``fn`` over ``reps`` calls after one warm-up; with
+    ``sync`` each call ends in a synchronize, else it times what the host
+    spends queuing the call (then waits for the device, untimed)."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    # device-side events only (host ops also carry the device time of the
-    # kernels they launch), without user annotations such as Optimizer.step,
-    # whose device-track spans cover kernels that are counted themselves
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and not getattr(e, 'is_user_annotation', False)]
-    device_us = sum(e.self_device_time_total for e in events)
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    top = [{'kernel': e.key[:90], 'calls_per_call': e.count / reps,
-            'ms_per_call': e.self_device_time_total / 1e3 / reps} for e in events[:n_top]]
-    matched_ms = sum(e.self_device_time_total for e in events
-                     if any(m in e.key for m in match)) / 1e3 / reps
-    return {'profiled_wall_ms_per_call': 1e3 * window / reps,
-            'device_ms_per_call': device_us / 1e3 / reps,
-            'device_busy_share': device_us / 1e6 / window,
-            'device_ops_per_call': sum(e.count for e in events) / reps,
-            'matched_kernels_ms_per_call': matched_ms, 'top_kernels': top}
+    return 1e3 * float(np.median(walls))
 
 
-def print_profile(label, p):
-    print(f'[{label}] device {p["device_ms_per_call"]:.3f} ms of '
-          f'{p["profiled_wall_ms_per_call"]:.3f} ms wall per call, busy '
-          f'{100 * p["device_busy_share"]:.1f}%, {p["device_ops_per_call"]:.0f} device ops, '
-          f'matched kernels {p["matched_kernels_ms_per_call"]:.4f} ms', flush=True)
-    for row in p['top_kernels']:
-        print(f"[{label}]   {row['ms_per_call']:8.3f} ms x{row['calls_per_call']:5.1f} "
-              f"{row['kernel']}", flush=True)
+def trainer_costs(args):
+    """The --trainer mode: what a step and a validation point of the trainer
+    cost on the host and on the card at ``chip_smoke.py``'s trainer
+    configuration (m_quality flow, NIP trainable, batch 10, raw 128 px, 40
+    validation patches of 256 px)."""
+    tmp = tempfile.mkdtemp(prefix='profile_trainer_')
+    try:
+        data_dir = fixtures.make_dataset(os.path.join(tmp, 'data'), n_images=TRAINER_IMAGES,
+                                         height=TRAINER_SIZE[0], width=TRAINER_SIZE[1],
+                                         seed=args.seed + 1000)
+        n_images, v_images, val_patches = TRAINER_SPLIT
+        data = Dataset(data_dir, n_images=n_images, v_images=v_images,
+                       val_rgb_patch_size=2 * RAW_PATCH, val_n_patches=val_patches)
+        flow = trainer_flow('cuda')
+        flow.nan_check = False
+        flow.nip.load_model(str(base.REPO_ROOT / 'data/models/nip/SyntheticCam/INet_gbrg_5x5'))
+        reps = args.requests
+        batch = data.next_training_batch(0, TRAINER_BATCH, 2 * RAW_PATCH, quantized=True)
+        bx, by = to_device(batch, flow.device)
+        step = lambda: flow.training_step(bx, by, TRAIN_LAMBDA_NIP, learning_rate=TRAIN_LR)
+        sampler = DeviceSampler(data, TRAINER_BATCH, 2 * RAW_PATCH, device=flow.device)
+        prefetcher = EpochPrefetcher(data, TRAINER_BATCH, 2 * RAW_PATCH, flow.device)
+        steps = n_images // TRAINER_BATCH
+
+        def epoch_inline():
+            for b in data.get_training_generator(TRAINER_BATCH, 2 * RAW_PATCH, quantized=True):
+                flow.training_step(*to_device(b, flow.device), TRAIN_LAMBDA_NIP,
+                                   learning_rate=TRAIN_LR)
+
+        developed = {}
+
+        def nip_on_card():
+            x, _ = data.validation_tensors(flow.device)
+            developed['y'] = flow.nip.process(x).clamp(0, 1).cpu().numpy()
+
+        def nip_metrics():
+            _, y = data.next_validation_batch(0, data.count_validation)
+            for b in range(data.count_validation):
+                metrics.ssim(y[b], developed['y'][b])
+                metrics.psnr(y[b], developed['y'][b])
+
+        def saves():
+            validation.save_training_progress({}, flow, tmp, quiet=True)
+            flow.fan.save_model(os.path.join(tmp, 'models', 'fan'), quiet=True)
+            flow.nip.save_model(os.path.join(tmp, 'models', 'inet'), quiet=True)
+
+        out = {
+            'device': torch.cuda.get_device_name(0), 'batch': TRAINER_BATCH,
+            'host_sample_batch_ms': median_ms(lambda: data.next_training_batch(
+                0, TRAINER_BATCH, 2 * RAW_PATCH, quantized=True), reps),
+            'copy_batch_ms': median_ms(lambda: to_device(batch, flow.device), reps),
+            'step_host_queue_ms': median_ms(step, reps, sync=False),
+            'step_wall_ms': median_ms(step, reps),
+            'device_sample_ms': median_ms(lambda: sampler(0), reps),
+            'scan_step_wall_ms': median_ms(lambda: flow.training_scan(
+                sampler, 1, TRAIN_LAMBDA_NIP, learning_rate=TRAIN_LR), reps),
+            'epoch_prefetched_ms': median_ms(lambda: [step() for _ in prefetcher], 3),
+            'epoch_inline_ms': median_ms(epoch_inline, 3),
+            'epoch_device_resident_ms': median_ms(lambda: flow.training_scan(
+                sampler, steps, TRAIN_LAMBDA_NIP, learning_rate=TRAIN_LR), 3),
+            'validate_fan_ms': median_ms(lambda: validation.validate_fan(flow, data), 3),
+            'validate_nip_ms': median_ms(lambda: validation.validate_nip(flow.nip, data), 3),
+            'nip_on_card_ms': median_ms(nip_on_card, 3),
+            'nip_host_metrics_ms': median_ms(nip_metrics, 3),
+            'save_log_and_models_ms': median_ms(saves, 3),
+        }
+        profile_step = device_profile(step, reps)
+        out['step_device_ms'] = profile_step['device_ms_per_call']
+        out['step_device_ops'] = profile_step['device_ops_per_call']
+        flow.assert_finite()
+        for name, value in out.items():
+            print(f'[trainer cost] {name:24s} {value}', flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -197,11 +266,17 @@ def main():
     parser.add_argument('--requests', type=int, default=10)
     parser.add_argument('--train', action='store_true',
                         help='profile a training step instead of a request')
+    parser.add_argument('--trainer', action='store_true',
+                        help="split the trainer's step and validation point into host and "
+                             'card costs')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_torch_slice: needs a CUDA device')
     if args.train:
         print(json.dumps(train(args)))
+        return
+    if args.trainer:
+        print(json.dumps(trainer_costs(args)))
         return
 
     flow = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, device='cuda')

@@ -218,3 +218,53 @@ def test_full_width_training_step_on_the_card(cuda):
         q = torch.from_numpy(np.random.default_rng(6).integers(0, top + 1, (2, 8, 8, 3))
                              .astype(dtype))
         assert torch.equal(ops.normalize_batch(q.to(cuda)).cpu(), ops.normalize_batch(q))
+
+
+@pytest.fixture(scope='module')
+def fixture_data(tmp_path_factory):
+    from neural_imaging_tpu_torch.data import fixtures
+    from neural_imaging_tpu_torch.data.dataset import Dataset
+    directory = fixtures.make_dataset(str(tmp_path_factory.mktemp('data')), n_images=6,
+                                      height=64, width=96)
+    return Dataset(directory, n_images=4, v_images=2, val_rgb_patch_size=32, val_n_patches=2)
+
+
+def test_device_sampler_on_the_card_keeps_the_cpu_patches(cuda, fixture_data):
+    """The card's gather and ranking (int16 bit patterns, a CUDA generator)
+    against the CPU sampler's on the same candidate draws."""
+    from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
+    card = DeviceSampler(fixture_data, 3, 32, device=cuda)
+    cpu = DeviceSampler(fixture_data, 3, 32, device='cpu')
+    for step in range(5):
+        draws = card.draw(step)
+        assert all(t.device.type == 'cuda' for t in draws)
+        raw, rgb = card.sample(*draws)
+        ref_raw, ref_rgb = cpu.sample(*(t.cpu() for t in draws))
+        assert raw.dtype == torch.uint16 and rgb.dtype == torch.uint8
+        assert torch.equal(raw.cpu().view(torch.int16), ref_raw.view(torch.int16))
+        assert torch.equal(rgb.cpu(), ref_rgb)
+    first = card(7)
+    assert all(torch.equal(a, b) for a, b in zip(first, card(7)))
+
+
+def test_prefetcher_copies_pinned_batches_intact(cuda, fixture_data):
+    """Batches copied through pinned memory without waiting equal the
+    host's, while the card is kept busy between them."""
+    from neural_imaging_tpu_torch.data.dataset import Dataset
+    from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
+    ref = Dataset(fixture_data._data_directory, n_images=4, v_images=2,
+                  val_rgb_patch_size=32, val_n_patches=2)
+    data = Dataset(fixture_data._data_directory, n_images=4, v_images=2,
+                   val_rgb_patch_size=32, val_n_patches=2)
+    prefetcher = EpochPrefetcher(data, 2, 32, cuda)
+    for _ in range(3):
+        expected = list(ref.get_training_generator(2, 32, 'flat', quantized=True))
+        got = []
+        for x, y in prefetcher:
+            torch.cuda._sleep(1_000_000)         # the next copies queue behind device work
+            got.append((x.cpu(), y.cpu()))
+        assert len(got) == len(expected)
+        for (x, y), (ref_x, ref_y) in zip(got, expected):
+            assert x.device.type == 'cpu' and torch.equal(x.view(torch.int16),
+                                                           torch.from_numpy(ref_x.view('int16')))
+            assert torch.equal(y, torch.from_numpy(ref_y))

@@ -12,13 +12,18 @@ import pytest
 import torch
 
 import neural_imaging_tpu_torch
+from neural_imaging_tpu_torch.cli import train_manipulation
 from neural_imaging_tpu_torch.compression import codec
+from neural_imaging_tpu_torch.data import fixtures
+from neural_imaging_tpu_torch.data.dataset import Dataset
+from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.models import base, compression, forensics, jpeg, pipelines
 from neural_imaging_tpu_torch.utils import device as device_utils
 from neural_imaging_tpu_torch.workflows import manipulation_classification
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'imageio', 'neural_imaging_tpu')
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'imageio', 'neural_imaging_tpu', 'tqdm',
+           'matplotlib', 'pandas')
 
 
 def port_modules():
@@ -35,7 +40,9 @@ def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package()
     modules = port_modules() + ['chip_smoke', 'profile_torch_slice', 'profile_torch_dcn',
                                 'sass_costs', 'bench_codebook_kernels', 'check_division']
     for name in ('ops.hopper.jpeg8x8', 'ops.hopper.codebook', 'ops.ssim', 'models.compression',
-                 'compression.codec', 'compression.entropy'):
+                 'compression.codec', 'compression.entropy', 'data.png', 'data.fixtures',
+                 'data.dataset', 'data.prefetch', 'data.device_sampler', 'training.validation',
+                 'training.manipulation', 'cli.train_manipulation'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',
@@ -85,3 +92,18 @@ def test_cpu_is_taken_only_when_asked():
     assert device_utils.resolve_device('cpu') == torch.device('cpu')
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize('entry', ['sampler', 'cli'])
+def test_trainer_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_path,
+                                                                    monkeypatch):
+    data_dir = fixtures.make_dataset(str(tmp_path / 'data'), n_images=2, height=64, width=96)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        if entry == 'sampler':
+            DeviceSampler(Dataset(data_dir, n_images=1, v_images=1, val_rgb_patch_size=32), 1, 32)
+        else:
+            train_manipulation.main(['--nip', 'INet', '--data', data_dir, '--split', '1:1:1',
+                                     '--patch', '16', '--batch', '1', '--dir',
+                                     str(tmp_path / 'out')])
+    assert not (tmp_path / 'out').exists()

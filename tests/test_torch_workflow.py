@@ -107,8 +107,8 @@ def test_trainable_channel_slice_matches_reference(trainable_flows):
 
 def test_restored_flow_shape(flows):
     _, port = flows
-    assert port.forensics_classes == ['native', 'sharpen:1', 'resample:50', 'gaussian:0.83',
-                                      'jpeg:80']
+    assert port._forensics_classes == ['native', 'sharpen:1', 'resample:50', 'gaussian:0.83',
+                                       'jpeg:80']
     assert port.n_classes == 5 and port.downsampling_factor == 2
     assert port.codec.quality == 50 and port.codec.codec == 'soft'
     assert port.fan.count_parameters() == 1_145_382
