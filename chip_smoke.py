@@ -22,7 +22,18 @@ NVIDIA GPU:
    against the port's own CPU step (``compare_steps``), then timed steps at
    fixed strengths and a few with ``augment=True``, K1 twice a step; check
    the losses and that the NIP and the FAN moved;
-6. the trainer: ``train_manipulation_nip`` on 60 procedural 256x384 pairs
+6. bench.py's configuration (every bfloat16 knob, the flat pool, the FAN
+   at the m_quality widths in bfloat16, INet at 'exact' with the same run's
+   weights, NIP trainable): the first step against the port's CPU step
+   (``compare_steps`` at the bfloat16 bounds), timed steps in blocks taken
+   in turns with the float32 step of step 5's flow, a few with
+   ``augment=True``, a device profile of each; K1 never launched (the
+   bfloat16 codecs are the plane form). Then the shipped runs trained at
+   INet 'high' and 'default' precision (``m_prec_high``, ``m_prec_default``,
+   ``m_manipjpeg_bf16`` with its bfloat16 'jpeg' manipulation) restored and
+   asked for requests, K1 twice, twice and once a request, the
+   probabilities against the port's CPU forward;
+7. the trainer: ``train_manipulation_nip`` on 60 procedural 256x384 pairs
    (the port's ``fixtures.make_dataset``, split 40:20:2) with the same run's
    flow, its pre-trained SyntheticCam INet and the NIP trainable, raw patch
    128, batch 10, 6 epochs with validation every 2: host-fed, then from
@@ -31,12 +42,12 @@ NVIDIA GPU:
    logged accuracy, K1 twice a step and twice a validation batch; epoch
    times (timed by the trainer's own validation log lines), steps/s, the
    validation share and the device's busy share;
-7. DCN serving: restore the 32c codec and answer requests of one 512x768
+8. DCN serving: restore the 32c codec and answer requests of one 512x768
    RGB image each, ``codec.compress`` → bytes → ``codec.decompress``; check
    the bitstream round trip, and the latent and decode against the CPU;
-8. DCN training: steps of the 32c codec (fixed codebook, K2 + K3) and of a
+9. DCN training: steps of the 32c codec (fixed codebook, K2 + K3) and of a
    trainable-codebook copy (K2 + K4) at batch 16 of 128-px patches;
-9. print one JSON line of the kernels, then the last line
+10. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -78,7 +89,8 @@ from neural_imaging_tpu_torch.training.manipulation import train_manipulation_ni
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.utils import logger
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
-    MAX_STEP_LOSS_DIFF, ManipulationClassification, compare_probabilities, compare_steps)
+    BF16_GRADIENT_NORM_DIFF, BF16_STEP_LOSS_DIFF, MAX_STEP_LOSS_DIFF, ManipulationClassification,
+    compare_probabilities, compare_steps)
 
 RUN_DIR = 'data/m_quality/QualityRef/INet/fixed-nip/fixed-codec/000'
 RAW_PATCH = 128
@@ -94,6 +106,22 @@ TRAIN_LAMBDA_NIP, TRAIN_LR = 0.1, 1e-4
 TRAINER_IMAGES, TRAINER_SIZE, TRAINER_SPLIT = 60, (256, 384), (40, 20, 2)
 TRAINER_BATCH, TRAINER_EPOCHS, TRAINER_VALIDATION = 10, 6, 2
 TRAINER_PROFILE_EPOCHS = 3
+# bench.py's configuration, the one the JAX package was tuned and benchmarked
+# on: the m_quality flow's manipulations, channel and FAN widths (5 classes,
+# 1,145,382 parameters), INet at 'exact', NIP trainable, the flat pool and
+# every bfloat16 knob (the FAN's weights drawn from its seed)
+BENCH_ARGS = dict(manipulations=['sharpen', 'resample', 'gaussian', 'jpeg'],
+                  distribution={'downsampling': 'pool:2', 'compression': 'jpeg',
+                                'compression_params': {'quality': 50, 'codec': 'soft'}},
+                  fan_args={'dtype': 'bfloat16'}, trainable={'nip'},
+                  nip_args={'conv_precision': 'exact'}, channel_dtype='bfloat16',
+                  channel_jpeg_dtype='bfloat16', manip_jpeg_dtype='bfloat16', pool_impl='flat')
+BENCH_BLOCKS, BENCH_BLOCK_STEPS = 2, 5     # timed blocks of steps, bf16 and f32 in turns
+# shipped runs trained at INet 'high' / 'default' precision → K1 launches a
+# request (their channel is float32; m_manipjpeg_bf16's jpeg:80 is bfloat16)
+BF16_CLASSIFY_RUNS = {'data/m_prec_high/QualityRef/INet/ln-0.0050/fixed-codec/000': 2,
+                      'data/m_prec_default/QualityRef/INet/ln-0.0050/fixed-codec/000': 2,
+                      'data/m_manipjpeg_bf16/QualityRef/INet/ln-0.0050/fixed-codec/000': 1}
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
 # kernel's work is the larger of bytes / memory rate and FLOPs / peak rate.
@@ -457,6 +485,156 @@ def main_path_training(args, device):
                                                                  + TRAIN_AUGMENTED_STEPS),
                     'losses': losses, 'largest_change': moved,
                     'cpu_first_step': agreement}
+
+def bench_flow(device, seed=0):
+    """bench.py's flow (``BENCH_ARGS``) at full width on ``device``, with the
+    m_quality run's INet and the deferred NaN check."""
+    flow = ManipulationClassification('INet', raw_patch_size=RAW_PATCH, rng_seed=seed,
+                                      device=device, **BENCH_ARGS)
+    flow.nip.load_model(str(base.REPO_ROOT / RUN_DIR / 'models'))
+    flow._snapshot()
+    flow.reinitialize()
+    flow.nan_check = False
+    return flow
+
+
+def bf16_training(args, device):
+    """bench.py's configuration: the first step on the card against the
+    port's CPU step, then timed steps in blocks taken in turns with the
+    float32 step of the m_quality run (the main-path training phase's flow)
+    on the same batches, augmented steps, and a device profile of each step;
+    returns (launch counts, results)."""
+    flow = bench_flow(device, args.seed)
+    if flow.fan.count_parameters() != 1_145_382:
+        raise AssertionError(f'bench FAN has {flow.fan.count_parameters()} parameters')
+    f32 = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, trainable={'nip'},
+                                             rng_seed=args.seed, device=device)
+    f32.nan_check = False
+    batches = training_batches(args.seed + 600, BENCH_BLOCK_STEPS + 1, args.batch)
+    bx, by = batches[0]
+    t0 = time.perf_counter()
+    step_cpu = bench_flow('cpu', args.seed).loss_and_gradients(bx.cpu(), by.cpu(),
+                                                               TRAIN_LAMBDA_NIP)
+    cpu_s = time.perf_counter() - t0
+    agreement = compare_steps(flow.loss_and_gradients(bx, by, TRAIN_LAMBDA_NIP), step_cpu,
+                              BF16_STEP_LOSS_DIFF, BF16_GRADIENT_NORM_DIFF)
+    print(f'[bf16 train] first step vs the CPU ({cpu_s:.1f} s there): loss parts within '
+          f'{agreement["max_loss_rel_diff"]:.3g} (relative, bound {BF16_STEP_LOSS_DIFF:g}), '
+          f'gradient norms within {agreement["max_grad_norm_rel_diff"]:.3g} (bound '
+          f'{BF16_GRADIENT_NORM_DIFF:g}); norms {agreement["grad_norms"]} vs '
+          f'{agreement["grad_norms_ref"]}', flush=True)
+
+    before = {part: {k: p.detach().clone() for k, p in leaves.items()}
+              for part, leaves in flow._collect_params().items()}
+    for f in (flow, f32):                       # warm-up (cuDNN autotuning, caches)
+        f.training_step(bx, by, TRAIN_LAMBDA_NIP, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = {'bf16': [], 'f32': [], 'bf16 augment': []}, []
+
+    def timed(f, label, bx, by, augment=False):
+        t0 = time.perf_counter()
+        loss, parts = f.training_step(bx, by, TRAIN_LAMBDA_NIP, augment=augment,
+                                      learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        times[label].append(time.perf_counter() - t0)
+        return loss, parts
+
+    bf16_counts = {name: 0 for name in COUNTERS}
+    for block in range(BENCH_BLOCKS):
+        for i in range(BENCH_BLOCK_STEPS):
+            before_k1 = read_counts()
+            loss, parts = timed(flow, 'bf16', *batches[1 + i])
+            bf16_counts = {k: bf16_counts[k] + v - before_k1[k] for k, v in read_counts().items()}
+            losses.append({'loss': float(loss), **{k: float(v) for k, v in parts.items()}})
+        for i in range(BENCH_BLOCK_STEPS):
+            timed(f32, 'f32', *batches[1 + i])
+    for i in range(TRAIN_AUGMENTED_STEPS):
+        before_k1 = read_counts()
+        loss, parts = timed(flow, 'bf16 augment', *batches[1 + i], augment=True)
+        bf16_counts = {k: bf16_counts[k] + v - before_k1[k] for k, v in read_counts().items()}
+        losses.append({'loss': float(loss), **{k: float(v) for k, v in parts.items()}})
+    expect_counts('bf16 training (bench.py configuration)', bf16_counts, {})
+    flow.assert_finite()
+    f32.assert_finite()
+    if not all(np.isfinite(v) for step in losses for v in step.values()):
+        raise AssertionError(f'non-finite bf16 training losses {losses}')
+    moved = {part: max(float((p.detach() - before[part][k]).abs().max())
+                       for k, p in leaves.items())
+             for part, leaves in flow._collect_params().items()}
+    if not (moved['nip'] > 0 and moved['fan'] > 0):
+        raise AssertionError(f'bf16 parameters did not move: {moved}')
+    profiles = {label: device_profile(lambda: f.training_step(bx, by, TRAIN_LAMBDA_NIP,
+                                                              learning_rate=TRAIN_LR), 5)
+                for label, f in (('bf16', flow), ('f32', f32))}
+    flow.assert_finite()
+    f32.assert_finite()
+    medians = {label: 1e3 * float(np.median(t)) for label, t in times.items()}
+    for label in ('bf16', 'f32'):
+        p = profiles[label]
+        print(f'[bf16 train] {label} step: median {medians[label]:.2f} ms '
+              f'({", ".join(f"{1e3 * t:.2f}" for t in times[label])}); device '
+              f'{p["device_ms_per_call"]:.2f} ms a step, busy {100 * p["device_busy_share"]:.1f}%, '
+              f'{p["device_ops_per_call"]:.0f} device ops', flush=True)
+    print(f'[bf16 train] augmented bf16 steps '
+          f'{", ".join(f"{1e3 * t:.2f}" for t in times["bf16 augment"])} ms; K1 launches '
+          f'{bf16_counts["jpeg8x8"]}; bf16 / f32 step {medians["bf16"] / medians["f32"]:.3f}; '
+          f'largest parameter change {moved}', flush=True)
+    return bf16_counts, {
+        'batch': args.batch, 'raw_patch': RAW_PATCH, 'lambda_nip': TRAIN_LAMBDA_NIP,
+        'lr': TRAIN_LR, 'step_ms': {k: [1e3 * t for t in v] for k, v in times.items()},
+        'median_ms': medians, 'steps_per_s': {k: 1e3 / v for k, v in medians.items()},
+        'bf16_over_f32': medians['bf16'] / medians['f32'],
+        'device_ms_per_step': {k: p['device_ms_per_call'] for k, p in profiles.items()},
+        'device_busy_share': {k: p['device_busy_share'] for k, p in profiles.items()},
+        'device_ops_per_step': {k: p['device_ops_per_call'] for k, p in profiles.items()},
+        'k1_launches': bf16_counts['jpeg8x8'], 'losses': losses, 'largest_change': moved,
+        'cpu_first_step': agreement, 'cpu_step_s': cpu_s}
+
+
+def bf16_classification(args, device):
+    """Restore the shipped runs trained at INet 'high' / 'default' precision
+    (one with a bfloat16 'jpeg' manipulation) and answer requests; K1 as many
+    times a request as each run's float32 codecs need; the probabilities
+    against the port's CPU forward of the same run. Returns (launch counts,
+    results)."""
+    counts, results = {name: 0 for name in COUNTERS}, {}
+    batches = [synthetic_raw(args.seed + 700 + i, args.batch, RAW_PATCH)
+               for i in range(args.requests)]
+    for run_dir, k1_per_request in BF16_CLASSIFY_RUNS.items():
+        name = run_dir.split('/')[1]
+        flow = ManipulationClassification.restore(run_dir, RAW_PATCH, device=device)
+        flow.run_workflow_to_decisions(batches[0])      # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        latencies = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            flow.run_workflow_to_decisions(batch)
+            latencies.append(time.perf_counter() - t0)
+        run_counts = read_counts()
+        expect_counts(f'bf16 classification ({name})', run_counts,
+                      {'jpeg8x8': k1_per_request * args.requests})
+        counts = {k: counts[k] + v for k, v in run_counts.items()}
+        probs = flow.run_workflow(batches[0])[-1]
+        if not bool(torch.isfinite(probs).all()):
+            raise AssertionError(f'{name}: non-finite probabilities')
+        report = compare_probabilities(
+            probs.cpu(), ManipulationClassification.restore(run_dir, RAW_PATCH, device='cpu')
+            .run_workflow(batches[0])[-1])
+        results[name] = {'precision': flow.channel_precision,
+                         'inet_conv_precision': flow.nip._h.conv_precision,
+                         'latency_ms': [1e3 * t for t in latencies],
+                         'median_ms': 1e3 * float(np.median(latencies)),
+                         'k1_launches': run_counts['jpeg8x8'],
+                         'cpu_max_abs_prob_diff': report['max_abs_diff']}
+        print(f'[bf16 classify] {name}: INet {flow.nip._h.conv_precision}, '
+              f'{flow.channel_precision}; median request '
+              f'{results[name]["median_ms"]:.2f} ms, K1 launches {run_counts["jpeg8x8"]} '
+              f'({k1_per_request} a request); vs the CPU max |dp| {report["max_abs_diff"]:.3g}, '
+              f'{report["decided_rows"]}/{report["rows"]} decided rows agree', flush=True)
+    return counts, results
+
 
 def trainer_flow(device):
     """The m_quality run's flow (its manipulations, channel and FAN) with
@@ -897,17 +1075,23 @@ def main():
     train_main_counts, train_main = main_path_training(args, device)
     print('[train] ' + json.dumps(train_main), flush=True)
 
-    # 6. the trainer
+    # 6. bench.py's bfloat16 configuration, and the shipped bf16-INet runs
+    bf16_train_counts, bf16_train = bf16_training(args, device)
+    print('[bf16 train] ' + json.dumps(bf16_train), flush=True)
+    bf16_classify_counts, bf16_classify = bf16_classification(args, device)
+    print('[bf16 classify] ' + json.dumps(bf16_classify), flush=True)
+
+    # 7. the trainer
     trainer_counts, trainer_results_ = trainer(args, device)
     print('[trainer] ' + json.dumps(trainer_results_), flush=True)
 
-    # 7.-8. the DCN paths
+    # 8.-9. the DCN paths
     serve_counts, serving = dcn_serving(args, device)
     fixed_counts, train_counts, training = dcn_training(args, device)
     print('[dcn] ' + json.dumps({'serving': serving, 'training': training,
                                  'kernel_shapes': k234}), flush=True)
 
-    # 9. results: K1's numbers are its two launches of one request, summed;
+    # 10. results: K1's numbers are its two launches of one request, summed;
     # K2's are at the serving shape, K3's and K4's at the training shape
     print('[slice] ' + json.dumps({
         'requests': args.requests, 'batch': args.batch,
@@ -918,6 +1102,7 @@ def main():
                 'source': 'neural_imaging_tpu_torch/csrc/jpeg8x8.cu',
                 'replaces': 'neural_imaging_tpu/ops/pallas/jpeg8x8.py:34',
                 'launches': (slice_counts['jpeg8x8'] + train_main_counts['jpeg8x8']
+                             + bf16_train_counts['jpeg8x8'] + bf16_classify_counts['jpeg8x8']
                              + sum(c['jpeg8x8'] for c in trainer_counts.values())),
                 'max_abs_err': max(r['max_abs_err'] for r in k1),
                 'ms': sum(r['ms'] for r in k1),

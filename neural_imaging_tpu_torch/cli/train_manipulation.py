@@ -11,8 +11,10 @@ It sweeps ``--cam``, the repetitions ``--start``..``--end`` and ``--ln`` /
 ``--lc`` (for a trainable NIP / codec) as the reference does, reusing one
 flow through ``reinitialize()``. Options the port does not have yet raise
 ``NotImplementedError`` naming their item of ROADMAP.md §1: a NIP other than
-INet, bfloat16 dtypes, ``--dcn``, the parallel flags and ``--jpeg_mode
-libjpeg``.
+INet, ``--dcn``, the parallel flags and ``--jpeg_mode libjpeg``. The
+bfloat16 configuration the JAX package is tuned on: ``--channel-dtype
+bfloat16 --channel-jpeg-dtype bfloat16 --manip-jpeg-dtype bfloat16 --fan
+'{"dtype": "bfloat16"}'``.
 """
 import argparse
 import itertools
@@ -83,10 +85,15 @@ def build_parser():
                         help='comma-separated manipulations, e.g. sharpen:1,gaussian')
     parser.add_argument('--fan', default=None, help='JSON with FAN hyper-params')
     parser.add_argument('--augment', action='store_true')
-    for flag in ('--channel-dtype', '--channel-jpeg-dtype', '--manip-jpeg-dtype'):
-        parser.add_argument(flag, default='float32' if flag == '--channel-dtype' else None,
-                            choices=['float32', 'bfloat16'],
-                            help='compute dtype (bfloat16 is not ported)')
+    parser.add_argument('--channel-dtype', default='float32', choices=['float32', 'bfloat16'],
+                        help='distribution-channel compute dtype: the manipulations, the '
+                             "pooling, the channel's output and the FAN's input")
+    parser.add_argument('--channel-jpeg-dtype', default=None, choices=['float32', 'bfloat16'],
+                        help='channel dJPEG compute dtype; bfloat16 runs the channel codec '
+                             "in bfloat16 at 'default' precision (the plane form, not K1)")
+    parser.add_argument('--manip-jpeg-dtype', default=None, choices=['float32', 'bfloat16'],
+                        help="the 'jpeg' manipulation's compute dtype (as "
+                             '--channel-jpeg-dtype)')
     parser.add_argument('--nip-params', default=None,
                         help="JSON with NIP constructor kwargs, e.g. \"{'kernel': 5}\"")
     parser.add_argument('--val-schedule', type=int, default=50)
@@ -110,10 +117,6 @@ def refuse_unported(args):
     if args.nip != 'INet':
         raise NotImplementedError(f'NIP {args.nip!r} is not ported (ROADMAP.md §1 item 4); '
                                   'use --nip INet')
-    for flag in ('channel_dtype', 'channel_jpeg_dtype', 'manip_jpeg_dtype'):
-        if getattr(args, flag) == 'bfloat16':
-            raise NotImplementedError(f"--{flag.replace('_', '-')} bfloat16 is not ported "
-                                      '(ROADMAP.md §1 item 1)')
     if args.dcn is not None:
         raise NotImplementedError('the DCN channel (--dcn) is not ported (ROADMAP.md §1 item 3)')
     if any(getattr(args, flag) is not None for flag in PARALLEL_FLAGS):
@@ -160,7 +163,9 @@ def main(argv=None):
                 flow = ManipulationClassification(
                     args.nip, manipulations=manipulations, distribution=distribution,
                     fan_args=fan_args, trainable=trainable, raw_patch_size=args.patch,
-                    loss_metric=args.loss_metric, nip_args=nip_params, device=args.device)
+                    loss_metric=args.loss_metric, nip_args=nip_params,
+                    channel_dtype=args.channel_dtype, channel_jpeg_dtype=args.channel_jpeg_dtype,
+                    manip_jpeg_dtype=args.manip_jpeg_dtype, device=args.device)
             else:
                 flow.reinitialize()
             training = {

@@ -1,14 +1,22 @@
 """
 The FAN manipulation classifier with a constrained residual first layer.
-Port of the float32 path of ``neural_imaging_tpu/models/forensics.py``
-(``stem='separate'``); the bf16 FAN and the fused stem are not ported yet.
+Port of ``neural_imaging_tpu/models/forensics.py``: float32 or bfloat16
+compute, the separate or the fused stem.
 
 The constrained filter is renormalized on every forward pass: its off-center
 mass is scaled to ``filter_strength`` per output channel and the center tap
 pinned to minus that, so the constraint holds exactly throughout training.
+
+``dtype='bfloat16'`` has flax's ``nn.Conv``/``nn.Dense(dtype=bfloat16)``
+semantics: the weights stay float32 parameters (Adam updates them in
+float32) and are cast to bfloat16 for each use; each conv and matrix product
+sums in float32 and rounds its result to bfloat16, and only then is the
+bfloat16 bias added (one more rounding); activations and max-pools run in
+bfloat16, and the softmax takes the logits in float32.
 """
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from neural_imaging_tpu_torch.models.base import TorchModel, flax_default_init
@@ -17,13 +25,20 @@ from neural_imaging_tpu_torch.ops.kernels import center_mask_2dfilter, repeat_2d
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 
 
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
 class ConstrainedConv(nn.Module):
     """Constrained residual filter, weight (3, 3, 5, 5) OIHW; the input is
-    padded symmetrically by 2 and convolved 'VALID'."""
+    padded symmetrically by 2 and convolved 'VALID'. The kernel is
+    renormalized in float32. float32: one float32 conv, its result rounded
+    to the input's dtype (the reference's exact-f32 conv keeps the input's
+    dtype); bfloat16: one bfloat16 conv."""
 
-    def __init__(self, filter_strength=100.0):
+    def __init__(self, filter_strength=100.0, dtype=torch.float32):
         super().__init__()
         self.filter_strength = filter_strength
+        self.compute_dtype = dtype
         f = np.array([[0, 0, 0, 0, 0],
                       [0, -1, -2, -1, 0],
                       [0, -2, 12, -2, 0],
@@ -40,26 +55,49 @@ class ConstrainedConv(nn.Module):
         return self.filter_strength * nf / denom - self.filter_strength * self.mask
 
     def forward(self, x):
-        return ops.conv2d(ops.pad2d(x, 2, 'symmetric'), self.normalized_kernel(),
-                          padding='VALID')
+        nf = self.normalized_kernel()
+        if self.compute_dtype == torch.bfloat16:
+            return ops.conv2d(ops.pad2d(x.to(torch.bfloat16), 2, 'symmetric'), nf,
+                              padding='VALID')
+        return ops.conv2d(ops.pad2d(x.to(torch.float32), 2, 'symmetric'), nf,
+                          padding='VALID').to(x.dtype)
+
+
+def compose_conv_kernels(k1, k2):
+    """OIHW (m, ci, k, k) then (co, m, l, l) → (co, ci, k+l-1, k+l-1): the
+    single kernel whose 'VALID' correlation equals 'VALID'(k2) ∘ 'VALID'(k1),
+    the full convolution of the two summed over m, computed as one float32
+    conv (differentiable in both)."""
+    pad = k2.shape[-1] - 1
+    stack = F.pad(k1.permute(1, 0, 2, 3), (pad, pad, pad, pad))     # (ci, m, …)
+    return F.conv2d(stack, k2.flip(-2, -1)).permute(1, 0, 2, 3)
 
 
 class FANCore(nn.Module):
     """Constrained conv → N × [conv 'SAME' + leaky ReLU + 2x2 max-pool] → 1x1
-    conv → GAP (or NHWC-order flatten) → dense stack → softmax. NCHW input."""
+    conv → GAP (or NHWC-order flatten) → dense stack → softmax. NCHW input.
+
+    ``stem='fused'`` composes the constrained filter with conv0 into one
+    (k+4)x(k+4) conv of the input padded symmetrically by 2 and then with
+    zeros (``compose_conv_kernels``); interior pixels equal the separate
+    stem's, the 2-px border differs, so the stem is part of a trained model."""
 
     def __init__(self, n_classes=7, n_filters=32, n_fscale=2.0, n_convolutions=4,
                  kernel=5, use_gap=False, n_dense=2, activation='leaky_relu',
-                 patch_size=None, seed=0):
+                 patch_size=None, seed=0, dtype=torch.float32, stem='separate'):
         super().__init__()
         if not use_gap and patch_size is None:
             raise ValueError('FAN without GAP needs patch_size to size its first dense layer')
+        if stem == 'fused' and n_convolutions < 1:
+            raise ValueError("stem='fused' requires n_convolutions >= 1")
         g = torch.Generator().manual_seed(seed)
         self.act = ops.ACTIVATIONS[activation]
         self.use_gap = use_gap
         self.n_convolutions = n_convolutions
         self.n_dense = n_dense
-        self.constrained = ConstrainedConv()
+        self.compute_dtype = dtype
+        self.stem = stem
+        self.constrained = ConstrainedConv(dtype=dtype)
 
         def conv(name, cin, cout, k):
             m = nn.utils.skip_init(nn.Conv2d, cin, cout, k, padding='same')
@@ -85,18 +123,45 @@ class FANCore(nn.Module):
             features = nf
         dense('head', features, n_classes)
 
+    def _conv(self, layer, h):
+        if self.compute_dtype == torch.float32:
+            return layer(h)
+        bf16 = torch.bfloat16
+        return (F.conv2d(h, layer.weight.to(bf16), None, padding=layer.padding)
+                + layer.bias.to(bf16)[:, None, None])
+
+    def _dense(self, layer, h):
+        if self.compute_dtype == torch.float32:
+            return layer(h)
+        return F.linear(h, layer.weight.to(torch.bfloat16)) + layer.bias.to(torch.bfloat16)
+
+    def _fused_stem(self, x):
+        """The constrained filter and conv0 as one conv, then conv0's bias
+        (added in float32 and rounded once, as the reference adds it),
+        the activation and the max-pool."""
+        kc = compose_conv_kernels(self.constrained.normalized_kernel(), self.conv0.weight)
+        r = (self.conv0.weight.shape[-1] - 1) // 2
+        xp = ops.pad2d(ops.pad2d(x.to(self.compute_dtype), 2, 'symmetric'), r, 'constant')
+        h = ops.conv2d(xp, kc, padding='VALID')
+        h = (h.to(torch.float32) + self.conv0.bias[:, None, None]).to(self.compute_dtype)
+        return ops.max_pool(self.act(h), 2)
+
     def forward(self, x):
-        h = self.constrained(x)
-        for i in range(self.n_convolutions):
-            h = ops.max_pool(self.act(getattr(self, f'conv{i}')(h)), 2)
-        h = self.act(self.proj(h))
+        if self.stem == 'fused':
+            h, start = self._fused_stem(x), 1
+        else:
+            h, start = self.constrained(x).to(self.compute_dtype), 0
+        for i in range(start, self.n_convolutions):
+            h = ops.max_pool(self.act(self._conv(getattr(self, f'conv{i}'), h)), 2)
+        h = self.act(self._conv(self.proj, h))
         if self.use_gap:
-            h = ops.global_average_pool(h)
+            # jnp.mean of bfloat16 sums and divides in float32, rounds once
+            h = ops.global_average_pool(h.to(torch.float32)).to(self.compute_dtype)
         else:
             h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)   # flax's flatten order
         for i in range(self.n_dense):
-            h = self.act(getattr(self, f'dense{i}')(h))
-        return torch.softmax(self.head(h), dim=-1)
+            h = self.act(self._dense(getattr(self, f'dense{i}'), h))
+        return torch.softmax(self._dense(self.head, h).to(torch.float32), dim=-1)
 
 
 def sparse_categorical_crossentropy(labels, probabilities):
@@ -106,7 +171,7 @@ def sparse_categorical_crossentropy(labels, probabilities):
 
 
 class FAN(TorchModel):
-    """Forensic analysis network (float32, separate stem).
+    """Forensic analysis network (float32 or bfloat16, separate or fused stem).
 
     ``dropout`` is accepted, as checkpoints record it, but never applied: the
     reference applies it only in the FAN's own ``training_step``, which is
@@ -118,9 +183,10 @@ class FAN(TorchModel):
                  n_convolutions=4, kernel=5, dropout=0.0, use_gap=True, n_dense=0,
                  activation='leaky_relu', dtype='float32', stem='separate',
                  constrained_impl='auto', seed=0, device='cuda'):
-        if dtype != 'float32' or stem != 'separate':
-            raise NotImplementedError(f'FAN dtype={dtype!r} stem={stem!r} is not ported; '
-                                      "the port runs dtype='float32', stem='separate'")
+        if dtype not in DTYPES:
+            raise ValueError(f'Unsupported FAN dtype {dtype!r}; use one of {list(DTYPES)}')
+        if stem not in ('separate', 'fused'):
+            raise ValueError(f'Unsupported FAN stem {stem!r}')
         if constrained_impl not in ('auto', 'chw'):
             raise ValueError(f'Unsupported constrained_impl {constrained_impl!r}')
         if activation not in ops.ACTIVATIONS:
@@ -140,7 +206,8 @@ class FAN(TorchModel):
         super().__init__(FANCore(n_classes=n_classes, n_filters=n_filters,
                                  n_fscale=n_fscale, n_convolutions=n_convolutions,
                                  kernel=kernel, use_gap=use_gap, n_dense=n_dense,
-                                 activation=activation, patch_size=patch_size, seed=seed),
+                                 activation=activation, patch_size=patch_size, seed=seed,
+                                 dtype=DTYPES[dtype], stem=stem),
                          device)
 
     def loss(self, target_labels, class_probabilities):
@@ -149,8 +216,11 @@ class FAN(TorchModel):
         return sparse_categorical_crossentropy(labels, class_probabilities)
 
     def process(self, batch_x):
-        """Class probabilities of an NHWC image batch (N, h, w, 3)."""
-        x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device)
+        """Class probabilities of an NHWC image batch (N, h, w, 3): a
+        bfloat16 tensor as it is (a bfloat16 channel's output), anything
+        else as float32."""
+        x = torch.as_tensor(batch_x, device=self.device)
+        x = x if x.dtype == torch.bfloat16 else x.to(torch.float32)
         with torch.no_grad():
             return self.module(x.permute(0, 3, 1, 2))
 

@@ -4,10 +4,13 @@ quantization tables, plus the ``DifferentiableJPEG`` and ``JPEG`` wrappers.
 Port of ``neural_imaging_tpu/models/jpeg.py`` without the libjpeg codec
 (which needs PIL).
 
-Dispatch: a 'soft'-rounding call goes through the fused core
+Dispatch, as the reference routes it: a call with a matrix-unit
+``precision`` (a bfloat16 channel or manipulation) takes the plane form
+(:func:`_jpeg_forward_planes`, plain PyTorch, in the input's dtype); a
+float32 'soft'-rounding call goes through the fused core
 (``ops.hopper.jpeg8x8.jpeg_core``), which launches the CUDA kernel K1 on a
 CUDA tensor at every size and takes the plain blockified form on a CPU
-tensor. Other roundings take the plain blockified form on any device.
+tensor; anything else takes the plain blockified form in the input's dtype.
 """
 import functools
 
@@ -60,40 +63,85 @@ def qtables(quality, device):
             torch.as_tensor(jpeg_qtable(quality, 1), device=device))
 
 
-def jpeg_forward_nchw(x, q_luma, q_chroma, rounding='soft', taylor_terms=5):
+def jpeg_forward_nchw(x, q_luma, q_chroma, rounding='soft', taylor_terms=5, precision=None):
     """Differentiable JPEG round trip of an NCHW RGB batch in [0,1].
 
-    :param x: (N, 3, H, W), H and W divisible by 8
+    :param x: (N, 3, H, W), H and W divisible by 8; float32 or bfloat16
     :param q_luma/q_chroma: (8, 8) quantization tables (tensors or arrays)
     :param rounding: 'soft' | 'sin' | 'harmonic' (or 'round' / 'identity')
-    :return: (y, coeffs) — the image in [0,1], (N, 3, H, W), and the
-        dequantized coefficients as (N, 3, H, W) planes (block (i, j),
-        frequency (k, l) at [8i + k, 8j + l])
+    :param precision: None, or the matrix-unit precision of the color and
+        DCT products ('highest' | 'high' | 'default'), which selects the
+        plane form; ``ops.at_precision`` says what each does to float32
+        operands, and bfloat16 operands are summed in float32 either way
+    :return: (y, coeffs) — the image in [0,1] in x's dtype, (N, 3, H, W),
+        and the dequantized coefficients as (N, 3, H, W) planes (block
+        (i, j), frequency (k, l) at [8i + k, 8j + l])
     """
     n, c, h, w = x.shape
     if c != 3 or h % 8 or w % 8:
         raise ValueError(f'jpeg expects (N, 3, H, W) with H, W divisible by 8, '
                          f'got {tuple(x.shape)}')
-    x = x.to(torch.float32)
+    if precision is not None:
+        return _jpeg_forward_planes(x, q_luma, q_chroma, rounding, taylor_terms, precision)
+    dt = x.dtype
     planes = (color.rgb_to_ycbcr(255.0 * x) - 127.0).reshape(n * 3, h, w)
-    q = torch.stack([torch.as_tensor(t, dtype=torch.float32, device=x.device)
-                     for t in (q_luma, q_chroma, q_chroma)])          # (3, 8, 8)
-    if rounding == 'soft':
+    q = _tables(q_luma, q_chroma, dt, x.device)                      # (3, 8, 8)
+    if rounding == 'soft' and dt == torch.float32:
         y, coeffs = jpeg_core(planes.contiguous(), q.repeat(n, 1, 1))
     else:
         qb = q.repeat(n, 1, 1)[:, None, None]
         xq = quant.quantize(dct.dct2d(dct.blockify(planes)) / qb, rounding,
                             taylor_terms=taylor_terms) * qb
         y, coeffs = dct.deblockify(dct.idct2d(xq)), dct.deblockify(xq)
-    y = color.ycbcr_to_rgb(y.reshape(n, 3, h, w) + 127.0) / 255.0
-    return ops.clip(y, 0.0, 1.0), coeffs.reshape(n, 3, h, w)
+    return _to_rgb(y.reshape(n, 3, h, w), None), coeffs.reshape(n, 3, h, w)
 
 
-def jpeg_forward(x, q_luma, q_chroma, rounding='soft', taylor_terms=5):
+def _tables(q_luma, q_chroma, dtype, device):
+    """The (3, 8, 8) stack of a batch's tables (luma, chroma, chroma) in ``dtype``."""
+    return torch.stack([torch.as_tensor(t, device=device).to(dtype)
+                        for t in (q_luma, q_chroma, q_chroma)])
+
+
+def _to_rgb(ycc, precision):
+    """Centered YCbCr planes → RGB in [0, 1], clipped (``jnp.clip``'s gradient)."""
+    rgb = color.ycbcr_to_rgb(ycc + 127.0, precision)
+    return ops.clip(rgb / ops.scalar(255.0, rgb.dtype, rgb.device), 0.0, 1.0)
+
+
+def _blockdiag_mm(a, d, precision):
+    """``a @ (I ⊗ d)`` along a's last axis: each aligned run of 8 samples
+    times the 8x8 ``d``, at ``precision`` (``ops.matmul``)."""
+    *lead, size = a.shape
+    return ops.matmul(a.reshape(*lead, size // 8, 8), d, precision).reshape(*lead, size)
+
+
+def _jpeg_forward_planes(x, q_luma, q_chroma, rounding, taylor_terms, precision):
+    """The reference's plane form of the codec, in x's dtype: the 2-D block
+    DCT as products with the block-diagonal operators I ⊗ D, each product's
+    result rounded to x's dtype, the coefficients kept transposed (…, W, H)
+    through quantization.
+
+    The products are computed blockwise, an (…, 8) row of each aligned 8
+    samples times the 8x8 D, not as the reference's dense (H, H) and (W, W)
+    products with I ⊗ D: the zero entries add exact zeros, so both give the
+    same sums up to their float32 summation order, at an 8th of the work."""
+    n, _, h, w = x.shape
+    dt = x.dtype
+    d = dct.dct_tensor(x.device)
+    ycc = color.rgb_to_ycbcr(255.0 * x, precision) - 127.0
+    t = _blockdiag_mm(ycc, d.T, precision).transpose(-1, -2)        # DCT over W → (…, W, H)
+    xt = _blockdiag_mm(t, d.T, precision)                          # DCT over H
+    qft = _tables(q_luma, q_chroma, dt, x.device).transpose(-1, -2).repeat(1, w // 8, h // 8)
+    xqt = quant.quantize(xt / qft, rounding, taylor_terms=taylor_terms) * qft
+    y = _blockdiag_mm(_blockdiag_mm(xqt, d, precision).transpose(-1, -2), d, precision)
+    return _to_rgb(y, precision), xqt.transpose(-1, -2)
+
+
+def jpeg_forward(x, q_luma, q_chroma, rounding='soft', taylor_terms=5, precision=None):
     """:func:`jpeg_forward_nchw` with the reference's NHWC interface: takes
     (N, H, W, 3) and returns (y (N, H, W, 3), coefficients (N, 3, H/8, W/8, 8, 8))."""
     y, coeffs = jpeg_forward_nchw(x.permute(0, 3, 1, 2), q_luma, q_chroma,
-                                  rounding, taylor_terms)
+                                  rounding, taylor_terms, precision)
     return y.permute(0, 2, 3, 1), dct.blockify(coeffs)
 
 

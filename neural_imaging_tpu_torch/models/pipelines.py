@@ -17,21 +17,25 @@ from neural_imaging_tpu_torch.ops.kernels import (EXAMPLE_SRGB, bilin_kernel, ga
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 from neural_imaging_tpu_torch.utils.utils import format_patch_shape
 
-# The reference's conv precisions that are plain f32 convolutions. Its 'high'
-# and 'default' are bf16 matrix-unit paths, not ported yet.
-F32_CONV_PRECISIONS = ('exact', 'exact_chw', 'highest')
+# INet's conv precisions → ops.conv2d's: 'exact' and 'exact_chw' are the
+# reference's layouts of the float32 convolution; 'high' and 'default' round
+# the operands as a matrix unit does (ops.at_precision)
+CONV_PRECISIONS = {'exact': 'highest', 'exact_chw': 'highest', 'highest': 'highest',
+                   'high': 'high', 'default': 'default'}
 
 
 class INetCore(nn.Module):
     """Classic pipeline as a CNN: fixed 1x1 CFA upsampling → TF-order
     depth_to_space → reflect pad → demosaic conv → 1x1 sRGB → 2-layer tanh
     gamma net → straight-through clip. All but the upsampling kernel are
-    parameters (unless ``trainable_upsampling``). Works on NCHW."""
+    parameters (unless ``trainable_upsampling``). Works on NCHW; each conv at
+    ``precision`` ('highest' | 'high' | 'default', ``ops.conv2d``)."""
 
     def __init__(self, kernel=5, random_init=False, trainable_upsampling=False,
-                 cfa_pattern='gbrg'):
+                 cfa_pattern='gbrg', precision='highest'):
         super().__init__()
         self.kernel = kernel
+        self.precision = precision
         rng = np.random.RandomState(1234)
         upk = upsampling_kernel(cfa_pattern).reshape(1, 1, 4, 12)
         if random_init:
@@ -60,13 +64,15 @@ class INetCore(nn.Module):
 
     def forward(self, x):
         """(N, 4, h, w) RAW stack → (N, 3, 2h, 2w) RGB in [0,1]."""
-        bayer = ops.depth_to_space(ops.conv2d(x, self.upsampling), 2)
+        def conv(t, k, padding='SAME'):
+            return ops.conv2d(t, k, padding, precision=self.precision)
+
+        bayer = ops.depth_to_space(conv(x, self.upsampling), 2)
         bayer = ops.pad2d(bayer, (self.kernel - 1) // 2, 'reflect')
-        rgb = ops.conv2d(bayer, self.demosaic, padding='VALID')
-        srgb = ops.conv2d(rgb, self.srgb)
-        g = torch.tanh(ops.conv2d(srgb, self.gamma_d1_kernel)
-                       + self.gamma_d1_bias[:, None, None])
-        y = ops.conv2d(g, self.gamma_d2_kernel) + self.gamma_d2_bias[:, None, None]
+        rgb = conv(bayer, self.demosaic, padding='VALID')
+        srgb = conv(rgb, self.srgb)
+        g = torch.tanh(conv(srgb, self.gamma_d1_kernel) + self.gamma_d1_bias[:, None, None])
+        y = conv(g, self.gamma_d2_kernel) + self.gamma_d2_bias[:, None, None]
         return ops.st_clip(y)
 
 
@@ -80,9 +86,9 @@ class INet(TorchModel):
             raise ValueError(f'Unsupported loss metric {loss_metric!r}')
         if loss_metric == 'MS-SSIM':
             raise NotImplementedError('the MS-SSIM loss is not ported yet')
-        if conv_precision not in F32_CONV_PRECISIONS:
-            raise NotImplementedError(f'INet conv_precision={conv_precision!r} is a bf16 '
-                                      f'path, not ported; use one of {F32_CONV_PRECISIONS}')
+        if conv_precision not in CONV_PRECISIONS:
+            raise ValueError(f'Unsupported conv precision {conv_precision!r}; use one of '
+                             f'{list(CONV_PRECISIONS)}')
         if cfa_pattern.lower() not in ('gbrg', 'rggb', 'bggr'):
             raise ValueError(f'Unsupported CFA pattern {cfa_pattern!r}')
         self._h = ParamSpec({'random_init': (False, bool), 'kernel': (5, int),
@@ -96,7 +102,8 @@ class INet(TorchModel):
         self.loss_metric = loss_metric
         super().__init__(INetCore(kernel=kernel, random_init=random_init,
                                   trainable_upsampling=trainable_upsampling,
-                                  cfa_pattern=cfa_pattern), device)
+                                  cfa_pattern=cfa_pattern,
+                                  precision=CONV_PRECISIONS[conv_precision]), device)
 
     def loss(self, batch_y, batch_Y):
         """The fidelity loss ``ops.LOSSES[loss_metric]`` of the developed NHWC

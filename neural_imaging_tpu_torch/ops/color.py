@@ -2,6 +2,10 @@
 Color space conversions on channels-first tensors (channel axis -3):
 JPEG-standard RGB↔YCbCr affine transforms and RGB↔HSV (tf.image parity, used
 by the sharpen manipulation). Port of ``neural_imaging_tpu/ops/color.py``.
+
+In bfloat16 every operation rounds its result to bfloat16, as the
+reference's do: the YCbCr transforms sum three exact products in float32 and
+round once, then add the rounded offset.
 """
 import functools
 
@@ -32,19 +36,21 @@ def _affine_tensors(forward, dtype, device):
             torch.as_tensor(offset, dtype=dtype, device=device)[:, None, None])
 
 
-def _affine(x, forward):
+def _affine(x, forward, precision):
     m, b = _affine_tensors(forward, x.dtype, x.device)
-    return torch.einsum('...chw,kc->...khw', x, m) + b
+    return ops.at_precision(lambda a, k: torch.einsum('...chw,kc->...khw', a, k), x, m,
+                            precision) + b
 
 
-def rgb_to_ycbcr(x255):
-    """255-scaled RGB (…, 3, H, W) → YCbCr (Y in [0,255], Cb/Cr centered at 128)."""
-    return _affine(x255, True)
+def rgb_to_ycbcr(x255, precision=None):
+    """255-scaled RGB (…, 3, H, W) → YCbCr (Y in [0,255], Cb/Cr centered at
+    128); ``precision`` of float32 operands as in ``ops.at_precision``."""
+    return _affine(x255, True, precision)
 
 
-def ycbcr_to_rgb(ycc):
+def ycbcr_to_rgb(ycc, precision=None):
     """YCbCr (…, 3, H, W) → 255-scaled RGB."""
-    return _affine(ycc, False)
+    return _affine(ycc, False, precision)
 
 
 def rgb_to_hsv(rgb):
@@ -60,7 +66,7 @@ def rgb_to_hsv(rgb):
     h_g = (b - r) / safe_rng + 2.0
     h_b = (r - g) / safe_rng + 4.0
     h = torch.where(v == r, h_r, torch.where(v == g, h_g, h_b))
-    h = torch.where(positive, h / 6.0, torch.zeros_like(h))
+    h = torch.where(positive, h / ops.scalar(6.0, h.dtype, h.device), torch.zeros_like(h))
 
     v_pos = v > 0
     s = torch.where(v_pos, rng / torch.where(v_pos, v, torch.ones_like(v)),

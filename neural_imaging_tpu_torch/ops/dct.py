@@ -46,13 +46,21 @@ def deblockify(blocks):
     return blocks.transpose(-3, -2).reshape(*lead, hb * b, wb * b)
 
 
-def dct2d(blocks):
-    """Forward 2-D DCT of the trailing (8, 8) block axes: D X Dᵀ."""
+def _in_float32(blocks):
+    """(D, blocks) in float32, D first rounded to the blocks' dtype, as the
+    reference casts it."""
     d = dct_tensor(blocks.device, blocks.shape[-1]).to(blocks.dtype)
-    return d @ blocks @ d.T
+    return d.to(torch.float32), blocks.to(torch.float32)
+
+
+def dct2d(blocks):
+    """Forward 2-D DCT of the trailing (8, 8) block axes: D X Dᵀ, summed in
+    float32 and rounded to the blocks' dtype once."""
+    d, x = _in_float32(blocks)
+    return (d @ x @ d.T).to(blocks.dtype)
 
 
 def idct2d(coeffs):
-    """Inverse 2-D DCT of the trailing (8, 8) block axes: Dᵀ X D."""
-    d = dct_tensor(coeffs.device, coeffs.shape[-1]).to(coeffs.dtype)
-    return d.T @ coeffs @ d
+    """Inverse 2-D DCT of the trailing (8, 8) block axes: Dᵀ X D (as :func:`dct2d`)."""
+    d, x = _in_float32(coeffs)
+    return (d.T @ x @ d).to(coeffs.dtype)

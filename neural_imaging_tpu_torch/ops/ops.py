@@ -9,18 +9,100 @@ and the DCN use.
 The reference's exact-f32 conv variants (``small_conv2d``, ``conv_chw``) are
 TPU layouts of the same f32 convolution, so here they are all
 :func:`conv2d`, with TF32 off (``utils.device.resolve_device``).
+
+Precision. The reference names a matrix unit's precision for f32 operands
+('highest', 'high', 'default'); a TPU rounds both operands to bfloat16 at
+'default' and splits each into two bfloat16 terms at 'high'. The port states
+those rounding points itself on every device (:func:`conv2d`,
+:func:`matmul`), never through TF32 or a library's heuristics. bfloat16
+operands are multiplied exactly and summed in float32, then rounded to
+bfloat16 once, on every device (``resolve_device`` turns off cuBLAS's
+reduced-precision bf16 reductions). A Python constant in a bfloat16
+expression is rounded to bfloat16 first, as jax rounds a weakly typed
+constant (:func:`const`).
 """
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from neural_imaging_tpu_torch.ops import ssim as ssim_ops
 
 
+# the reference's matrix-unit precisions of float32 operands
+PRECISIONS = ('highest', 'high', 'default')
+
+
 def hwio_to_oihw(kernel):
     """HWIO kernel (the reference's layout, numpy) → contiguous float32 OIHW tensor."""
     return torch.tensor(kernel, dtype=torch.float32).permute(3, 2, 0, 1).contiguous()
+
+
+@functools.lru_cache()
+def const(value, dtype=torch.float32):
+    """A Python constant as jax takes it into an expression of ``dtype`` (a
+    weak type): rounded to ``dtype`` first. Returned as a Python float, which
+    a bfloat16 expression in torch then uses exactly (torch computes it in
+    float32 and rounds the result, as jax does)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+@functools.lru_cache()
+def scalar(value, dtype, device):
+    """``value`` as a 0-d tensor of ``dtype`` on ``device``, made once: a
+    divisor that CUDA divides by (it multiplies by the reciprocal of a
+    Python scalar), or a bound that keeps ``torch.minimum``'s gradient."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+class _RoundBF16(torch.autograd.Function):
+    """x rounded to bfloat16 values in x's dtype; the gradient passes unchanged."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def round_bf16(x):
+    """A float32 operand as a matrix unit at 'default' precision takes it."""
+    return _RoundBF16.apply(x)
+
+
+def _split_bf16(x):
+    """(hi, lo) with hi = round_bf16(x) and lo = bf16(x - hi): the two
+    bfloat16 terms of 'high' precision. The gradient reaches x through hi."""
+    hi = round_bf16(x)
+    lo = (x.detach() - hi.detach()).to(torch.bfloat16).to(x.dtype)
+    return hi, lo
+
+
+def at_precision(op, a, b, precision):
+    """The bilinear ``op(a, b)`` of float32 operands at a reference precision:
+    'highest' (or None) is op itself (float32, TF32 off); 'default' is op of
+    the operands rounded to bfloat16, each product then exact and the sum
+    float32; 'high' is hi·hi + hi·lo + lo·hi of each operand's two bfloat16
+    terms. Other dtypes run op as they are."""
+    if precision not in (None,) + PRECISIONS:
+        raise ValueError(f'Unsupported precision {precision!r}')
+    if precision in (None, 'highest') or a.dtype != torch.float32:
+        return op(a, b)
+    if precision == 'default':
+        return op(round_bf16(a), round_bf16(b))
+    a_hi, a_lo = _split_bf16(a)
+    b_hi, b_lo = _split_bf16(b)
+    return op(a_hi, b_hi) + op(a_hi, b_lo) + op(a_lo, b_hi)
+
+
+def matmul(a, b, precision=None):
+    """``a @ b`` at a reference precision (float32 operands), or of bfloat16
+    operands summed in float32 and rounded once (``b`` is cast to a's dtype,
+    as the reference casts its constant operators)."""
+    return at_precision(torch.matmul, a, b.to(a.dtype), precision)
 
 
 def _same_pads(size, k, stride):
@@ -31,9 +113,11 @@ def _same_pads(size, k, stride):
     return total // 2, total - total // 2
 
 
-def conv2d(x, weight, padding='SAME', stride=1, bias=None):
-    """f32 conv of NCHW ``x`` with an OIHW ``weight`` tensor (and an optional
-    per-channel ``bias``).
+def conv2d(x, weight, padding='SAME', stride=1, bias=None, precision=None):
+    """Conv of NCHW ``x`` with an OIHW ``weight`` tensor (and an optional
+    per-channel float32 ``bias``), at a reference ``precision`` for float32
+    operands; a bfloat16 ``x`` takes the weight in bfloat16 and sums in
+    float32, rounding once.
 
     ``padding``: 'SAME' (TF semantics at any stride: zero padding, the extra
     pixel at the bottom/right) or 'VALID'."""
@@ -43,22 +127,28 @@ def conv2d(x, weight, padding='SAME', stride=1, bias=None):
         x = F.pad(x, (left, right, top, bottom))
     elif padding != 'VALID':
         raise ValueError(f'Unsupported padding {padding!r}')
-    return F.conv2d(x, weight, bias, stride)
+    if precision in (None, 'highest'):
+        return F.conv2d(x, weight.to(x.dtype), bias, stride)
+    y = at_precision(lambda a, b: F.conv2d(a, b, None, stride), x, weight.to(x.dtype),
+                      precision)
+    return y if bias is None else y + bias[:, None, None]
 
 
 def depthwise_conv2d(x, k2d, pad_mode='reflect'):
     """Depthwise spatial filter of an NCHW batch, padded 'SAME' with ``pad_mode``.
 
-    ``k2d``: (kh, kw) shared across channels or (kh, kw, C) per channel."""
+    ``k2d``: (kh, kw) shared across channels or (kh, kw, C) per channel. As
+    in the reference, the kernel and the sums are float32 whatever x's
+    dtype, and the result is rounded to x's dtype once."""
     c = x.shape[1]
-    k = torch.as_tensor(k2d, dtype=x.dtype, device=x.device)
+    k = torch.as_tensor(k2d, dtype=torch.float32, device=x.device)
     if k.ndim == 2:
         k = k[:, :, None].expand(-1, -1, c)
     kh, kw = k.shape[:2]
     if kh != kw:
         raise NotImplementedError('depthwise_conv2d expects a square kernel')
-    xp = pad2d(x, (kh - 1) // 2, pad_mode)
-    return F.conv2d(xp, k.permute(2, 0, 1)[:, None], groups=c)
+    xp = pad2d(x.to(torch.float32), (kh - 1) // 2, pad_mode)
+    return F.conv2d(xp, k.permute(2, 0, 1)[:, None], groups=c).to(x.dtype)
 
 
 def depth_to_space(x, block=2):
@@ -88,10 +178,41 @@ def pad2d(x, pad, mode='reflect'):
 
 
 def avg_pool(x, factor):
-    """Average pooling with window = stride = factor (NCHW, sizes divisible by it)."""
+    """Average pooling with window = stride = factor (NCHW, sizes divisible by
+    it). A bfloat16 window is summed in bfloat16, tap by tap in row-major
+    order, as jax's ``reduce_window`` sums it."""
     if x.shape[-2] % factor or x.shape[-1] % factor:
         raise ValueError(f'avg_pool: {tuple(x.shape[-2:])} is not divisible by {factor}')
-    return F.avg_pool2d(x, factor)
+    if x.dtype != torch.bfloat16:
+        return F.avg_pool2d(x, factor)
+    acc = None
+    for dy in range(factor):
+        for dx in range(factor):
+            tap = x[..., dy::factor, dx::factor]
+            acc = tap if acc is None else acc + tap
+    return acc / scalar(float(factor * factor), x.dtype, x.device)
+
+
+@functools.lru_cache()
+def _pool_operator(n, factor, dtype, device):
+    """(n / factor, n) operator of the mean over each run of ``factor``
+    samples (the reference's ``_pool_matrix``) in ``dtype`` on ``device``."""
+    m = np.zeros((n // factor, n), np.float32)
+    for i in range(n // factor):
+        m[i, i * factor:(i + 1) * factor] = 1.0 / factor
+    return torch.as_tensor(m, dtype=dtype, device=device)
+
+
+def avg_pool_flat(x, factor):
+    """:func:`avg_pool` as two matrix products, rows then columns (the
+    reference's flat-layout pool): float32 at full precision, bfloat16 summed
+    in float32 and rounded after each product. :func:`avg_pool` where a side
+    does not divide."""
+    h, w = x.shape[-2:]
+    if h % factor or w % factor:
+        return avg_pool(x, factor)
+    rows = matmul(_pool_operator(h, factor, x.dtype, x.device), x)
+    return matmul(rows, _pool_operator(w, factor, x.dtype, x.device).T)
 
 
 def max_pool(x, window=2):
@@ -104,18 +225,13 @@ def global_average_pool(x):
     return x.mean(dim=(-2, -1))
 
 
-@functools.lru_cache()
-def _bound(value, dtype, device):
-    return torch.full((), value, dtype=dtype, device=device)
-
-
 def clip(x, lo, hi):
     """Clip to [lo, hi] with ``jnp.clip``'s gradient: 1 inside, 0 outside and
     1/2 at a bound, where ``torch.clamp`` passes 1 (``torch.maximum`` and
     ``torch.minimum`` split a tie's gradient as jax does). Saturated images
     and probabilities sit exactly at a bound."""
-    return torch.minimum(torch.maximum(x, _bound(lo, x.dtype, x.device)),
-                         _bound(hi, x.dtype, x.device))
+    return torch.minimum(torch.maximum(x, scalar(lo, x.dtype, x.device)),
+                         scalar(hi, x.dtype, x.device))
 
 
 def st_clip(x, lo=0.0, hi=1.0):
@@ -166,8 +282,9 @@ LOSSES = {'L2': mse, 'L1': mae, 'SSIM': ssim_loss, 'MS-SSIM': msssim_loss}
 
 
 def leaky_relu(x):
-    """Leaky ReLU with the reference's slope of 0.2 (torch defaults to 0.01)."""
-    return F.leaky_relu(x, negative_slope=0.2)
+    """Leaky ReLU with the reference's slope of 0.2 (torch defaults to 0.01),
+    rounded to x's dtype as jax rounds it."""
+    return F.leaky_relu(x, negative_slope=const(0.2, x.dtype))
 
 
 ACTIVATIONS = {

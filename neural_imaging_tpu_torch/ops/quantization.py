@@ -14,12 +14,16 @@ import math
 import numpy as np
 import torch
 
+from neural_imaging_tpu_torch.ops import ops
+
 LN2 = float(np.log(2.0))
 
 
 def sin_round(x):
-    """Differentiable sinusoidal rounding approximation x - sin(2πx)/2π."""
-    return x - torch.sin(2 * math.pi * x) / (2 * math.pi)
+    """Differentiable sinusoidal rounding approximation x - sin(2πx)/2π, with
+    2π rounded to x's dtype as the reference's constant is."""
+    two_pi = ops.const(2 * math.pi, x.dtype)
+    return x - torch.sin(two_pi * x) / ops.scalar(two_pi, x.dtype, x.device)
 
 
 def default_codebook(latent_bpf):
@@ -75,7 +79,8 @@ def quantize(x, rounding='soft', codebook=None, v=50.0, gamma=25.0, taylor_terms
     """Apply the selected differentiable rounding to x.
 
     'soft' is hard rounding forward with the gradient of :func:`sin_round`
-    (straight-through, detach form). ``torch.round`` rounds half to even, as
+    (straight-through, detach form). A bfloat16 x stays bfloat16, each
+    operation rounding as the reference's does. ``torch.round`` rounds half to even, as
     ``jnp.round`` does. 'soft-codebook' is the nearest codeword by kernel
     weight forward (the first one on a tie, as ``argmax`` takes it) with the
     gradient of the weighted codeword mean."""
@@ -87,9 +92,14 @@ def quantize(x, rounding='soft', codebook=None, v=50.0, gamma=25.0, taylor_terms
         x_ = sin_round(x)
         return (torch.round(x) - x_).detach() + x_
     if rounding == 'harmonic':
-        xa = x - torch.sin(2 * math.pi * x) / math.pi
+        def term(k):
+            # sin(2πk x) / (kπ), its constants rounded to x's dtype
+            c = ops.const(2 * math.pi * k, x.dtype)
+            return torch.sin(c * x) / ops.scalar(ops.const(k * math.pi, x.dtype), x.dtype,
+                                                 x.device)
+        xa = x - term(1)
         for k in range(2, taylor_terms):
-            xa = xa + (-1.0) ** k * torch.sin(2 * math.pi * k * x) / (k * math.pi)
+            xa = xa + (-1.0) ** k * term(k)
         return xa
     if rounding == 'identity':
         return x

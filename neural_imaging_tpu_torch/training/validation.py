@@ -100,9 +100,7 @@ def save_training_progress(training_summary, flow, root_dir, quiet=False):
     training = OrderedDict()
     training['summary'] = training_summary
     training['distribution'] = flow._distribution
-    training['channel_precision'] = {'channel_dtype': 'float32',
-                                     'channel_jpeg_dtype': 'float32',
-                                     'manip_jpeg_dtype': 'float32'}
+    training['channel_precision'] = flow.channel_precision
     training['manipulations'] = flow._forensics_classes
 
     training['nip'] = OrderedDict(

@@ -16,4 +16,5 @@ def resolve_device(device='cuda'):
                            "pass device='cpu' to run on the CPU")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

@@ -3,8 +3,8 @@ The manipulation-classification path and its joint training step:
 
     raw → INet → rgb → [native + K manipulations] → downsample → JPEG (soft) → FAN → probs
 
-Port of ``neural_imaging_tpu/workflows/manipulation_classification.py`` in
-float32: the forward at fixed or randomized strengths (``run_workflow``),
+Port of ``neural_imaging_tpu/workflows/manipulation_classification.py``:
+the forward at fixed or randomized strengths (``run_workflow``),
 and ``training_step``, which takes one Adam step of the FAN and the other
 trainable parts on cross-entropy plus the NIP's and the channel's weighted
 losses. Every random draw of a step (manipulation strengths, the channel's
@@ -12,8 +12,15 @@ quality) is made on the device from ``torch.Generator``s seeded with
 ``rng_seed``, so a step never waits on the host; PyTorch cannot reproduce
 JAX's PRNG, so parity tests pass the same strengths to both (``_losses``).
 ``training_scan`` runs steps on batches that a ``DeviceSampler`` draws on
-the device. The DCN channel, awgn / gamma / median and the bf16 knobs are
-not ported yet.
+the device. The DCN channel, awgn / gamma / median and ``remat`` are not
+ported yet.
+
+Precision, as in the reference: the NIP develops in float32 (its fidelity
+loss too); ``channel_dtype`` is the dtype of the manipulation expansion,
+the pooling, the channel's output and the FAN's input; the channel's JPEG
+and the 'jpeg' manipulation run in float32 through K1 unless
+``channel_jpeg_dtype`` / ``manip_jpeg_dtype`` is 'bfloat16', which runs that
+codec in bfloat16 through the plane form at 'default' precision.
 """
 import json
 import os
@@ -77,13 +84,21 @@ def compare_probabilities(p, p_ref):
 # norms within 3.06e-4; the bounds allow about 7 and 10 times that.
 MAX_STEP_LOSS_DIFF = 1e-3
 MAX_GRADIENT_NORM_DIFF = 3e-3
+# The same for two runs of a bfloat16 step (bench.py's configuration): a
+# bfloat16 value whose float32 sum differs by its last bit between the two
+# runs may round the other way, by one bfloat16 ulp (2^-8 relative), and the
+# FAN's gradients pass through many such roundings.
+BF16_STEP_LOSS_DIFF = 1e-2
+BF16_GRADIENT_NORM_DIFF = 5e-2
 
 
-def compare_steps(step, step_ref):
+def compare_steps(step, step_ref, max_loss_diff=MAX_STEP_LOSS_DIFF,
+                  max_grad_diff=MAX_GRADIENT_NORM_DIFF):
     """Hold (loss, parts, gradients) of ``loss_and_gradients`` against a
-    reference run's. Raises AssertionError beyond the bounds above; returns
-    {'max_loss_rel_diff', 'max_grad_norm_rel_diff', 'grad_norms',
-    'grad_norms_ref'} (norms per trainable part)."""
+    reference run's. Raises AssertionError beyond the bounds (the float32
+    ones above by default); returns {'max_loss_rel_diff',
+    'max_grad_norm_rel_diff', 'grad_norms', 'grad_norms_ref'} (norms per
+    trainable part)."""
     loss, parts, grads = step
     loss_ref, parts_ref, grads_ref = step_ref
 
@@ -105,7 +120,7 @@ def compare_steps(step, step_ref):
                         + [rel(leaf_norms[k], leaf_norms_ref[k]) for k in leaf_norms_ref])
     report = {'max_loss_rel_diff': loss_diff, 'max_grad_norm_rel_diff': grad_diff,
               'grad_norms': norms, 'grad_norms_ref': norms_ref}
-    if not loss_diff <= MAX_STEP_LOSS_DIFF or not grad_diff <= MAX_GRADIENT_NORM_DIFF:
+    if not loss_diff <= max_loss_diff or not grad_diff <= max_grad_diff:
         raise AssertionError(f'training steps disagree: {report}')
     return report
 
@@ -114,7 +129,8 @@ class ManipulationClassification:
 
     def __init__(self, nip_model='INet', manipulations=None, distribution=None,
                  fan_args=None, trainable=None, raw_patch_size=128, loss_metric='L2',
-                 rng_seed=0, nip_args=None, device='cuda'):
+                 rng_seed=0, nip_args=None, channel_dtype='float32', channel_jpeg_dtype=None,
+                 manip_jpeg_dtype=None, pool_impl='window', device='cuda'):
         """
         :param nip_model: NIP class name ('INet' is the one ported)
         :param manipulations: list of '<name>[:strength]' specs
@@ -129,10 +145,30 @@ class ManipulationClassification:
         :param loss_metric: the NIP's fidelity loss ('L2', 'L1', 'SSIM')
         :param rng_seed: seeds the host draws (``_sample_strengths``) and the
             device draws of a training step
+        :param channel_dtype: 'float32' | 'bfloat16', the distribution
+            channel's compute dtype (see the module docstring)
+        :param channel_jpeg_dtype: None | 'float32' | 'bfloat16', the
+            channel JPEG's compute dtype
+        :param manip_jpeg_dtype: None | 'float32' | 'bfloat16', the 'jpeg'
+            manipulation's compute dtype
+        :param pool_impl: 'window' | 'flat' (``ops.avg_pool`` or
+            ``ops.avg_pool_flat``, which round differently in bfloat16)
         :param device: where the models live and the flow runs
         """
         if raw_patch_size < 16 or raw_patch_size > 512:
             raise ValueError(f'The patch size ({raw_patch_size}) looks incorrect')
+        if channel_dtype not in forensics.DTYPES:
+            raise ValueError(f'Unsupported channel dtype {channel_dtype}')
+        if channel_jpeg_dtype not in (None, 'float32', 'bfloat16'):
+            raise ValueError(f'Unsupported channel JPEG dtype {channel_jpeg_dtype}')
+        if manip_jpeg_dtype not in (None, 'float32', 'bfloat16'):
+            raise ValueError(f'Unsupported manipulation JPEG dtype {manip_jpeg_dtype}')
+        if pool_impl not in ('window', 'flat'):
+            raise ValueError(f'Unsupported pool_impl {pool_impl}')
+        self._channel_dtype = forensics.DTYPES[channel_dtype]
+        self._channel_jpeg_bf16 = channel_jpeg_dtype == 'bfloat16'
+        self._manip_jpeg_bf16 = manip_jpeg_dtype == 'bfloat16'
+        self._pool_impl = pool_impl
         self.device = resolve_device(device)
         self.raw_patch_size = raw_patch_size
         # built as the reference builds it, so that both iterate it in one order
@@ -205,24 +241,29 @@ class ManipulationClassification:
         self.reinitialize()
 
     @classmethod
-    def restore(cls, run_dir, raw_patch_size=128, trainable=None, rng_seed=0, device='cuda'):
-        """Rebuild the flow of a finished JAX run directory (``training.json`` +
-        ``models/{fan,inet}/*.npz``) with its weights. A run whose log records
-        a channel precision other than float32 is refused, as the port runs
-        float32 only."""
+    def restore(cls, run_dir, raw_patch_size=128, trainable=None, rng_seed=0,
+                channel_dtype=None, channel_jpeg_dtype=None, manip_jpeg_dtype=None,
+                device='cuda'):
+        """Rebuild the flow of a finished run directory (``training.json`` +
+        ``models/{fan,inet}/*.npz``) with its weights, as the reference's
+        ``test_fan.py`` rebuilds it: the channel precision its log records
+        (a key it lacks means float32), each overridden by a dtype argument
+        given here; the FAN's dtype and stem from its logged arguments."""
         with open(os.path.join(run_dir, 'training.json')) as f:
             log = json.load(f)
         precision = log.get('channel_precision') or {}
-        refused = {k: v for k, v in precision.items() if v not in (None, 'float32')}
-        if refused:
-            raise NotImplementedError(f'channel_precision {refused} of {run_dir} is not ported; '
-                                      'the port runs float32')
         fan_args = {k: v for k, v in log['forensics']['args'].items() if k != 'n_classes'}
         flow = cls(log['nip']['model'],
                    manipulations=[m for m in log['manipulations'] if m != 'native'],
                    distribution=log['distribution'], fan_args=fan_args, trainable=trainable,
                    raw_patch_size=raw_patch_size, rng_seed=rng_seed,
-                   nip_args=log['nip'].get('args'), device=device)
+                   nip_args=log['nip'].get('args'),
+                   channel_dtype=channel_dtype or precision.get('channel_dtype', 'float32'),
+                   channel_jpeg_dtype=(channel_jpeg_dtype
+                                       or precision.get('channel_jpeg_dtype', 'float32')),
+                   manip_jpeg_dtype=(manip_jpeg_dtype
+                                     or precision.get('manip_jpeg_dtype', 'float32')),
+                   device=device)
         models_dir = os.path.join(run_dir, 'models')
         flow.fan.load_model(os.path.join(models_dir, 'fan'))
         nip_dir = os.path.join(models_dir, flow.nip.scoped_name)
@@ -230,6 +271,13 @@ class ManipulationClassification:
             flow.nip.load_model(nip_dir)
         flow._snapshot()
         return flow
+
+    @property
+    def channel_precision(self):
+        """The compute dtypes as ``training.json`` records them."""
+        return {'channel_dtype': 'bfloat16' if self._channel_dtype == torch.bfloat16 else 'float32',
+                'channel_jpeg_dtype': 'bfloat16' if self._channel_jpeg_bf16 else 'float32',
+                'manip_jpeg_dtype': 'bfloat16' if self._manip_jpeg_bf16 else 'float32'}
 
     def _snapshot(self):
         """Keep a copy of every parameter for :meth:`reinitialize`."""
@@ -289,43 +337,71 @@ class ManipulationClassification:
 
     # -- the path on NCHW tensors -------------------------------------------------------
 
+    def _manip_jpeg(self, batch, quality):
+        """The 'jpeg' manipulation in bfloat16 (``manip_jpeg_dtype``): the
+        plane form at 'default' precision, at a fixed quality or one held in
+        a 0-d tensor."""
+        if isinstance(quality, (int, float)):
+            q_luma, q_chroma = jpeg_models.qtables(int(quality), batch.device)
+        else:
+            q = quality.to(torch.float32)
+            q_luma, q_chroma = (jpeg_models.jpeg_qtable_traced(q, c) for c in (0, 1))
+        return jpeg_models.jpeg_forward_nchw(batch.to(torch.bfloat16), q_luma, q_chroma,
+                                             precision='default')[0]
+
     def _manipulate(self, batch_Y, strength_scalars=None, strength_indices=None):
-        """(K+1)-way batch expansion: [native] + each manipulation, class-major.
-        ``strength_scalars`` (K,) and ``strength_indices`` (K,), tensors on
-        the device, randomize the strengths: manipulation i takes scalar i,
-        or (resample) candidate ``strength_indices[i]`` of its range."""
+        """(K+1)-way batch expansion in the channel dtype: [native] + each
+        manipulation, class-major. ``strength_scalars`` (K,) and
+        ``strength_indices`` (K,), tensors on the device, randomize the
+        strengths: manipulation i takes scalar i, or (resample) candidate
+        ``strength_indices[i]`` of its range."""
+        batch_Y = batch_Y.to(self._channel_dtype)
         y_list = [batch_Y]
         for i, name in enumerate(self._operations):
-            if strength_scalars is None:
-                y_list.append(manips.MANIPULATIONS[name](batch_Y, self._strengths[name]))
+            strength = self._strengths[name] if strength_scalars is None else strength_scalars[i]
+            if name == 'jpeg' and self._manip_jpeg_bf16:
+                y = self._manip_jpeg(batch_Y, strength)
+            elif strength_scalars is None:
+                y = manips.MANIPULATIONS[name](batch_Y, strength)
             elif name in manips.TRACED_MANIPULATIONS:
-                y_list.append(manips.TRACED_MANIPULATIONS[name](batch_Y, strength_scalars[i]))
+                y = manips.TRACED_MANIPULATIONS[name](batch_Y, strength)
             else:
-                y_list.append(manips.resample_switch(batch_Y, strength_indices[i],
-                                                     self._strength_candidates[name]))
+                y = manips.resample_switch(batch_Y, strength_indices[i],
+                                           self._strength_candidates[name])
+            y_list.append(y.to(self._channel_dtype))
         return torch.cat(y_list, dim=0)
 
     def _downsample(self, batch):
         ds = self._distribution['downsampling']
         factor = self.downsampling_factor
         if ds.startswith('pool'):
-            return ops.avg_pool(batch, factor)
+            pool = ops.avg_pool_flat if self._pool_impl == 'flat' else ops.avg_pool
+            return pool(batch, factor)
         if ds == 'bilinear':
             return manips.resize_bilinear(batch, batch.shape[-2] // factor,
                                           batch.shape[-1] // factor)
         return batch
 
     def _compress(self, batch, q_luma, q_chroma):
-        """The JPEG channel: through the codec's own (trainable) q-tables when
-        it has them, else through ``q_luma``, ``q_chroma``; the batch itself
-        without a codec."""
+        """The JPEG channel, its result in the channel dtype: through the
+        codec's own (trainable) q-tables in float32 when it has them, else
+        through ``q_luma``, ``q_chroma`` in float32 (K1) or, with
+        ``channel_jpeg_dtype`` 'bfloat16', in bfloat16 through the plane
+        form; the batch itself without a codec."""
         if self.codec is None:
             return batch
+        precision = None
         if self.codec.trainable:
             tables = self.codec._model.params
             q_luma, q_chroma = tables['q_mtx_luma'], tables['q_mtx_chroma']
-        y, _ = jpeg_models.jpeg_forward_nchw(batch, q_luma, q_chroma, rounding=self.codec.codec)
-        return y
+            batch = batch.to(torch.float32)
+        elif self._channel_jpeg_bf16:
+            batch, precision = batch.to(torch.bfloat16), 'default'
+        else:
+            batch = batch.to(torch.float32)
+        y, _ = jpeg_models.jpeg_forward_nchw(batch, q_luma, q_chroma, rounding=self.codec.codec,
+                                             precision=precision)
+        return y.to(self._channel_dtype)
 
     def _forward(self, batch_x, q_luma, q_chroma, strength_scalars=None, strength_indices=None):
         batch_Y = self.nip.module(batch_x)
@@ -350,7 +426,8 @@ class ManipulationClassification:
         zero = torch.zeros((), device=probs.device)
         loss_nip = (self.nip.loss(batch_y, batch_Y.permute(0, 2, 3, 1))
                     if batch_y is not None else zero)
-        loss_dcn = self.codec.loss(batch_c, batch_C) if self.codec is not None else zero
+        loss_dcn = (self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32))
+                    if self.codec is not None else zero)
         loss = loss_ce
         if 'nip' in self._trainable:
             loss = loss + lambda_nip * loss_nip
@@ -548,14 +625,18 @@ class ManipulationClassification:
                                  *self._channel_qtables()).permute(0, 2, 3, 1)
         return (out, torch.zeros((), device=self.device)) if return_entropy else out
 
+    def _rgb_to_fan(self, batch_Y):
+        return self.run_compression(self.run_downsampling(self.run_manipulations(batch_Y)))
+
     def run_rgb_to_fan(self, batch_Y):
-        """The FAN's input (numpy NHWC) for an NHWC RGB batch."""
-        batch_c = self.run_downsampling(self.run_manipulations(batch_Y))
-        return self.run_compression(batch_c).cpu().numpy()
+        """The FAN's input for an NHWC RGB batch, as float32 numpy NHWC (a
+        bfloat16 channel's values exactly)."""
+        return self._rgb_to_fan(batch_Y).to(torch.float32).cpu().numpy()
 
     def run_rgb_to_probabilities(self, batch_Y):
-        """Class probabilities (numpy) for an NHWC RGB batch."""
-        return self.fan.process(self.run_rgb_to_fan(batch_Y)).cpu().numpy()
+        """Class probabilities (numpy) for an NHWC RGB batch; the FAN takes
+        its input in the channel dtype."""
+        return self.fan.process(self._rgb_to_fan(batch_Y)).cpu().numpy()
 
     # -- summaries ----------------------------------------------------------------------
 

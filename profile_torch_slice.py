@@ -13,7 +13,10 @@ kernels that take the most time (``chip_smoke.device_profile``).
 the NIP trainable (λ_nip 0.1, as ``chip_smoke.py`` runs it): the stream time
 of each stage's forward and of its backward (each stage's VJP taken alone
 with ``torch.autograd.grad``, in reverse order), the loss, and the Adam
-update; the step's wall time; and the device profile of whole steps.
+update; the step's wall time; and the device profile of whole steps. With
+``--bf16`` the step is bench.py's configuration instead (every bfloat16
+knob, ``chip_smoke.bench_flow``), whose JPEG channel is the bfloat16 plane
+form, not K1.
 
 ``--trainer`` splits the trainer's costs (``chip_smoke.py``'s trainer
 configuration, batch 10): the host's sampling of a quantized batch and its
@@ -23,7 +26,7 @@ the prefetcher, fed inline and device-resident, and a validation point's
 parts (the FAN's validation, the NIP's on the card and its host metrics,
 the log and snapshots).
 
-    python3 profile_torch_slice.py [--seed 0] [--batch 20] [--requests 10] [--train | --trainer]
+    python3 profile_torch_slice.py [--seed 0] [--batch 20] [--requests 10] [--train [--bf16] | --trainer]
 
 Needs a CUDA device. Prints one JSON line last.
 """
@@ -36,9 +39,11 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
+
 from chip_smoke import (RAW_PATCH, RUN_DIR, TRAIN_LAMBDA_NIP, TRAIN_LR, TRAINER_BATCH,
-                        TRAINER_IMAGES, TRAINER_SIZE, TRAINER_SPLIT, device_profile, print_profile,
-                        synthetic_raw, trainer_flow, training_batches)
+                        TRAINER_IMAGES, TRAINER_SIZE, TRAINER_SPLIT, bench_flow, device_profile,
+                        print_profile, synthetic_raw, trainer_flow, training_batches)
 from neural_imaging_tpu_torch.data import fixtures
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
@@ -115,14 +120,14 @@ def train_stage_times(flow, x, y, lambda_nip, reps):
         md = leaf(m)
         c = timer('pool fwd', lambda: flow._downsample(md))
         cd = leaf(c)
-        C = timer('jpeg channel fwd (K1)', lambda: flow._compress(cd, *q))
+        C = timer('jpeg channel fwd', lambda: flow._compress(cd, *q))
         Cd = leaf(C)
         p = timer('fan fwd', lambda: flow.fan.module(Cd))
         loss = timer('loss fwd', lambda: forensics.sparse_categorical_crossentropy(labels, p)
                      + lambda_nip * flow.nip.loss(y, Yd.permute(0, 2, 3, 1)))
         g_p, g_Y_loss = timer('loss bwd', lambda: grad(loss, [p, Yd]))
         g_C, *g_fan = timer('fan bwd', lambda: grad(p, [Cd] + fan_params, g_p))
-        g_c, = timer('jpeg channel bwd (plain)', lambda: grad(C, [cd], g_C))
+        g_c, = timer('jpeg channel bwd', lambda: grad(C, [cd], g_C))
         g_m, = timer('pool bwd', lambda: grad(c, [md], g_c))
         g_Y, = timer('manipulations bwd', lambda: grad(m, [Yd], g_m))
         g_nip = timer('inet bwd', lambda: grad(Y, nip_params, g_Y + g_Y_loss))
@@ -137,32 +142,61 @@ def train_stage_times(flow, x, y, lambda_nip, reps):
 
 
 def train(args):
-    """The --train mode: stage times, step wall time and device profile."""
-    flow = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, trainable={'nip'},
-                                              device='cuda')
-    flow.nan_check = False
+    """The --train mode: stage times, step wall and host queuing times
+    (before any profiler session, and again after them: ``torch.profiler``
+    leaves the host's launches slower in the process), and the device and
+    host profiles."""
+    if args.bf16:
+        flow = bench_flow('cuda', args.seed)
+    else:
+        flow = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, trainable={'nip'},
+                                                  device='cuda')
+        flow.nan_check = False
     (bx, by), = training_batches(args.seed, 1, args.batch)
-    for _ in range(3):
+
+    def step():
         flow.training_step(bx, by, TRAIN_LAMBDA_NIP)
-    torch.cuda.synchronize()
+
+    for _ in range(3):
+        step()
+    reps = args.requests
+    wall_ms, queue_ms = median_ms(step, reps), median_ms(step, reps, sync=False)
     stages = train_stage_times(flow, bx.permute(0, 3, 1, 2).contiguous(), by, TRAIN_LAMBDA_NIP,
-                               args.requests)
+                               reps)
     for name, ms in stages.items():
         print(f'[train stage] {name:26s} {ms:8.3f} ms stream', flush=True)
-    walls = []
-    for _ in range(args.requests):
-        t0 = time.perf_counter()
-        flow.training_step(bx, by, TRAIN_LAMBDA_NIP)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    print(f'[train step] median wall {1e3 * float(np.median(walls)):.3f} ms', flush=True)
-    p = device_profile(lambda: flow.training_step(bx, by, TRAIN_LAMBDA_NIP), args.requests,
-                       n_top=20, match=('jpeg8x8',))
+    p = device_profile(step, reps, n_top=20, match=('jpeg8x8',))
     print_profile('train step', p)
+    host = host_ops(step, reps)
+    wall_after, queue_after = median_ms(step, reps), median_ms(step, reps, sync=False)
+    print(f'[train step] median wall {wall_ms:.3f} ms, host queuing {queue_ms:.3f} ms (no '
+          f'synchronize); after the profiler sessions {wall_after:.3f} and {queue_after:.3f} '
+          f'ms; {host["host_ops_per_call"]:.0f} host-side operator calls a step', flush=True)
+    for row in host['top_host_ops']:
+        print(f"[train host] {row['self_cpu_ms_per_call']:8.3f} ms x{row['calls_per_call']:6.1f} "
+              f"{row['op']}", flush=True)
     flow.assert_finite()
-    return {'device': torch.cuda.get_device_name(0), 'batch': args.batch,
-            'step_wall_ms_median': 1e3 * float(np.median(walls)),
+    return {'device': torch.cuda.get_device_name(0), 'batch': args.batch, 'bf16': args.bf16,
+            'step_wall_ms_median': wall_ms, 'step_host_queue_ms_median': queue_ms,
+            'step_wall_ms_after_profiling': wall_after,
+            'step_host_queue_ms_after_profiling': queue_after, **host,
             'stage_stream_ms': stages, 'stage_stream_ms_sum': sum(stages.values()), **p}
+
+
+def host_ops(fn, reps, n_top=15):
+    """The host side of ``fn`` from ``torch.profiler`` (CPU activity only):
+    operator calls a call, and the ``n_top`` operators by self CPU time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {'host_ops_per_call': sum(e.count for e in events) / reps,
+            'top_host_ops': [{'op': e.key[:60], 'calls_per_call': e.count / reps,
+                              'self_cpu_ms_per_call': e.self_cpu_time_total / 1e3 / reps}
+                             for e in events[:n_top]]}
 
 
 def median_ms(fn, reps, sync=True):
@@ -266,6 +300,8 @@ def main():
     parser.add_argument('--requests', type=int, default=10)
     parser.add_argument('--train', action='store_true',
                         help='profile a training step instead of a request')
+    parser.add_argument('--bf16', action='store_true',
+                        help="with --train: bench.py's bfloat16 configuration")
     parser.add_argument('--trainer', action='store_true',
                         help="split the trainer's step and validation point into host and "
                              'card costs')

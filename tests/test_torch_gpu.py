@@ -220,6 +220,63 @@ def test_full_width_training_step_on_the_card(cuda):
         assert torch.equal(ops.normalize_batch(q.to(cuda)).cpu(), ops.normalize_batch(q))
 
 
+def test_bf16_fan_conv_on_the_card_sums_in_float32(cuda):
+    """One bfloat16 conv of the FAN's widths (conv1: 32 → 64 channels, 5x5,
+    at 64 px) on the card against the CPU's, which is the reference's bit for
+    bit: at least 99% of the values equal; and the conv before its bias
+    within one bfloat16 ulp of the exact conv of the same operands rounded
+    once, plus the float32 sums' own error (800 terms: 2^-14 of the sum of
+    their magnitudes), which a bfloat16 accumulation would miss by many ulps."""
+    import torch.nn.functional as F
+    from neural_imaging_tpu_torch.models import forensics
+    from neural_imaging_tpu_torch.utils.device import resolve_device
+    resolve_device('cuda')
+    fan = forensics.FAN(n_classes=5, dtype='bfloat16', device='cpu')
+    layer = fan.module.conv1
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 32, 64, 64))
+                         .astype(np.float32)).to(torch.bfloat16)
+    w = layer.weight.detach().to(torch.bfloat16)
+    cpu = fan.module._conv(layer, x)
+    card = fan.module.to(cuda)._conv(layer, x.to(cuda)).cpu()
+    assert card.dtype == torch.bfloat16
+    assert float((card == cpu).float().mean()) >= 0.99
+    conv = F.conv2d(x.to(cuda), w.to(cuda), padding='same').float().cpu()
+    exact = F.conv2d(x.double(), w.double(), padding='same')
+    terms = F.conv2d(x.float().abs(), w.float().abs(), padding='same')
+    exact = exact.to(torch.bfloat16).float()
+    ulp = 2.0 ** (torch.floor(torch.log2(exact.abs().clamp(min=1e-30))) - 7)
+    assert bool(((conv - exact).abs() <= ulp + 2.0 ** -14 * terms).all())
+
+
+def test_bf16_products_on_the_card_round_once(cuda):
+    """With the flags ``resolve_device`` sets (TF32 off, no bfloat16 split
+    reductions), the bfloat16 products of the flat pool, the resize and the
+    plane-form JPEG on the card: the pool bit-equal to the CPU's (its sums
+    are exact), a long product within one bfloat16 ulp of the float32 product
+    rounded once, and the JPEG bit-equal in at least 99% of its values."""
+    from neural_imaging_tpu_torch.models import jpeg as jpeg_models
+    from neural_imaging_tpu_torch.ops import ops
+    from neural_imaging_tpu_torch.utils.device import resolve_device
+    resolve_device('cuda')
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.random((20, 3, 256, 256)).astype(np.float32)).to(torch.bfloat16)
+    assert torch.equal(ops.avg_pool_flat(x.to(cuda), 2).cpu(), ops.avg_pool_flat(x, 2))
+    # positive terms: no cancellation, so a float32 sum of 8192 terms lies
+    # within 2^-11 of the exact one, less than half a bfloat16 ulp
+    a = torch.from_numpy(rng.random((256, 8192)).astype(np.float32)).to(torch.bfloat16)
+    b = torch.from_numpy(rng.random((8192, 256)).astype(np.float32)).to(torch.bfloat16)
+    card = ops.matmul(a.to(cuda), b.to(cuda)).float().cpu()
+    exact = (a.double() @ b.double()).to(torch.bfloat16).float()
+    ulp = 2.0 ** (torch.floor(torch.log2(exact.abs().clamp(min=1e-30))) - 7)
+    assert bool(((card - exact).abs() <= ulp).all())
+    ql, qc = jpeg_qtable(50, 0), jpeg_qtable(50, 1)
+    y_card = jpeg_models.jpeg_forward_nchw(x[:4].to(cuda), ql, qc, precision='default')[0]
+    y_cpu = jpeg_models.jpeg_forward_nchw(x[:4], ql, qc, precision='default')[0]
+    assert y_card.dtype == torch.bfloat16
+    assert float((y_card.cpu() == y_cpu).float().mean()) >= 0.99
+
+
 @pytest.fixture(scope='module')
 def fixture_data(tmp_path_factory):
     from neural_imaging_tpu_torch.data import fixtures

@@ -80,8 +80,20 @@ def test_inet_initial_weights(kwargs):
 
 
 def test_inet_refuses_bf16_precisions():
-    with pytest.raises(NotImplementedError):
-        pipelines.INet(conv_precision='default', device='cpu')
+    """INet's bfloat16 precision 'default' (operands rounded to bfloat16,
+    float32 sums) builds and holds against the JAX INet at 'default' (float32
+    on the CPU) within the operand rounding: 8 · 2^-8 in the max, 2^-9 in the
+    mean (tests/test_torch_precision.py says why); a precision that is not
+    the reference's is refused."""
+    ref = jpipelines.INet(patch_size=16, conv_precision='default')
+    ref.load_model(INET_DIR)
+    port = pipelines.INet(patch_size=16, conv_precision='default', device='cpu')
+    port.load_model(INET_DIR)
+    x = raw_batch(16)
+    diff = np.abs(port.process(x).numpy() - np.asarray(ref.process(x)))
+    assert diff.max() <= 8 * 2 ** -8 and diff.mean() <= 2 ** -9
+    with pytest.raises(ValueError, match='conv precision'):
+        pipelines.INet(conv_precision='bfloat16', device='cpu')
 
 
 def test_constrained_conv_kernel_and_output():
@@ -125,10 +137,17 @@ def test_shipped_fan_on_16px_input():
 
 
 def test_fan_refuses_unported_variants():
-    with pytest.raises(NotImplementedError):
-        forensics.FAN(n_classes=5, dtype='bfloat16', device='cpu')
-    with pytest.raises(NotImplementedError):
-        forensics.FAN(n_classes=5, stem='fused', device='cpu')
+    """The bfloat16 FAN and the fused stem build (tests/test_torch_precision.py
+    holds them against the reference); a dtype or stem the reference does not
+    have is refused, and so is a fused stem without a conv to fuse."""
+    fan = forensics.FAN(n_classes=5, dtype='bfloat16', stem='fused', device='cpu')
+    assert fan.module.compute_dtype == torch.bfloat16 and fan.module.stem == 'fused'
+    with pytest.raises(ValueError, match='dtype'):
+        forensics.FAN(n_classes=5, dtype='float16', device='cpu')
+    with pytest.raises(ValueError, match='stem'):
+        forensics.FAN(n_classes=5, stem='merged', device='cpu')
+    with pytest.raises(ValueError, match='n_convolutions'):
+        forensics.FAN(n_classes=5, n_convolutions=0, stem='fused', device='cpu')
 
 
 def test_fan_random_init_is_seeded():

@@ -439,19 +439,34 @@ def test_nan_guard_raises():
 
 
 def test_restore_refuses_a_channel_precision_it_cannot_honour(tmp_path):
-    """A run whose INet the port could build ('exact') but whose manipulation
-    JPEG ran in bfloat16: ``restore`` names the key and refuses it."""
+    """The shipped run whose manipulation JPEG ran in bfloat16 (and its INet
+    at 'default'): ``restore`` builds it so, and its forward from the same
+    developed RGB agrees with the reference's (``compare_probabilities``);
+    a log whose channel precision names a dtype the reference does not have
+    is refused."""
+    run_dir = os.path.dirname(BF16_LOG)
     with open(BF16_LOG) as f:
         log = json.load(f)
     assert log['channel_precision']['manip_jpeg_dtype'] == 'bfloat16'
-    log['nip']['args']['conv_precision'] = 'exact'
+    port = ManipulationClassification.restore(run_dir, PATCH, device='cpu')
+    assert port.channel_precision == log['channel_precision']
+    assert port.nip._h.conv_precision == 'default'
+    ref = JaxFlow('INet', manipulations=MANIPULATIONS, distribution=log['distribution'],
+                  fan_args={k: v for k, v in log['forensics']['args'].items()
+                            if k != 'n_classes'},
+                  raw_patch_size=PATCH, nip_args=log['nip']['args'],
+                  manip_jpeg_dtype='bfloat16')
+    ref.fan.load_model(os.path.join(run_dir, 'models/fan'))
+    ref.nip.load_model(os.path.join(run_dir, 'models/inet'))
+    ref.params = ref._collect_params()
+    y = rgb_batch(140)
+    compare_probabilities(port.run_rgb_to_probabilities(y), ref.run_rgb_to_probabilities(y))
+
+    log['channel_precision']['manip_jpeg_dtype'] = 'float16'
     (tmp_path / 'training.json').write_text(json.dumps(log))
-    shutil.copytree(os.path.join(os.path.dirname(BF16_LOG), 'models'), tmp_path / 'models')
-    with pytest.raises(NotImplementedError, match='manip_jpeg_dtype'):
+    shutil.copytree(os.path.join(run_dir, 'models'), tmp_path / 'models')
+    with pytest.raises(ValueError, match='manipulation JPEG dtype'):
         ManipulationClassification.restore(str(tmp_path), PATCH, device='cpu')
-    log['channel_precision']['manip_jpeg_dtype'] = 'float32'
-    (tmp_path / 'training.json').write_text(json.dumps(log))
-    assert ManipulationClassification.restore(str(tmp_path), PATCH, device='cpu').n_classes == 5
 
 
 def test_loss_metrics():

@@ -466,21 +466,34 @@ def test_cli_builds_what_the_library_builds(data_dir, tmp_path):
 
 @pytest.mark.parametrize('extra, item', [
     (['--nip', 'UNet'], 'item 4'),
-    (['--channel-dtype', 'bfloat16'], 'item 1'),
-    (['--channel-jpeg-dtype', 'bfloat16'], 'item 1'),
-    (['--manip-jpeg-dtype', 'bfloat16'], 'item 1'),
     (['--dcn', '32c'], 'item 3'),
     (['--devices', 'auto'], 'item 5'),
     (['--coordinator', 'localhost:1234'], 'item 5'),
     (['--nproc', '2'], 'item 5'),
     (['--procid', '0'], 'item 5'),
     (['--jpeg', '50', '--jpeg_mode', 'libjpeg'], 'item 2'),
-], ids=['nip', 'channel-dtype', 'channel-jpeg-dtype', 'manip-jpeg-dtype', 'dcn', 'devices',
-        'coordinator', 'nproc', 'procid', 'libjpeg'])
+], ids=['nip', 'dcn', 'devices', 'coordinator', 'nproc', 'procid', 'libjpeg'])
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(cli_args(data_dir, str(tmp_path), *extra))
     assert not os.path.exists(tmp_path / 'SyntheticCam')
+
+
+@pytest.mark.parametrize('flag, key', [('--channel-dtype', 'channel_dtype'),
+                                       ('--channel-jpeg-dtype', 'channel_jpeg_dtype'),
+                                       ('--manip-jpeg-dtype', 'manip_jpeg_dtype')],
+                         ids=['channel-dtype', 'channel-jpeg-dtype', 'manip-jpeg-dtype'])
+def test_cli_takes_the_bf16_flags(data_dir, tmp_path, flag, key):
+    """Each bfloat16 flag reaches the flow: the run's ``training.json``
+    records it (and float32 for the others), and its restore builds it."""
+    cli.main(cli_args(data_dir, str(tmp_path), '--jpeg', '50', flag, 'bfloat16'))
+    run = run_dir(str(tmp_path), 'fixed')
+    with open(os.path.join(run, 'training.json')) as f:
+        precision = json.load(f)['channel_precision']
+    assert precision == {k: 'bfloat16' if k == key else 'float32'
+                         for k in ('channel_dtype', 'channel_jpeg_dtype', 'manip_jpeg_dtype')}
+    assert ManipulationClassification.restore(run, PATCH,
+                                              device='cpu').channel_precision == precision
 
 
 def test_trainer_refuses_the_parallel_trainer():
