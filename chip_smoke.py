@@ -47,7 +47,22 @@ NVIDIA GPU:
    the bitstream round trip, and the latent and decode against the CPU;
 9. DCN training: steps of the 32c codec (fixed codebook, K2 + K3) and of a
    trainable-codebook copy (K2 + K4) at batch 16 of 128-px patches;
-10. print one JSON line of the kernels, then the last line
+10. the other camera ISPs: ``[nip]`` each shipped NIP (UNet_5,
+   DNet_3x3_15x64f, ClassicISP_gbrg_5x5_-3R, INet) restored with
+   ``base.restore`` develops 20 raw 64-px patches, against the CPU;
+   ``[unet classify]`` the ``m_quality_full`` UNet run (downsampling
+   'none') answers requests of 10 raw 64-px patches, K1 twice a request,
+   against the CPU; ``[unet train]`` and ``[dnet train]`` the joint step of
+   the λ-sweep's ``ln-0.0050`` UNet and DNet runs (the NIP from its shipped
+   snapshot and trainable, the FAN from its seed, pool:2, QF 50, batch 10
+   raw 64-px patches): the first step against the CPU's, the UNet's peak
+   memory with and without ``remat``, 10 + 3 augmented steps, K1 twice a
+   step, the NIP's share of the device time; ``[nip trainer]``
+   ``train_nip_model`` of UNet_5 from its snapshot on procedural pairs at
+   the CLI's batch 20 and raw patch 64, host-fed and device-resident, its
+   first epoch against the CPU trainer's, its ``progress.json`` and npz
+   read back;
+11. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -80,12 +95,13 @@ from neural_imaging_tpu_torch.data import fixtures
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
-from neural_imaging_tpu_torch.models import base, compression
+from neural_imaging_tpu_torch.models import base, compression, pipelines
 from neural_imaging_tpu_torch.models.jpeg import qtables
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops.hopper import _build, codebook, jpeg8x8
 from neural_imaging_tpu_torch.training import validation
 from neural_imaging_tpu_torch.training.manipulation import train_manipulation_nip
+from neural_imaging_tpu_torch.training.pipeline import train_nip_model
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.utils import logger
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
@@ -122,6 +138,35 @@ BENCH_BLOCKS, BENCH_BLOCK_STEPS = 2, 5     # timed blocks of steps, bf16 and f32
 BF16_CLASSIFY_RUNS = {'data/m_prec_high/QualityRef/INet/ln-0.0050/fixed-codec/000': 2,
                       'data/m_prec_default/QualityRef/INet/ln-0.0050/fixed-codec/000': 2,
                       'data/m_manipjpeg_bf16/QualityRef/INet/ln-0.0050/fixed-codec/000': 1}
+# the other camera ISPs: their shipped snapshots (QualityRef, the published
+# widths), the joint runs trained on them and their shapes (raw patch 64,
+# batch 10, λ_nip 0.005), the NIP trainer at the CLI's defaults (batch 20)
+NIP_SNAPSHOTS = {'UNet': 'data/models/nip/QualityRef/UNet_5',
+                 'DNet': 'data/models/nip/QualityRef/DNet_3x3_15x64f',
+                 'ClassicISP': 'data/models/nip/QualityRef/ClassicISP_gbrg_5x5_-3R',
+                 'INet': 'data/models/nip/QualityRef/INet_gbrg_5x5'}
+NIP_RAW_PATCH, NIP_DEVELOP_BATCH = 64, 20
+UNET_CLASSIFY_RUN = 'data/m_quality_full/QualityRef/UNet/fixed-nip/fixed-codec/000'
+NIP_FLOW_RUNS = {'UNet': 'data/m_quality_sweep/QualityRef/UNet/ln-0.0050/fixed-codec/000',
+                 'DNet': 'data/m_quality_dnet/QualityRef/DNet/ln-0.0050/fixed-codec/000'}
+NIP_FLOW_BATCH, NIP_FLOW_LAMBDA = 10, 0.005
+# a NIP's output on the card against the CPU's (float32 in another summation
+# order through up to 23 convolutions; RGB in [0, 1])
+MAX_NIP_DIFF = 1e-4
+# A dJPEG coefficient that rounds the other way on the card than on the CPU
+# moves an 8x8 block of the FAN's input by about a q step (1e-3 and more;
+# float32 noise stays below 1e-4 there). Where one did, the FAN's gradient
+# leaves are held to the bound the trainer tests give a run with flipped
+# coefficients (5e-2), the NIP's and the loss parts to compare_steps' own:
+# on the DNet run's first batch one channel block flips (|dy| 1.1e-2 in row
+# 12 of 50) and the FAN's constrained filter's gradient norm moves by
+# 4.4e-3, above MAX_GRADIENT_NORM_DIFF.
+FLIP_THRESHOLD, FLIPPED_FAN_GRADIENT_DIFF = 1e-3, 5e-2
+NIP_TRAINER_BATCH, NIP_TRAINER_SPLIT = 20, (40, 20, 1)
+NIP_TRAINER_EPOCHS, NIP_TRAINER_VALIDATION = 4, 2
+# the NIP trainer's first epoch's mean loss, card against CPU (relative): the
+# same batches, float32 in another summation order over one epoch's 2 steps
+MAX_NIP_EPOCH_LOSS_DIFF = 1e-4
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
 # kernel's work is the larger of bytes / memory rate and FLOPs / peak rate.
@@ -407,13 +452,13 @@ def expect_counts(path, counts, expected):
         raise AssertionError(f'{path}: launches {counts}, expected {expected}')
 
 
-def training_batches(seed, n, batch):
-    """``n`` (raw, target) pairs on the device: raw 128-px RGGB patches and
-    256-px RGB targets, made on the host and copied once, as a trainer's
-    device-resident batches are."""
-    return [(torch.from_numpy(synthetic_raw(seed + i, batch, RAW_PATCH)).cuda(),
-             torch.from_numpy(synthetic_rgb(seed + 50 + i, batch, 2 * RAW_PATCH,
-                                            2 * RAW_PATCH)).cuda()) for i in range(n)]
+def training_batches(seed, n, batch, raw_patch=RAW_PATCH):
+    """``n`` (raw, target) pairs on the device: raw ``raw_patch``-px RGGB
+    patches and RGB targets twice as large, made on the host and copied
+    once, as a trainer's device-resident batches are."""
+    return [(torch.from_numpy(synthetic_raw(seed + i, batch, raw_patch)).cuda(),
+             torch.from_numpy(synthetic_rgb(seed + 50 + i, batch, 2 * raw_patch,
+                                            2 * raw_patch)).cuda()) for i in range(n)]
 
 
 def main_path_training(args, device):
@@ -649,10 +694,11 @@ def trainer_flow(device):
 
 
 class ValidationClock(logging.Handler):
-    """The host times of the trainer's validation log lines: where each
+    """The host times of a trainer's validation log lines: where each
     validation starts (logged once the epochs before it have run on the
     device) and where it ends (after its results and snapshots reached the
-    host)."""
+    host; the joint trainer's line with the accuracy, the NIP trainer's with
+    the validation PSNR)."""
 
     def __init__(self):
         super().__init__(logging.DEBUG)
@@ -662,7 +708,8 @@ class ValidationClock(logging.Handler):
         message = record.getMessage()
         if message.endswith(': validating'):
             self.starts.append(record.created)
-        elif record.funcName == 'validate' and 'accuracy' in message:
+        elif ((record.funcName == 'validate' and 'accuracy' in message)
+              or 'validation psnr' in message):
             self.ends.append(record.created)
 
 
@@ -979,6 +1026,349 @@ def dcn_training(args, device):
                                         'fixed': fixed_results, 'trainable': train_results,
                                         'codebook_moved_max_abs': moved}
 
+# -- the other camera ISPs ---------------------------------------------------------------
+
+def nip_development(args, device):
+    """Each shipped NIP, restored with ``base.restore``, develops a batch of
+    raw 64-px patches on the card: finite RGB in [0, 1], within
+    ``MAX_NIP_DIFF`` of the CPU's. No kernel runs. Returns (launch counts,
+    results)."""
+    x = synthetic_raw(args.seed + 800, NIP_DEVELOP_BATCH, NIP_RAW_PATCH)
+    results = {}
+    torch.cuda.synchronize()
+    zero_counts()
+    for name, snapshot in NIP_SNAPSHOTS.items():
+        path = str(base.REPO_ROOT / snapshot)
+        model = base.restore(path, pipelines, patch_size=NIP_RAW_PATCH, device=device)
+        model.process(x)                                  # warm-up (cuDNN autotuning)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            y = model.process(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        y = y.cpu().numpy()
+        expected = (NIP_DEVELOP_BATCH, 2 * NIP_RAW_PATCH, 2 * NIP_RAW_PATCH, 3)
+        if y.shape != expected or not np.isfinite(y).all() or y.min() < 0 or y.max() > 1:
+            raise AssertionError(f'{name}: bad RGB of shape {y.shape}')
+        cpu = base.restore(path, pipelines, patch_size=NIP_RAW_PATCH,
+                           device='cpu').process(x).numpy()
+        diff = float(np.abs(y - cpu).max())
+        if not diff <= MAX_NIP_DIFF:
+            raise AssertionError(f'{name}: card and CPU differ by {diff}')
+        results[name] = {'model_code': model.model_code, 'parameters': model.count_parameters(),
+                         'develop_ms': [1e3 * t for t in times],
+                         'median_ms': 1e3 * float(np.median(times)), 'cpu_max_abs_diff': diff}
+        print(f'[nip] {model.model_code} ({model.count_parameters():,} parameters): '
+              f'{NIP_DEVELOP_BATCH} raw {NIP_RAW_PATCH}px patches developed in '
+              f'{results[name]["median_ms"]:.2f} ms (median of 5); vs the CPU max |dy| '
+              f'{diff:.3g} (bound {MAX_NIP_DIFF:g})', flush=True)
+    counts = read_counts()
+    expect_counts('NIP development', counts, {})
+    return counts, results
+
+
+def unet_classification(args, device):
+    """The m_quality_full UNet run (downsampling 'none') answers requests of
+    10 raw 64-px patches (50 classified images), K1 twice a request; the
+    probabilities against the CPU's. Returns (launch counts, results)."""
+    flow = ManipulationClassification.restore(UNET_CLASSIFY_RUN, NIP_RAW_PATCH, device=device)
+    if flow.nip.class_name != 'UNet' or flow.downsampling_factor != 1:
+        raise AssertionError(f'{UNET_CLASSIFY_RUN}: restored {flow.summary()}')
+    batches = [synthetic_raw(args.seed + 900 + i, NIP_FLOW_BATCH, NIP_RAW_PATCH)
+               for i in range(args.requests)]
+    flow.run_workflow_to_decisions(batches[0])          # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    latencies = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        flow.run_workflow_to_decisions(batch)
+        latencies.append(time.perf_counter() - t0)
+    counts = read_counts()
+    expect_counts('UNet classification', counts, {'jpeg8x8': 2 * args.requests})
+    probs = flow.run_workflow(batches[0])[-1]
+    n_rows = NIP_FLOW_BATCH * flow.n_classes
+    if tuple(probs.shape) != (n_rows, flow.n_classes) or not bool(torch.isfinite(probs).all()):
+        raise AssertionError(f'UNet classification: bad probabilities {tuple(probs.shape)}')
+    report = compare_probabilities(
+        probs.cpu(), ManipulationClassification.restore(UNET_CLASSIFY_RUN, NIP_RAW_PATCH,
+                                                        device='cpu').run_workflow(batches[0])[-1])
+    median = float(np.median(latencies))
+    print(f'[unet classify] {flow.summary_compact()}: median request {1e3 * median:.2f} ms '
+          f'({n_rows / median:.1f} classified images/s), K1 launches {counts["jpeg8x8"]} '
+          f'(2 a request); vs the CPU max |dp| {report["max_abs_diff"]:.3g}, '
+          f'{report["decided_rows"]}/{report["rows"]} decided rows agree', flush=True)
+    return counts, {'requests': args.requests, 'batch': NIP_FLOW_BATCH,
+                    'latency_ms': [1e3 * t for t in latencies], 'median_ms': 1e3 * median,
+                    'images_per_s': n_rows / median, 'k1_launches': counts['jpeg8x8'],
+                    'cpu_max_abs_prob_diff': report['max_abs_diff']}
+
+
+def nip_flow(nip, device, remat=False, seed=0):
+    """The λ-sweep run of ``nip`` ('UNet' or 'DNet', ``NIP_FLOW_RUNS``): its
+    manipulations, channel and FAN widths from ``training.json``, the NIP
+    from its shipped snapshot and trainable, the FAN's weights from its seed
+    (the run directory holds no npz), raw patch 64."""
+    with open(base.REPO_ROOT / NIP_FLOW_RUNS[nip] / 'training.json') as f:
+        log = json.load(f)
+    fan_args = {k: v for k, v in log['forensics']['args'].items() if k != 'n_classes'}
+    flow = ManipulationClassification(
+        f'{nip}:{base.REPO_ROOT / NIP_SNAPSHOTS[nip]}',
+        manipulations=[m for m in log['manipulations'] if m != 'native'],
+        distribution=log['distribution'], fan_args=fan_args, trainable={'nip'},
+        raw_patch_size=NIP_RAW_PATCH, nip_args=log['nip']['args'], rng_seed=seed, remat=remat,
+        device=device)
+    flow.nan_check = False
+    return flow
+
+
+def nip_share(flow, bx, reps=5):
+    """Device ms a call of the NIP's forward and backward alone on the
+    step's batch (``device_profile``)."""
+    x = bx.permute(0, 3, 1, 2).contiguous()
+    g = torch.randn(x.shape[0], 3, 2 * x.shape[2], 2 * x.shape[3], device=x.device)
+    params = list(flow.nip.module.parameters())
+
+    def fwd_bwd():
+        torch.autograd.grad(flow.nip.module(x), params, g)
+    fwd_bwd()
+    return device_profile(fwd_bwd, reps, n_top=0)['device_ms_per_call']
+
+
+def fan_input_flips(flow, cpu_flow, bx):
+    """Values of the FAN's input (the channel's output at the fixed
+    strengths) that differ by more than ``FLIP_THRESHOLD`` between the card's
+    forward and the CPU's of the same raw batch: flipped dJPEG coefficients."""
+    fan_inputs = []
+    for f in (flow, cpu_flow):
+        x = f._batch(bx.to(f.device)).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            fan_inputs.append(f._forward(x, *f._channel_qtables())[2].float().cpu())
+    return int(((fan_inputs[0] - fan_inputs[1]).abs() > FLIP_THRESHOLD).sum())
+
+
+def compare_flow_steps(step, step_cpu, flips):
+    """``compare_steps`` of the card's first step against the CPU's; where
+    ``flips`` values of the FAN's input differ, the FAN's leaves are held to
+    ``FLIPPED_FAN_GRADIENT_DIFF`` and the NIP's and the loss parts to the
+    float32 bounds."""
+    if not flips:
+        return compare_steps(step, step_cpu)
+    (loss, parts, grads), (loss_cpu, parts_cpu, grads_cpu) = step, step_cpu
+    report = compare_steps((loss, parts, {'nip': grads['nip']}),
+                           (loss_cpu, parts_cpu, {'nip': grads_cpu['nip']}))
+    fan = compare_steps((loss, parts, {'fan': grads['fan']}),
+                        (loss_cpu, parts_cpu, {'fan': grads_cpu['fan']}),
+                        max_grad_diff=FLIPPED_FAN_GRADIENT_DIFF)
+    return {**report, 'fan_grad_norm_rel_diff': fan['max_grad_norm_rel_diff'],
+            'fan_worst_gradient': fan['worst_gradient'],
+            'grad_norms': {**report['grad_norms'], **fan['grad_norms']},
+            'grad_norms_ref': {**report['grad_norms_ref'], **fan['grad_norms_ref']}}
+
+
+def peak_memory_mb(fn):
+    """``fn()`` and the peak device memory it allocated above what was
+    allocated before it, in MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+
+
+def nip_flow_training(args, nip, device):
+    """The joint step of ``nip``'s λ-sweep run at full width: the first step
+    against the port's CPU step (``compare_steps``), for the UNet also its
+    peak memory with and without ``remat`` (the same loss and gradients),
+    then timed steps, K1 twice a step; the device time of a step and the
+    share of it that the NIP's forward and backward take. Returns (launch
+    counts, results)."""
+    label = f'{nip.lower()} train'
+    flow = nip_flow(nip, device, seed=args.seed)
+    batches = training_batches(args.seed + 1100, TRAIN_STEPS + 1, NIP_FLOW_BATCH, NIP_RAW_PATCH)
+    bx, by = batches[0]
+    cpu_flow = nip_flow(nip, 'cpu', seed=args.seed)
+    t0 = time.perf_counter()
+    step_cpu = cpu_flow.loss_and_gradients(bx.cpu(), by.cpu(), NIP_FLOW_LAMBDA)
+    cpu_s = time.perf_counter() - t0
+    step_card, peak = peak_memory_mb(lambda: flow.loss_and_gradients(bx, by, NIP_FLOW_LAMBDA))
+    flips = fan_input_flips(flow, cpu_flow, bx)
+    agreement = compare_flow_steps(step_card, step_cpu, flips)
+    print(f'[{label}] {flow.summary_compact()}; first step vs the CPU ({cpu_s:.1f} s there): '
+          f'{flips} values of the FAN\'s input flipped; loss parts within '
+          f'{agreement["max_loss_rel_diff"]:.3g} (relative), gradient norms within '
+          f'{agreement["max_grad_norm_rel_diff"]:.3g} ({agreement["worst_gradient"]})'
+          + (f', the FAN\'s within {agreement["fan_grad_norm_rel_diff"]:.3g} '
+             f'({agreement["fan_worst_gradient"]}, bound {FLIPPED_FAN_GRADIENT_DIFF:g})'
+             if flips else '') + f'; norms {agreement["grad_norms"]}', flush=True)
+    results = {'batch': NIP_FLOW_BATCH, 'raw_patch': NIP_RAW_PATCH, 'lambda_nip': NIP_FLOW_LAMBDA,
+               'lr': TRAIN_LR, 'nip_parameters': flow.nip.count_parameters(),
+               'cpu_first_step': agreement, 'cpu_fan_input_flips': flips, 'cpu_step_s': cpu_s,
+               'peak_mb': peak}
+    del cpu_flow
+    remat_counts = {name: 0 for name in COUNTERS}
+    if nip == 'UNet':
+        remat_flow = nip_flow(nip, device, remat=True, seed=args.seed)
+        zero_counts()
+        step_remat, peak_remat = peak_memory_mb(
+            lambda: remat_flow.loss_and_gradients(bx, by, NIP_FLOW_LAMBDA))
+        remat_counts = read_counts()
+        expect_counts(f'{label} (remat)', remat_counts, {'jpeg8x8': 3})
+        remat_agreement = compare_steps(step_remat, step_card)
+        print(f'[{label}] remat: the step\'s peak memory {peak_remat:.1f} MiB against '
+              f'{peak:.1f} MiB without ({100 * (1 - peak_remat / peak):.1f}% less); loss parts within '
+              f'{remat_agreement["max_loss_rel_diff"]:.3g}, gradient norms within '
+              f'{remat_agreement["max_grad_norm_rel_diff"]:.3g} of the step without; K1 '
+              f'launches {remat_counts["jpeg8x8"]}', flush=True)
+        results.update(peak_mb_remat=peak_remat, remat_vs_plain=remat_agreement,
+                       remat_k1_launches=remat_counts['jpeg8x8'])
+        del remat_flow
+
+    before = {part: {k: p.detach().clone() for k, p in leaves.items()}
+              for part, leaves in flow._collect_params().items()}
+    flow.training_step(bx, by, NIP_FLOW_LAMBDA, learning_rate=TRAIN_LR)    # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = {False: [], True: []}, []
+    for i in range(TRAIN_STEPS + TRAIN_AUGMENTED_STEPS):
+        augment = i >= TRAIN_STEPS
+        t0 = time.perf_counter()
+        loss, parts = flow.training_step(*batches[1 + i % TRAIN_STEPS], NIP_FLOW_LAMBDA,
+                                         augment=augment, learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        times[augment].append(time.perf_counter() - t0)
+        losses.append({'loss': float(loss), **{k: float(v) for k, v in parts.items()}})
+    counts = read_counts()
+    expect_counts(label, counts, {'jpeg8x8': 2 * (TRAIN_STEPS + TRAIN_AUGMENTED_STEPS)})
+    flow.assert_finite()
+    if not all(np.isfinite(v) for step in losses for v in step.values()):
+        raise AssertionError(f'{label}: non-finite losses {losses}')
+    moved = {part: max(float((p.detach() - before[part][k]).abs().max())
+                       for k, p in leaves.items())
+             for part, leaves in flow._collect_params().items()}
+    if not (moved['nip'] > 0 and moved['fan'] > 0):
+        raise AssertionError(f'{label}: parameters did not move: {moved}')
+    profile_ = device_profile(lambda: flow.training_step(bx, by, NIP_FLOW_LAMBDA,
+                                                         learning_rate=TRAIN_LR), 5)
+    flow.assert_finite()
+    nip_ms = nip_share(flow, bx)
+    median = float(np.median(times[False]))
+    device_ms = profile_['device_ms_per_call']
+    print(f'[{label}] median step {1e3 * median:.2f} ms ({1 / median:.2f} steps/s); augmented '
+          f'{", ".join(f"{1e3 * t:.2f}" for t in times[True])} ms; device {device_ms:.2f} ms a '
+          f'step, busy {100 * profile_["device_busy_share"]:.1f}%, '
+          f'{profile_["device_ops_per_call"]:.0f} device ops; the {nip} forward and backward '
+          f'{nip_ms:.2f} ms ({100 * nip_ms / device_ms:.1f}% of the step\'s device time); K1 '
+          f'launches {counts["jpeg8x8"]}', flush=True)
+    results.update(step_ms=[1e3 * t for t in times[False]],
+                   augmented_step_ms=[1e3 * t for t in times[True]], median_ms=1e3 * median,
+                   steps_per_s=1 / median, device_ms_per_step=device_ms,
+                   device_busy_share=profile_['device_busy_share'],
+                   device_ops_per_step=profile_['device_ops_per_call'],
+                   nip_fwd_bwd_device_ms=nip_ms, nip_device_share=nip_ms / device_ms,
+                   k1_launches=counts['jpeg8x8'], losses=losses, largest_change=moved)
+    total = {k: counts[k] + remat_counts[k] for k in counts}
+    return total, results
+
+
+def nip_trainer(args, device):
+    """``train_nip_model`` of UNet_5 from its snapshot on procedural pairs
+    at the CLI's batch 20 and raw patch 64, host-fed then device-resident:
+    epoch and validation times from its log lines, its ``progress.json`` and
+    npz read back, the first epoch's loss against the CPU trainer's. No
+    kernel runs. Returns (launch counts, results)."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_nip_trainer_')
+    try:
+        return nip_trainer_phase(args, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def nip_trainer_run(data_dir, root, device, n_epochs, device_data=False):
+    n_images, v_images, val_patches = NIP_TRAINER_SPLIT
+    data = Dataset(data_dir, n_images=n_images, v_images=v_images,
+                   val_rgb_patch_size=2 * NIP_RAW_PATCH, val_n_patches=val_patches)
+    model = base.restore(str(base.REPO_ROOT / NIP_SNAPSHOTS['UNet']), pipelines,
+                         patch_size=NIP_RAW_PATCH, device=device)
+    clock, level = ValidationClock(), logger.level
+    logger.addHandler(clock)
+    logger.setLevel(logging.DEBUG)
+    start = time.time()
+    try:
+        out = train_nip_model(model, 'SyntheticCam', n_epochs=n_epochs,
+                              validation_schedule=NIP_TRAINER_VALIDATION,
+                              validation_loss_threshold=None, patch_size=NIP_RAW_PATCH,
+                              batch_size=NIP_TRAINER_BATCH, data=data, out_directory_root=root,
+                              device_data=device_data)
+    finally:
+        logger.removeHandler(clock)
+        logger.setLevel(level)
+    return out, {'start': start, 'end': time.time(), 'validation_starts': clock.starts,
+                 'validation_ends': clock.ends}
+
+
+def nip_trainer_phase(args, device, tmp):
+    height, width = TRAINER_SIZE
+    data_dir = fixtures.make_dataset(os.path.join(tmp, 'data'), n_images=TRAINER_IMAGES,
+                                     height=height, width=width, seed=args.seed + 1200)
+    steps_per_epoch = NIP_TRAINER_SPLIT[0] // NIP_TRAINER_BATCH
+    results, counts = {}, {}
+    for label, device_data in (('host-fed', False), ('device-resident', True)):
+        torch.cuda.synchronize()
+        zero_counts()
+        out, timings = nip_trainer_run(data_dir, os.path.join(tmp, label), device,
+                                       NIP_TRAINER_EPOCHS, device_data)
+        counts[label] = read_counts()
+        expect_counts(f'NIP trainer ({label})', counts[label], {})
+        progress = json.load(open(os.path.join(out, 'progress.json')))
+        losses = progress['performance']['loss']['training']
+        if len(losses) != NIP_TRAINER_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f'NIP trainer ({label}): bad losses {losses}')
+        if progress['model'] != 'UNet' or progress['summary']['Epoch'] != NIP_TRAINER_EPOCHS - 1:
+            raise AssertionError(f'NIP trainer ({label}): progress.json {progress["summary"]}')
+        written = base.load_flax_npz(os.path.join(out, 'unet.npz'))
+        shipped = base.load_flax_npz(base.REPO_ROOT / NIP_SNAPSHOTS['UNet'] / 'unet' / 'unet.npz')
+        moved = max(float(np.abs(written[k] - v).max()) for k, v in shipped.items())
+        if sorted(written) != sorted(shipped) or not moved > 0:
+            raise AssertionError(f'NIP trainer ({label}): unet.npz not written as trained')
+        reread = base.restore(out, pipelines, patch_size=NIP_RAW_PATCH, device=device)
+        starts, ends = timings['validation_starts'], timings['validation_ends']
+        spans = [starts[0] - timings['start']] + [s - e for s, e in zip(starts[1:], ends)]
+        validations = [e - s for s, e in zip(starts, ends)]
+        marks = list(range(0, NIP_TRAINER_EPOCHS, NIP_TRAINER_VALIDATION))
+        span_epochs = [1] + [b - a for a, b in zip(marks, marks[1:])]
+        steady = sum(spans[1:]) / sum(span_epochs[1:])
+        results[label] = {'epoch_losses': losses,
+                          'psnr': progress['performance']['psnr']['validation'],
+                          'training_s': spans, 'epochs_per_span': span_epochs,
+                          'epoch_s_after_first': steady,
+                          'steps_per_s': steps_per_epoch / steady,
+                          'validation_s': validations, 'run_s': timings['end'] - timings['start'],
+                          'largest_change': moved, 'reread': reread.model_code}
+        print(f'[nip trainer] {label}: {steps_per_epoch} steps an epoch at batch '
+              f'{NIP_TRAINER_BATCH}; training between validations '
+              f'{", ".join(f"{1e3 * t:.1f} ms / {n}" for t, n in zip(spans, span_epochs))} epochs '
+              f'(the first holds the set-up); after the first {1e3 * steady:.1f} ms an epoch '
+              f'({steps_per_epoch / steady:.1f} steps/s); validation '
+              f'{", ".join(f"{1e3 * t:.1f}" for t in validations)} ms; losses {losses}; PSNR '
+              f'{results[label]["psnr"]}; progress.json and unet.npz read back', flush=True)
+    cpu_out, _ = nip_trainer_run(data_dir, os.path.join(tmp, 'cpu'), 'cpu', 1)
+    cpu = json.load(open(os.path.join(cpu_out, 'progress.json')))['performance']['loss'][
+        'training'][0]
+    card = results['host-fed']['epoch_losses'][0]
+    rel = abs(card - cpu) / abs(cpu)
+    if not rel <= MAX_NIP_EPOCH_LOSS_DIFF:
+        raise AssertionError(f'NIP trainer: first epoch loss {card} on the card, {cpu} on the CPU')
+    print(f'[nip trainer] first epoch mean loss: card {card:.6f}, CPU {cpu:.6f}, relative '
+          f'difference {rel:.3g} (bound {MAX_NIP_EPOCH_LOSS_DIFF:g})', flush=True)
+    return counts, {'split': list(NIP_TRAINER_SPLIT), 'batch': NIP_TRAINER_BATCH,
+                    'raw_patch': NIP_RAW_PATCH, 'epochs': NIP_TRAINER_EPOCHS,
+                    'cpu_first_epoch_loss': cpu, 'card_first_epoch_loss': card,
+                    'cpu_first_epoch_rel_diff': rel, **results}
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
@@ -1091,7 +1481,19 @@ def main():
     print('[dcn] ' + json.dumps({'serving': serving, 'training': training,
                                  'kernel_shapes': k234}), flush=True)
 
-    # 10. results: K1's numbers are its two launches of one request, summed;
+    # 10. the other camera ISPs
+    nip_counts, nip_results = nip_development(args, device)
+    print('[nip] ' + json.dumps(nip_results), flush=True)
+    unet_classify_counts, unet_classify = unet_classification(args, device)
+    print('[unet classify] ' + json.dumps(unet_classify), flush=True)
+    nip_train_counts, nip_train = {}, {}
+    for nip in ('UNet', 'DNet'):
+        nip_train_counts[nip], nip_train[nip] = nip_flow_training(args, nip, device)
+        print(f'[{nip.lower()} train] ' + json.dumps(nip_train[nip]), flush=True)
+    nip_trainer_counts, nip_trainer_results = nip_trainer(args, device)
+    print('[nip trainer] ' + json.dumps(nip_trainer_results), flush=True)
+
+    # 11. results: K1's numbers are its two launches of one request, summed;
     # K2's are at the serving shape, K3's and K4's at the training shape
     print('[slice] ' + json.dumps({
         'requests': args.requests, 'batch': args.batch,
@@ -1103,7 +1505,10 @@ def main():
                 'replaces': 'neural_imaging_tpu/ops/pallas/jpeg8x8.py:34',
                 'launches': (slice_counts['jpeg8x8'] + train_main_counts['jpeg8x8']
                              + bf16_train_counts['jpeg8x8'] + bf16_classify_counts['jpeg8x8']
-                             + sum(c['jpeg8x8'] for c in trainer_counts.values())),
+                             + sum(c['jpeg8x8'] for c in trainer_counts.values())
+                             + nip_counts['jpeg8x8'] + unet_classify_counts['jpeg8x8']
+                             + sum(c['jpeg8x8'] for c in nip_train_counts.values())
+                             + sum(c['jpeg8x8'] for c in nip_trainer_counts.values())),
                 'max_abs_err': max(r['max_abs_err'] for r in k1),
                 'ms': sum(r['ms'] for r in k1),
                 'plain_ms': sum(r['plain_ms'] for r in k1),

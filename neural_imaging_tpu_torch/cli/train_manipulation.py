@@ -10,8 +10,10 @@ with the PyTorch port: the counterpart of the repository's
 It sweeps ``--cam``, the repetitions ``--start``..``--end`` and ``--ln`` /
 ``--lc`` (for a trainable NIP / codec) as the reference does, reusing one
 flow through ``reinitialize()``. Options the port does not have yet raise
-``NotImplementedError`` naming their item of ROADMAP.md §1: a NIP other than
-INet, ``--dcn``, the parallel flags and ``--jpeg_mode libjpeg``. The
+``NotImplementedError`` naming their item of ROADMAP.md §1: ONet and
+``--dcn``, the parallel flags and ``--jpeg_mode libjpeg``. The NIP (INet,
+UNet, DNet or ClassicISP) starts from its snapshot
+``<--nip-dir>/<camera>/<model code>`` unless ``--scratch``. The
 bfloat16 configuration the JAX package is tuned on: ``--channel-dtype
 bfloat16 --channel-jpeg-dtype bfloat16 --manip-jpeg-dtype bfloat16 --fan
 '{"dtype": "bfloat16"}'``.
@@ -114,9 +116,9 @@ def build_parser():
 
 def refuse_unported(args):
     """Raise NotImplementedError for an option the port does not have yet."""
-    if args.nip != 'INet':
-        raise NotImplementedError(f'NIP {args.nip!r} is not ported (ROADMAP.md §1 item 4); '
-                                  'use --nip INet')
+    if args.nip == 'ONet':
+        raise NotImplementedError("NIP 'ONet' belongs to the DCN channel, which is not ported "
+                                  '(ROADMAP.md §1 item 3)')
     if args.dcn is not None:
         raise NotImplementedError('the DCN channel (--dcn) is not ported (ROADMAP.md §1 item 3)')
     if any(getattr(args, flag) is not None for flag in PARALLEL_FLAGS):

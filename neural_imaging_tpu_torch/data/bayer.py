@@ -1,6 +1,7 @@
 """
 Bayer CFA layout and the simulation of a mosaic: copy of the constants and of
-``stack_bayer`` and ``mosaic_flat`` of ``neural_imaging_tpu/data/bayer.py``.
+``stack_bayer``, ``merge_bayer`` and ``mosaic_flat`` of
+``neural_imaging_tpu/data/bayer.py``.
 
 For each CFA pattern, the (row, col) offset of R, G1, G2 and B within each
 2x2 tile. A Bayer *stack* is the RAW representation: (h/2, w/2, 4) with
@@ -30,6 +31,24 @@ def stack_bayer(image_rgb, cfa_pattern):
     off = _offsets(cfa_pattern)
     planes = [image_rgb[off[p][0]::2, off[p][1]::2, PLANE_RGB[p]] for p in STACK_PLANES]
     return np.stack(planes, axis=-1)
+
+
+def merge_bayer(bayer_stack, cfa_pattern):
+    """Scatter an RGGB stack (h/2, w/2, 4) (or a batch of one) into a sparse
+    full-resolution (h, w, 3) RGB mosaic."""
+    if bayer_stack.ndim == 4:
+        if bayer_stack.shape[0] != 1:
+            raise ValueError('4-D arrays are not supported!')
+        bayer_stack = bayer_stack[0]
+    if bayer_stack.ndim != 3:
+        raise ValueError('Unsupported array shape!')
+    off = _offsets(cfa_pattern)
+    h, w = bayer_stack.shape[:2]
+    out = np.zeros((2 * h, 2 * w, 3), dtype=bayer_stack.dtype)
+    for i, p in enumerate(STACK_PLANES):
+        r, c = off[p]
+        out[r::2, c::2, PLANE_RGB[p]] = bayer_stack[:, :, i]
+    return out
 
 
 def mosaic_flat(image_rgb, cfa_pattern):

@@ -41,7 +41,8 @@ def develop_mosaic(mosaic, cfa_pattern, cam2srgb=None, brightness=None, use_gamm
     """Develop a normalized [0, 1] mosaic: demosaic, camera → sRGB, optional
     brightness normalization ('percentile' or 'shift'), gamma 1/2.2."""
     if demosaicing != 'bilinear':
-        raise NotImplementedError(f'{demosaicing!r} demosaicing is not ported; use bilinear')
+        raise NotImplementedError(f'{demosaicing!r} demosaicing is not ported (ROADMAP.md §1 '
+                                  'item 6); use bilinear')
     rgb = np.clip(demosaic_bilinear(mosaic.astype(np.float64), cfa_pattern), 0, 1)
 
     if cam2srgb is not None:

@@ -2,7 +2,8 @@
 Model shell and checkpoint I/O in the JAX package's format.
 
 A checkpoint is ``<dir>/<class>.npz`` of flax parameter paths (``conv0/kernel``,
-``head/bias``, …) with HWIO conv kernels and Dense kernels of shape (in, out).
+``head/bias``, …) with HWIO conv kernels, (kh, kw, in, out) transposed-conv
+kernels and Dense kernels of shape (in, out).
 :func:`convert_params` turns such a file into a PyTorch ``state_dict``; that is
 how weights trained by the JAX package are carried into the port, and
 :func:`flax_params` is its inverse, with which the port writes checkpoints
@@ -84,11 +85,12 @@ def _parse_tuple_args(parameters):
 
 def flax_default_init(module, fan_in, generator):
     """flax's default init of a conv or dense ``module``: LeCun-normal weight
-    (truncated at 2σ), zero bias."""
+    (truncated at 2σ), zero bias (where it has one)."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-        module.bias.zero_()
+        if module.bias is not None:
+            module.bias.zero_()
     return module
 
 
@@ -98,45 +100,62 @@ def load_flax_npz(filename):
         return {k: z[k] for k in z.files}
 
 
-def convert_params(flax_flat):
+def convert_params(flax_flat, transposed=()):
     """Flat flax parameters → PyTorch ``state_dict``.
 
     Paths map '/' → '.', and a last component 'kernel' becomes 'weight'.
-    Every 4-D array is an HWIO conv kernel and becomes OIHW; every 2-D array
-    is a Dense kernel (in, out) and becomes (out, in); other arrays pass
-    unchanged (a 0-d ``latent_scale``, a 1-d ``codebook``). Values are
-    float32 tensors on the CPU."""
+    A 4-D array is an HWIO conv kernel and becomes OIHW, unless its
+    ``state_dict`` name is in ``transposed``: a flax ``ConvTranspose``
+    kernel (kh, kw, in, out), which flax correlates with the dilated input
+    unflipped (``transpose_kernel=False``) where
+    ``F.conv_transpose2d`` convolves, so it is flipped in both spatial axes
+    and becomes (in, out, kh, kw). A 2-D array is a Dense kernel (in, out)
+    and becomes (out, in); other arrays pass unchanged (a 0-d
+    ``latent_scale`` or ``alpha``, a 1-d ``codebook``). Values are float32
+    tensors on the CPU."""
     state = {}
     for path, value in flax_flat.items():
         parts = path.split('/')
         if parts[-1] == 'kernel':
             parts[-1] = 'weight'
+        name = '.'.join(parts)
         t = torch.tensor(np.asarray(value, dtype=np.float32))
-        if t.ndim == 4:
+        if t.ndim == 4 and name in transposed:
+            t = t.flip(0, 1).permute(2, 3, 0, 1)
+        elif t.ndim == 4:
             t = t.permute(3, 2, 0, 1)
         elif t.ndim == 2:
             t = t.T
-        state['.'.join(parts)] = t.contiguous()
+        state[name] = t.contiguous()
     return state
 
 
-def flax_params(named_parameters):
+def flax_params(named_parameters, transposed=()):
     """PyTorch parameters → flat flax parameters, the inverse of
     :func:`convert_params`: '.' → '/', a last component 'weight' becomes
-    'kernel', 4-D OIHW kernels become HWIO and 2-D (out, in) kernels (in,
-    out). Values are float32 numpy arrays."""
+    'kernel', 4-D OIHW kernels become HWIO, the (in, out, kh, kw) kernels
+    named in ``transposed`` flax's flipped (kh, kw, in, out), and 2-D (out,
+    in) kernels (in, out). Values are float32 numpy arrays."""
     flat = {}
     for name, value in named_parameters:
         parts = name.split('.')
         if parts[-1] == 'weight':
             parts[-1] = 'kernel'
         t = value.detach().to('cpu', torch.float32)
-        if t.ndim == 4:
+        if t.ndim == 4 and name in transposed:
+            t = t.permute(2, 3, 0, 1).flip(0, 1)
+        elif t.ndim == 4:
             t = t.permute(2, 3, 1, 0)
         elif t.ndim == 2:
             t = t.T
         flat['/'.join(parts)] = t.contiguous().numpy()
     return flat
+
+
+def transposed_kernels(module):
+    """``state_dict`` names of the weights of ``module``'s transposed convs."""
+    return frozenset(f'{name}.weight' for name, m in module.named_modules()
+                     if isinstance(m, nn.ConvTranspose2d))
 
 
 class TorchModel:
@@ -210,7 +229,7 @@ class TorchModel:
 
     def checkpoint(self):
         """{flax path: float32 array} of the weights, as ``save_model`` writes them."""
-        return flax_params(self.module.named_parameters())
+        return flax_params(self.module.named_parameters(), transposed_kernels(self.module))
 
     def save_model(self, dirname, epoch=0, save_args=False, quiet=False):
         """Write ``<dirname>[/<scoped name>]/<class>.npz`` in the JAX package's
@@ -237,5 +256,6 @@ class TorchModel:
         filename = os.path.join(dirname, f'{self.class_name.lower()}.npz')
         if not quiet:
             logger.info('> %s <-- %s', self.class_name, filename)
-        self.module.load_state_dict(convert_params(load_flax_npz(filename)), strict=True)
+        self.module.load_state_dict(convert_params(load_flax_npz(filename),
+                                                   transposed_kernels(self.module)), strict=True)
         self.reset_performance_stats()

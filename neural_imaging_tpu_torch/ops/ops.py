@@ -1,13 +1,13 @@
 """
 Core differentiable ops on NCHW tensors: convolutions with HWIO kernels,
 TF-order depth_to_space, padding, pooling, the clipping straight-through
-estimator, the activations, batch normalization to float, the L2 loss and
-the NIP's image losses (``LOSSES``). Port of the parts of
-``neural_imaging_tpu/ops/ops.py`` that the manipulation-classification path
-and the DCN use.
+estimator, the activations, batch normalization to float, the L2 loss, the
+NIP's image losses (``LOSSES``), PSNR and the percentile brightness
+normalization. Port of the parts of ``neural_imaging_tpu/ops/ops.py`` that
+the manipulation-classification path, the camera ISPs and the DCN use.
 
 The reference's exact-f32 conv variants (``small_conv2d``, ``conv_chw``) are
-TPU layouts of the same f32 convolution, so here they are all
+TPU layouts of the same f32 convolution, so here they are a float32
 :func:`conv2d`, with TF32 off (``utils.device.resolve_device``).
 
 Precision. The reference names a matrix unit's precision for f32 operands
@@ -134,6 +134,25 @@ def conv2d(x, weight, padding='SAME', stride=1, bias=None, precision=None):
     return y if bias is None else y + bias[:, None, None]
 
 
+def small_conv2d(x, weight, padding='SAME'):
+    """The reference's exact-f32 conv of tiny kernels: NCHW ``x`` and an OIHW
+    ``weight`` (a tensor, or an HWIO numpy kernel) convolved in float32
+    whatever x's dtype, the result rounded to x's dtype once. ``padding``:
+    'SAME' (the extra pixel of an even kernel at the bottom/right), 'VALID',
+    or ((top, bottom), (left, right))."""
+    if isinstance(weight, np.ndarray):
+        weight = hwio_to_oihw(weight)
+    kh, kw = weight.shape[-2:]
+    if padding == 'SAME':
+        padding = (((kh - 1) // 2, kh - 1 - (kh - 1) // 2),
+                   ((kw - 1) // 2, kw - 1 - (kw - 1) // 2))
+    xf = x.to(torch.float32)
+    if padding != 'VALID':
+        (top, bottom), (left, right) = padding
+        xf = F.pad(xf, (left, right, top, bottom))
+    return F.conv2d(xf, weight.to(device=x.device, dtype=torch.float32)).to(x.dtype)
+
+
 def depthwise_conv2d(x, k2d, pad_mode='reflect'):
     """Depthwise spatial filter of an NCHW batch, padded 'SAME' with ``pad_mode``.
 
@@ -215,9 +234,10 @@ def avg_pool_flat(x, factor):
     return matmul(rows, _pool_operator(w, factor, x.dtype, x.device).T)
 
 
-def max_pool(x, window=2):
-    """Max pooling with window = stride, 'VALID' (NCHW)."""
-    return F.max_pool2d(x, window, window)
+def max_pool(x, window=2, padding='VALID'):
+    """Max pooling with window = stride (NCHW): 'VALID', or 'SAME', whose
+    last window of an odd side takes the samples there are."""
+    return F.max_pool2d(x, window, window, ceil_mode=padding == 'SAME')
 
 
 def global_average_pool(x):
@@ -274,7 +294,8 @@ def ssim_loss(a, b):
 
 
 def msssim_loss(a, b):
-    raise NotImplementedError('the MS-SSIM loss needs ssim.ms_ssim, which is not ported yet')
+    """255 (1 - MS-SSIM), averaged over the NHWC batches a and b."""
+    return torch.mean(255.0 * (1.0 - ssim_ops.ms_ssim(a, b, max_val=1.0)))
 
 
 # the NIP's fidelity losses by name; each takes (target, output), NHWC
@@ -294,3 +315,51 @@ ACTIVATIONS = {
     'sigmoid': torch.sigmoid,
     'softsign': F.softsign,
 }
+
+
+def psnr(a, b, max_val=1.0):
+    """PSNR in dB of two batches over all their values (differentiable)."""
+    err = torch.mean((a - b) ** 2)
+    return 10.0 * torch.log10(max_val ** 2 / torch.clamp(err, min=1e-12))
+
+
+def batch_psnr(a, b, max_val=1.0):
+    """PSNR in dB of each image of two NHWC batches, shape (N,)."""
+    err = torch.mean((a - b) ** 2, dim=(1, 2, 3))
+    return 10.0 * torch.log10(max_val ** 2 / torch.clamp(err, min=1e-12))
+
+
+def gaussian_kernel_2d(kernlen, std, dtype=torch.float32):
+    """(kernlen, kernlen) Gaussian window summing to 1."""
+    g1 = torch.exp(-0.5 * ((torch.arange(kernlen, dtype=torch.float32) - (kernlen - 1) / 2.0)
+                           / std) ** 2)
+    g2 = torch.outer(g1, g1)
+    return (g2 / g2.sum()).to(dtype)
+
+
+def _percentile_of_sorted(values, percentile):
+    """``jnp.percentile(x, percentile)`` (linear interpolation) of the
+    flattened x sorted ascending, with jax's float32 arithmetic for the
+    position: q = percentile / 100, q (n - 1), its floor and ceil and the
+    two weights. The gradient reaches the two samples read."""
+    n = values.numel()
+    q = np.float32(percentile) / np.float32(100)
+    pos = q * (np.float32(n) - np.float32(1))
+    low, high = np.floor(pos), np.ceil(pos)
+    high_weight = np.float32(pos - low)
+    low_weight = np.float32(1) - high_weight
+    low, high = int(min(max(low, 0), n - 1)), int(min(max(high, 0), n - 1))
+    return values[low] * float(low_weight) + values[high] * float(high_weight)
+
+
+def percentile_normalize(x, percentile=0.5):
+    """Global brightness normalization of ``x`` between its bottom and top
+    ``percentile``: x minus its bottom percentile, divided by the top
+    percentile of that (at least 1e-9), in the reference's order. One sort
+    of all of x serves both percentiles: subtracting a constant keeps the
+    order and gives each sorted value minus it, as jax's second sort would.
+    (``torch.quantile`` refuses tensors of more than 2^24 values.)"""
+    ordered = torch.sort(x.reshape(-1), stable=True).values
+    bottom = _percentile_of_sorted(ordered, percentile)
+    top = _percentile_of_sorted(ordered - bottom, 100 - percentile)
+    return (x - bottom) / torch.clamp(top, min=1e-9)

@@ -1,7 +1,8 @@
 """
 Differentiable SSIM (``tf.image.ssim`` parity: 11x11 Gaussian window with
-sigma 1.5, k1 = 0.01, k2 = 0.03). Port of ``ssim_per_channel`` and ``ssim``
-of ``neural_imaging_tpu/ops/ssim.py``; ``ms_ssim`` is not ported yet.
+sigma 1.5, k1 = 0.01, k2 = 0.03) and multi-scale SSIM. Port of
+``ssim_per_channel``, ``ssim``, ``_downsample2`` and ``ms_ssim`` of
+``neural_imaging_tpu/ops/ssim.py``.
 
 The public functions take NHWC batches, as the reference's do. The window
 filter is a depthwise 'VALID' float32 convolution; the reference runs it at
@@ -9,6 +10,8 @@ HIGHEST precision, so TF32 stays off (``utils.device.resolve_device``).
 """
 import torch
 import torch.nn.functional as F
+
+_MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
 
 def _gaussian_window(size, sigma, dtype, device):
@@ -51,3 +54,40 @@ def ssim(a, b, max_val=1.0, **kwargs):
     """Per-image SSIM of NHWC batches, shape (N,): the mean over channels."""
     ssim_val, _ = ssim_per_channel(a, b, max_val, **kwargs)
     return torch.mean(ssim_val, dim=-1)
+
+
+def _downsample2(x):
+    """2x2 average pooling of an NHWC batch, an odd side first padded by
+    repeating its last row or column (the MS-SSIM pyramid step). The four
+    taps are summed in row-major order, as jax's ``reduce_window`` sums them."""
+    pad_h, pad_w = x.shape[1] % 2, x.shape[2] % 2
+    if pad_h or pad_w:
+        x = F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h), mode='replicate')
+        x = x.permute(0, 2, 3, 1)
+    out = x[:, 0::2, 0::2] + x[:, 0::2, 1::2] + x[:, 1::2, 0::2] + x[:, 1::2, 1::2]
+    return out / 4.0
+
+
+def ms_ssim(a, b, max_val=1.0, power_factors=_MSSSIM_WEIGHTS, filter_size=11):
+    """Multi-scale SSIM of each image of NHWC batches, shape (N,). The
+    pyramid stops where a side falls below ``filter_size``, and the weights
+    are then cut as the reference cuts them (``power_factors[:level]``,
+    ``mcs[:max(level - 1, 0)]``): at 128 px four scales remain."""
+    levels = len(power_factors)
+    mcs = []
+    ssim_val = None
+    for level in range(levels):
+        if min(a.shape[1], a.shape[2]) < filter_size:
+            power_factors = power_factors[:level]
+            mcs = mcs[:max(level - 1, 0)]
+            break
+        ssim_l, cs_l = ssim_per_channel(a, b, max_val, filter_size=filter_size)
+        ssim_val = torch.mean(ssim_l, dim=-1)
+        if level < levels - 1:
+            mcs.append(torch.mean(torch.relu(cs_l), dim=-1))
+            a, b = _downsample2(a), _downsample2(b)
+
+    result = torch.relu(ssim_val) ** power_factors[-1]
+    for cs_l, w in zip(mcs, power_factors[:-1]):
+        result = result * (cs_l ** w)
+    return result

@@ -1,5 +1,6 @@
 """
-The JSON training logs (``training.json``): copy of the writer and reader of
+The JSON training logs (``training.json`` of a joint run, ``progress.json``
+of a NIP's): copy of the writers and readers of
 ``neural_imaging_tpu/utils/jsonlog.py``. The schema is shared with the JAX
 package, whose results tooling and ``test_fan.py`` read the port's logs.
 """
@@ -31,3 +32,21 @@ def save_json(payload, filename):
 def load_json(filename):
     with open(filename) as f:
         return json.load(f)
+
+
+def save_progress(model, training_summary, out_directory):
+    """Write ``progress.json`` with the reference's schema: {performance,
+    args, model, init, summary}; returns what it wrote."""
+    payload = {
+        'performance': model.performance,
+        'args': model.get_hyperparameters(),
+        'model': model.class_name,
+        'init': repr(model),
+        'summary': _to_jsonable(training_summary),
+    }
+    save_json(payload, os.path.join(out_directory, 'progress.json'))
+    return payload
+
+
+def load_progress(out_directory):
+    return load_json(os.path.join(out_directory, 'progress.json'))

@@ -58,3 +58,32 @@ def format_patch_shape(shape):
 
 def join_args(d):
     return ', '.join(f'{k}={v}' for k, v in d.items())
+
+
+def levenshtein(a, b):
+    """Edit distance between two strings (for fuzzy CLI option matching)."""
+    if len(a) < len(b):
+        a, b = b, a
+    previous = list(range(len(b) + 1))
+    for i, ca in enumerate(a):
+        current = [i + 1]
+        for j, cb in enumerate(b):
+            current.append(min(previous[j + 1] + 1, current[j] + 1, previous[j] + (ca != cb)))
+        previous = current
+    return previous[-1]
+
+
+def match_option(value, options, threshold=3):
+    """Fuzzy-match a CLI value against valid options: the value itself, its
+    only prefix match, or the nearest within ``threshold`` edits; raises
+    ValueError otherwise."""
+    options = list(options)
+    if value in options:
+        return value
+    prefixed = [o for o in options if o.startswith(value)]
+    if len(prefixed) == 1:
+        return prefixed[0]
+    distances = sorted((levenshtein(value, o), o) for o in options)
+    if distances and distances[0][0] <= threshold:
+        return distances[0][1]
+    raise ValueError(f'Could not match option {value!r}; available: {options}')

@@ -1,7 +1,7 @@
 """
 The manipulation-classification path and its joint training step:
 
-    raw → INet → rgb → [native + K manipulations] → downsample → JPEG (soft) → FAN → probs
+    raw → NIP → rgb → [native + K manipulations] → downsample → JPEG (soft) → FAN → probs
 
 Port of ``neural_imaging_tpu/workflows/manipulation_classification.py``:
 the forward at fixed or randomized strengths (``run_workflow``),
@@ -12,8 +12,11 @@ quality) is made on the device from ``torch.Generator``s seeded with
 ``rng_seed``, so a step never waits on the host; PyTorch cannot reproduce
 JAX's PRNG, so parity tests pass the same strengths to both (``_losses``).
 ``training_scan`` runs steps on batches that a ``DeviceSampler`` draws on
-the device. The DCN channel, awgn / gamma / median and ``remat`` are not
-ported yet.
+the device. The NIP is any ported camera ISP but ONet (INet, UNet, DNet,
+ClassicISP), optionally from its snapshot (``'UNet:<dir>'``); ``remat``
+recomputes the NIP and the manipulations in the backward pass instead of
+keeping their activations. The DCN channel (with ONet) and awgn / gamma /
+median are not ported yet.
 
 Precision, as in the reference: the NIP develops in float32 (its fidelity
 loss too); ``channel_dtype`` is the dtype of the manipulation expansion,
@@ -27,6 +30,7 @@ import os
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from neural_imaging_tpu_torch.models import forensics, jpeg as jpeg_models, pipelines
 from neural_imaging_tpu_torch.ops import manipulations as manips
@@ -42,6 +46,8 @@ N_STRENGTH_CANDIDATES = 8
 # the parts a flow may train; the FAN always trains, 'dcn' names the channel's
 # trainable slot (here the JPEG q-tables), as in the reference
 COMPONENTS = ('fan', 'nip', 'dcn')
+# the NIP's fidelity losses the flow takes, as in the reference
+NIP_LOSSES = ('L2', 'L1', 'SSIM')
 
 # Agreement of two float32 runs of the full-width path on the same raw batch
 # (GPU and CPU, or the port and the JAX reference). Summation order alone moves
@@ -108,7 +114,7 @@ def compare_steps(step, step_ref, max_loss_diff=MAX_STEP_LOSS_DIFF,
 
     loss_diff = max([rel(loss, loss_ref)] + [rel(parts[k], parts_ref[k]) for k in parts_ref
                                              if float(parts_ref[k]) != 0])
-    norms, norms_ref, grad_diff = {}, {}, 0.0
+    norms, norms_ref, diffs = {}, {}, {}
     for part, leaves in grads_ref.items():
         leaf_norms = {k: float(torch.linalg.vector_norm(g.double().cpu())) for k, g in
                       grads[part].items()}
@@ -116,10 +122,13 @@ def compare_steps(step, step_ref, max_loss_diff=MAX_STEP_LOSS_DIFF,
                           leaves.items()}
         norms[part] = sum(n * n for n in leaf_norms.values()) ** 0.5
         norms_ref[part] = sum(n * n for n in leaf_norms_ref.values()) ** 0.5
-        grad_diff = max([grad_diff, rel(norms[part], norms_ref[part])]
-                        + [rel(leaf_norms[k], leaf_norms_ref[k]) for k in leaf_norms_ref])
+        diffs[part] = rel(norms[part], norms_ref[part])
+        diffs.update({f'{part}/{k}': rel(leaf_norms[k], leaf_norms_ref[k])
+                      for k in leaf_norms_ref})
+    worst = max(diffs, key=diffs.get) if diffs else None
+    grad_diff = diffs[worst] if diffs else 0.0
     report = {'max_loss_rel_diff': loss_diff, 'max_grad_norm_rel_diff': grad_diff,
-              'grad_norms': norms, 'grad_norms_ref': norms_ref}
+              'worst_gradient': worst, 'grad_norms': norms, 'grad_norms_ref': norms_ref}
     if not loss_diff <= max_loss_diff or not grad_diff <= max_grad_diff:
         raise AssertionError(f'training steps disagree: {report}')
     return report
@@ -130,9 +139,10 @@ class ManipulationClassification:
     def __init__(self, nip_model='INet', manipulations=None, distribution=None,
                  fan_args=None, trainable=None, raw_patch_size=128, loss_metric='L2',
                  rng_seed=0, nip_args=None, channel_dtype='float32', channel_jpeg_dtype=None,
-                 manip_jpeg_dtype=None, pool_impl='window', device='cuda'):
+                 manip_jpeg_dtype=None, pool_impl='window', remat=False, device='cuda'):
         """
-        :param nip_model: NIP class name ('INet' is the one ported)
+        :param nip_model: '<NIP class>[:snapshot dir]' (INet, UNet, DNet or
+            ClassicISP); a directory loads the NIP's weights from it
         :param manipulations: list of '<name>[:strength]' specs
         :param distribution: {'downsampling': 'pool[:factor]' | 'bilinear' | 'none',
                               'compression': 'jpeg' | 'none',
@@ -153,6 +163,11 @@ class ManipulationClassification:
             manipulation's compute dtype
         :param pool_impl: 'window' | 'flat' (``ops.avg_pool`` or
             ``ops.avg_pool_flat``, which round differently in bfloat16)
+        :param remat: recompute the NIP and the manipulations (and the
+            pooling) in the backward pass rather than keep their activations
+            (``torch.utils.checkpoint``): less memory for larger NIPs, at the
+            cost of a second forward of that part (a 'jpeg' manipulation then
+            launches K1 once more)
         :param device: where the models live and the flow runs
         """
         if raw_patch_size < 16 or raw_patch_size > 512:
@@ -169,6 +184,7 @@ class ManipulationClassification:
         self._channel_jpeg_bf16 = channel_jpeg_dtype == 'bfloat16'
         self._manip_jpeg_bf16 = manip_jpeg_dtype == 'bfloat16'
         self._pool_impl = pool_impl
+        self.remat = remat
         self.device = resolve_device(device)
         self.raw_patch_size = raw_patch_size
         # built as the reference builds it, so that both iterate it in one order
@@ -189,31 +205,42 @@ class ManipulationClassification:
             raise ValueError(f'Unsupported channel down-sampling {ds!r}')
         compression = self._distribution['compression']
         if compression not in ('jpeg', 'none'):
-            raise NotImplementedError(f"compression {compression!r} is not ported; use 'jpeg' "
-                                      "or 'none'")
+            raise NotImplementedError(f"compression {compression!r} is not ported (ROADMAP.md "
+                                      "§1 item 3); use 'jpeg' or 'none'")
         self.codec = None
         if compression == 'jpeg':
             params = dict(self._distribution.get('compression_params') or {})
             unknown = sorted(set(params) - set(JPEG_PARAMS))
             if unknown:
-                raise NotImplementedError(f'JPEG channel parameters {unknown} are not ported; '
-                                          f'the port takes {list(JPEG_PARAMS)}')
+                raise NotImplementedError(f'JPEG channel parameters {unknown} are not ported '
+                                          f'(ROADMAP.md §1 item 2); the port takes '
+                                          f'{list(JPEG_PARAMS)}')
             self.codec = jpeg_models.JPEG(**params, device=self.device)
         if 'dcn' in self._trainable and not self._codec_is_trainable():
             raise ValueError('The current codec does not appear to be trainable!')
 
-        if nip_model != 'INet':
-            raise NotImplementedError(f'NIP {nip_model!r} is not ported; use INet')
-        self.nip = pipelines.INet(patch_size=raw_patch_size, loss_metric=loss_metric,
-                                  device=self.device, **(nip_args or {}))
+        nip_model, _, nip_pretrained = nip_model.partition(':')
+        if nip_model == 'ONet':
+            raise NotImplementedError("NIP 'ONet' (RGB input) belongs to the DCN channel, which "
+                                      'is not ported (ROADMAP.md §1 item 3)')
+        if nip_model not in pipelines.supported_models:
+            raise ValueError(f'Invalid NIP model ({nip_model})! '
+                             f'Available: {pipelines.supported_models}')
+        if loss_metric not in NIP_LOSSES:
+            raise ValueError(f'Invalid loss metric ({loss_metric})!')
+        self.nip = getattr(pipelines, nip_model)(patch_size=raw_patch_size,
+                                                 loss_metric=loss_metric, device=self.device,
+                                                 **(nip_args or {}))
+        if nip_pretrained:
+            self.nip.load_model(nip_pretrained)
 
         self._strengths = dict(manips.DEFAULT_STRENGTHS)
         requested = []
         for m in manipulations or list(CANONICAL_ORDER):
             name, *strength = m.split(':')
             if name not in self._strengths:
-                raise NotImplementedError(f'manipulation {name!r} is not ported; '
-                                          f'available: {sorted(self._strengths)}')
+                raise NotImplementedError(f'manipulation {name!r} is not ported (ROADMAP.md §1 '
+                                          f'item 2); available: {sorted(self._strengths)}')
             if name not in requested:
                 requested.append(name)
             if strength:
@@ -243,9 +270,9 @@ class ManipulationClassification:
     @classmethod
     def restore(cls, run_dir, raw_patch_size=128, trainable=None, rng_seed=0,
                 channel_dtype=None, channel_jpeg_dtype=None, manip_jpeg_dtype=None,
-                device='cuda'):
+                remat=False, device='cuda'):
         """Rebuild the flow of a finished run directory (``training.json`` +
-        ``models/{fan,inet}/*.npz``) with its weights, as the reference's
+        ``models/{fan,<nip>}/*.npz``) with its weights, as the reference's
         ``test_fan.py`` rebuilds it: the channel precision its log records
         (a key it lacks means float32), each overridden by a dtype argument
         given here; the FAN's dtype and stem from its logged arguments."""
@@ -263,7 +290,7 @@ class ManipulationClassification:
                                        or precision.get('channel_jpeg_dtype', 'float32')),
                    manip_jpeg_dtype=(manip_jpeg_dtype
                                      or precision.get('manip_jpeg_dtype', 'float32')),
-                   device=device)
+                   remat=remat, device=device)
         models_dir = os.path.join(run_dir, 'models')
         flow.fan.load_model(os.path.join(models_dir, 'fan'))
         nip_dir = os.path.join(models_dir, flow.nip.scoped_name)
@@ -404,8 +431,15 @@ class ManipulationClassification:
         return y.to(self._channel_dtype)
 
     def _forward(self, batch_x, q_luma, q_chroma, strength_scalars=None, strength_indices=None):
-        batch_Y = self.nip.module(batch_x)
-        batch_c = self._downsample(self._manipulate(batch_Y, strength_scalars, strength_indices))
+        def acquire(x):
+            batch_Y = self.nip.module(x)
+            return batch_Y, self._downsample(self._manipulate(batch_Y, strength_scalars,
+                                                              strength_indices))
+
+        if self.remat and torch.is_grad_enabled():
+            batch_Y, batch_c = checkpoint(acquire, batch_x, use_reentrant=False)
+        else:
+            batch_Y, batch_c = acquire(batch_x)
         batch_C = self._compress(batch_c, q_luma, q_chroma)
         return batch_Y, batch_c, batch_C, self.fan.module(batch_C)
 

@@ -16,7 +16,9 @@ with ``torch.autograd.grad``, in reverse order), the loss, and the Adam
 update; the step's wall time; and the device profile of whole steps. With
 ``--bf16`` the step is bench.py's configuration instead (every bfloat16
 knob, ``chip_smoke.bench_flow``), whose JPEG channel is the bfloat16 plane
-form, not K1.
+form, not K1; with ``--nip UNet`` or ``--nip DNet`` it is the joint step of
+that NIP's λ-sweep run (``chip_smoke.nip_flow``: batch 10 raw 64-px
+patches, λ_nip 0.005).
 
 ``--trainer`` splits the trainer's costs (``chip_smoke.py``'s trainer
 configuration, batch 10): the host's sampling of a quantized batch and its
@@ -26,7 +28,7 @@ the prefetcher, fed inline and device-resident, and a validation point's
 parts (the FAN's validation, the NIP's on the card and its host metrics,
 the log and snapshots).
 
-    python3 profile_torch_slice.py [--seed 0] [--batch 20] [--requests 10] [--train [--bf16] | --trainer]
+    python3 profile_torch_slice.py [--seed 0] [--batch 20] [--requests 10] [--train [--bf16 | --nip UNet|DNet] | --trainer]
 
 Needs a CUDA device. Prints one JSON line last.
 """
@@ -41,9 +43,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (RAW_PATCH, RUN_DIR, TRAIN_LAMBDA_NIP, TRAIN_LR, TRAINER_BATCH,
-                        TRAINER_IMAGES, TRAINER_SIZE, TRAINER_SPLIT, bench_flow, device_profile,
-                        print_profile, synthetic_raw, trainer_flow, training_batches)
+from chip_smoke import (NIP_FLOW_BATCH, NIP_FLOW_LAMBDA, NIP_RAW_PATCH, RAW_PATCH, RUN_DIR,
+                        TRAIN_LAMBDA_NIP, TRAIN_LR, TRAINER_BATCH, TRAINER_IMAGES, TRAINER_SIZE,
+                        TRAINER_SPLIT, bench_flow, device_profile, nip_flow, print_profile,
+                        synthetic_raw, trainer_flow, training_batches)
 from neural_imaging_tpu_torch.data import fixtures
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
@@ -113,8 +116,9 @@ def train_stage_times(flow, x, y, lambda_nip, reps):
     def leaf(t):
         return t.detach().requires_grad_()
 
+    nip = flow.nip.scoped_name
     for _ in range(reps):
-        Y = timer('inet fwd', lambda: flow.nip.module(x))
+        Y = timer(f'{nip} fwd', lambda: flow.nip.module(x))
         Yd = leaf(Y)
         m = timer('manipulations fwd', lambda: flow._manipulate(Yd))
         md = leaf(m)
@@ -130,7 +134,7 @@ def train_stage_times(flow, x, y, lambda_nip, reps):
         g_c, = timer('jpeg channel bwd', lambda: grad(C, [cd], g_C))
         g_m, = timer('pool bwd', lambda: grad(c, [md], g_c))
         g_Y, = timer('manipulations bwd', lambda: grad(m, [Yd], g_m))
-        g_nip = timer('inet bwd', lambda: grad(Y, nip_params, g_Y + g_Y_loss))
+        g_nip = timer(f'{nip} bwd', lambda: grad(Y, nip_params, g_Y + g_Y_loss))
 
         def adam():
             for param, g in zip(nip_params + fan_params, list(g_nip) + g_fan):
@@ -146,23 +150,26 @@ def train(args):
     (before any profiler session, and again after them: ``torch.profiler``
     leaves the host's launches slower in the process), and the device and
     host profiles."""
+    lambda_nip, batch, raw_patch = TRAIN_LAMBDA_NIP, args.batch, RAW_PATCH
     if args.bf16:
         flow = bench_flow('cuda', args.seed)
+    elif args.nip:
+        flow = nip_flow(args.nip, 'cuda', seed=args.seed)
+        lambda_nip, batch, raw_patch = NIP_FLOW_LAMBDA, NIP_FLOW_BATCH, NIP_RAW_PATCH
     else:
         flow = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, trainable={'nip'},
                                                   device='cuda')
         flow.nan_check = False
-    (bx, by), = training_batches(args.seed, 1, args.batch)
+    (bx, by), = training_batches(args.seed, 1, batch, raw_patch)
 
     def step():
-        flow.training_step(bx, by, TRAIN_LAMBDA_NIP)
+        flow.training_step(bx, by, lambda_nip)
 
     for _ in range(3):
         step()
     reps = args.requests
     wall_ms, queue_ms = median_ms(step, reps), median_ms(step, reps, sync=False)
-    stages = train_stage_times(flow, bx.permute(0, 3, 1, 2).contiguous(), by, TRAIN_LAMBDA_NIP,
-                               reps)
+    stages = train_stage_times(flow, bx.permute(0, 3, 1, 2).contiguous(), by, lambda_nip, reps)
     for name, ms in stages.items():
         print(f'[train stage] {name:26s} {ms:8.3f} ms stream', flush=True)
     p = device_profile(step, reps, n_top=20, match=('jpeg8x8',))
@@ -176,7 +183,8 @@ def train(args):
         print(f"[train host] {row['self_cpu_ms_per_call']:8.3f} ms x{row['calls_per_call']:6.1f} "
               f"{row['op']}", flush=True)
     flow.assert_finite()
-    return {'device': torch.cuda.get_device_name(0), 'batch': args.batch, 'bf16': args.bf16,
+    return {'device': torch.cuda.get_device_name(0), 'batch': batch, 'bf16': args.bf16,
+            'nip': flow.nip.class_name,
             'step_wall_ms_median': wall_ms, 'step_host_queue_ms_median': queue_ms,
             'step_wall_ms_after_profiling': wall_after,
             'step_host_queue_ms_after_profiling': queue_after, **host,
@@ -302,6 +310,8 @@ def main():
                         help='profile a training step instead of a request')
     parser.add_argument('--bf16', action='store_true',
                         help="with --train: bench.py's bfloat16 configuration")
+    parser.add_argument('--nip', choices=['UNet', 'DNet'], default=None,
+                        help="with --train: that NIP's λ-sweep run instead of m_quality's INet")
     parser.add_argument('--trainer', action='store_true',
                         help="split the trainer's step and validation point into host and "
                              'card costs')

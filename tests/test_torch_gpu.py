@@ -325,3 +325,69 @@ def test_prefetcher_copies_pinned_batches_intact(cuda, fixture_data):
             assert x.device.type == 'cpu' and torch.equal(x.view(torch.int16),
                                                            torch.from_numpy(ref_x.view('int16')))
             assert torch.equal(y, torch.from_numpy(ref_y))
+
+
+# -- the other camera ISPs --------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SNAPSHOTS = {'UNet': 'data/models/nip/QualityRef/UNet_5',
+             'DNet': 'data/models/nip/QualityRef/DNet_3x3_15x64f',
+             'ClassicISP': 'data/models/nip/QualityRef/ClassicISP_gbrg_5x5_-3R'}
+
+
+@pytest.mark.parametrize('name', sorted(SNAPSHOTS))
+def test_shipped_nip_on_the_card_matches_the_cpu(cuda, name):
+    """Each shipped NIP develops the same RGB on the card as on the CPU,
+    within chip_smoke.MAX_NIP_DIFF (float32 in another summation order)."""
+    from chip_smoke import MAX_NIP_DIFF
+    from neural_imaging_tpu_torch.models import base, pipelines
+    path = os.path.join(ROOT, SNAPSHOTS[name])
+    x = np.random.default_rng(3).random((4, 32, 32, 4)).astype(np.float32)
+    card = base.restore(path, pipelines, patch_size=32, device=cuda).process(x)
+    cpu = base.restore(path, pipelines, patch_size=32, device='cpu').process(x)
+    assert card.device.type == 'cuda'
+    assert float((card.cpu() - cpu).abs().max()) <= MAX_NIP_DIFF
+
+
+def test_nip_training_step_and_scan_on_the_card(cuda, fixture_data):
+    """NIPModel.training_step returns a loss on the card without a host
+    sync, moves the weights, and training_scan steps on device draws."""
+    from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
+    from neural_imaging_tpu_torch.models import pipelines
+    model = pipelines.UNet(patch_size=16, n_steps=3, device=cuda)
+    before = {k: v.clone() for k, v in model.module.state_dict().items()}
+    bx, by = fixture_data.next_training_batch(0, 2, 32, quantized=True)
+    loss = model.training_step(bx, by, 1e-4)
+    assert loss.device.type == 'cuda' and loss.shape == ()
+    losses = model.training_scan(DeviceSampler(fixture_data, 2, 32, device=cuda), 3, 1e-4)
+    assert losses.shape == (3,) and bool(torch.isfinite(losses).all())
+    assert all(not torch.equal(v, before[k]) for k, v in model.module.state_dict().items())
+
+
+def test_remat_on_the_card_keeps_the_step(cuda):
+    """remat recomputes the NIP and the manipulations in the backward pass:
+    the same loss and gradients (compare_steps), K1 once more."""
+    from neural_imaging_tpu_torch.workflows.manipulation_classification import (
+        ManipulationClassification, compare_steps)
+    flows = [ManipulationClassification('UNet', fan_args={'n_filters': 8, 'n_convolutions': 2},
+                                        nip_args={'n_steps': 3}, trainable={'nip'},
+                                        raw_patch_size=16, remat=remat, device=cuda)
+             for remat in (False, True)]
+    x = torch.rand(2, 16, 16, 4, device=cuda)
+    y = torch.rand(2, 32, 32, 3, device=cuda)
+    steps, launches = [], []
+    for flow in flows:
+        before = jpeg8x8.jpeg_core_cuda.launches
+        steps.append(flow.loss_and_gradients(x, y, 0.1))
+        launches.append(jpeg8x8.jpeg_core_cuda.launches - before)
+    compare_steps(steps[1], steps[0])
+    assert launches == [2, 3]
+
+
+def test_percentile_normalize_beyond_the_quantile_limit(cuda):
+    """More than 2^24 values, which torch.quantile refuses: the card's
+    result equals the CPU's."""
+    from neural_imaging_tpu_torch.ops import ops
+    x = torch.rand(2 ** 24 + 7, generator=torch.Generator().manual_seed(4))
+    torch.testing.assert_close(ops.percentile_normalize(x.to(cuda)).cpu(),
+                               ops.percentile_normalize(x), rtol=0, atol=0)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import neural_imaging_tpu_torch
-from neural_imaging_tpu_torch.cli import train_manipulation
+from neural_imaging_tpu_torch.cli import train_manipulation, train_nip
 from neural_imaging_tpu_torch.compression import codec
 from neural_imaging_tpu_torch.data import fixtures
 from neural_imaging_tpu_torch.data.dataset import Dataset
@@ -42,7 +42,8 @@ def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package()
     for name in ('ops.hopper.jpeg8x8', 'ops.hopper.codebook', 'ops.ssim', 'models.compression',
                  'compression.codec', 'compression.entropy', 'data.png', 'data.fixtures',
                  'data.dataset', 'data.prefetch', 'data.device_sampler', 'training.validation',
-                 'training.manipulation', 'cli.train_manipulation'):
+                 'training.manipulation', 'cli.train_manipulation', 'training.pipeline',
+                 'cli.train_nip', 'models.pipelines'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',
@@ -81,6 +82,11 @@ def test_chip_smoke_fails_without_a_gpu():
     # a stream header of a 1x1x32 latent: decoding it restores the 32c preset
     lambda: codec.decompress(bytes([1, 1, 32]) + np.uint16(64).tobytes()
                              + np.full(32, 1, np.uint16).tobytes()),
+    lambda: pipelines.UNet(),
+    lambda: pipelines.DNet(),
+    lambda: pipelines.ClassicISP(),
+    lambda: pipelines.ONet(),
+    lambda: base.restore(os.path.join(ROOT, 'data/models/nip/QualityRef/UNet_5'), pipelines),
 ])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -94,7 +100,7 @@ def test_cpu_is_taken_only_when_asked():
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
-@pytest.mark.parametrize('entry', ['sampler', 'cli'])
+@pytest.mark.parametrize('entry', ['sampler', 'cli', 'nip_cli'])
 def test_trainer_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_path,
                                                                     monkeypatch):
     data_dir = fixtures.make_dataset(str(tmp_path / 'data'), n_images=2, height=64, width=96)
@@ -102,8 +108,11 @@ def test_trainer_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_p
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         if entry == 'sampler':
             DeviceSampler(Dataset(data_dir, n_images=1, v_images=1, val_rgb_patch_size=32), 1, 32)
-        else:
+        elif entry == 'cli':
             train_manipulation.main(['--nip', 'INet', '--data', data_dir, '--split', '1:1:1',
                                      '--patch', '16', '--batch', '1', '--dir',
                                      str(tmp_path / 'out')])
+        else:
+            train_nip.main(['--nip', 'UNet', '--data', data_dir, '--split', '1:1:1',
+                            '--patch', '16', '--batch', '1', '--out', str(tmp_path / 'out')])
     assert not (tmp_path / 'out').exists()

@@ -165,13 +165,14 @@ def camera_batches(seed):
     return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
 
 
-def as_port_leaves(tree):
-    """A JAX parameter (or gradient) tree as {part: {port name: array}}."""
+def as_port_leaves(tree, transposed=frozenset()):
+    """A JAX parameter (or gradient) tree as {part: {port name: array}};
+    ``transposed``: the port's names of transposed-conv kernels."""
     out = {}
     for part, leaves in tree.items():
         flat = flat_params(leaves)
         out[part] = (flat if part == 'dcn' else
-                     {k: v.numpy() for k, v in base.convert_params(flat).items()})
+                     {k: v.numpy() for k, v in base.convert_params(flat, transposed).items()})
     return out
 
 
@@ -180,7 +181,8 @@ def port_leaves(tree):
             for part, leaves in tree.items()}
 
 
-def reference_gradients(ref, bx, by, l_nip, l_dcn, scalars=None, indices=None):
+def reference_gradients(ref, bx, by, l_nip, l_dcn, scalars=None, indices=None,
+                        transposed=frozenset()):
     """The reference's loss, its parts and its gradients over the trainable
     partition, from one program compiled per flow."""
     key = 'grads' if scalars is None else 'grads_rand'
@@ -200,7 +202,7 @@ def reference_gradients(ref, bx, by, l_nip, l_dcn, scalars=None, indices=None):
         ref._train_partition(ref.params), ref._frozen_partition(ref.params), x, y, q_luma,
         q_chroma, jnp.float32(l_nip), jnp.float32(l_dcn), *strengths)
     ref.last_channel = np.asarray(batch_C), np.asarray(probs)
-    return float(loss), {k: float(v) for k, v in parts.items()}, as_port_leaves(grads)
+    return float(loss), {k: float(v) for k, v in parts.items()}, as_port_leaves(grads, transposed)
 
 
 def assert_parts_close(loss, parts, ref_loss, ref_parts):
@@ -470,15 +472,71 @@ def test_restore_refuses_a_channel_precision_it_cannot_honour(tmp_path):
 
 
 def test_loss_metrics():
-    """The NIP's L1 and SSIM losses against the reference's."""
+    """The NIP's L1, SSIM and MS-SSIM losses against the reference's."""
     from neural_imaging_tpu.ops import ops as jax_ops
     from neural_imaging_tpu_torch.ops import ops
     a, b = rgb_batch(130), rgb_batch(131)
-    for name in ('L2', 'L1', 'SSIM'):
+    for name in ('L2', 'L1', 'SSIM', 'MS-SSIM'):
         # float32 sums over 11x11 windows: SSIM within 1e-5, so 255 (1 - SSIM)
         # within 255e-5
         np.testing.assert_allclose(float(ops.LOSSES[name](torch.from_numpy(a), torch.from_numpy(b))),
                                    float(jax_ops.LOSSES[name](jnp.asarray(a), jnp.asarray(b))),
-                                   rtol=1e-5, atol=255e-5 if name == 'SSIM' else 0, err_msg=name)
-    with pytest.raises(NotImplementedError):
-        ops.LOSSES['MS-SSIM'](torch.from_numpy(a), torch.from_numpy(b))
+                                   rtol=1e-5, atol=0 if name in ('L2', 'L1') else 255e-5,
+                                   err_msg=name)
+
+
+# -- the other camera ISPs -------------------------------------------------------------
+
+NIP_FLOWS = {'UNet': {'n_steps': 3}, 'DNet': {'n_layers': 3, 'n_features': 8}}
+
+
+def nip_flows(nip, remat=False):
+    """The JAX flow and the port's with a narrow UNet or DNet (the JAX
+    package's initial weights) trainable, the narrow FAN of ``fan_weights``,
+    pool:2 and the QF-50 channel."""
+    ref = JaxFlow(nip, manipulations=MANIPULATIONS, fan_args=FAN_ARGS, trainable={'nip'},
+                  raw_patch_size=PATCH, nip_args=NIP_FLOWS[nip])
+    weights = fan_weights(ref.fan.params)
+    ref.fan.params = traverse_util.unflatten_dict(
+        {k: jnp.asarray(v) for k, v in weights.items()}, sep='/')
+    ref.params = ref._collect_params()
+    port = ManipulationClassification(nip, manipulations=MANIPULATIONS, fan_args=FAN_ARGS,
+                                      trainable={'nip'}, raw_patch_size=PATCH,
+                                      nip_args=NIP_FLOWS[nip], remat=remat, device='cpu')
+    port.fan.module.load_state_dict(base.convert_params(weights), strict=True)
+    port.nip.module.load_state_dict(
+        base.convert_params(flat_params(ref.nip.params),
+                            base.transposed_kernels(port.nip.module)), strict=True)
+    port._snapshot()
+    port.reinitialize()
+    return ref, port
+
+
+@pytest.mark.parametrize('nip', sorted(NIP_FLOWS))
+def test_nip_flow_step_matches_reference(nip):
+    """The first joint step with a trainable UNet or DNet: loss parts and
+    every trainable leaf's gradient, as for INet."""
+    ref, port = nip_flows(nip)
+    bx, by = camera_batches(60)
+    ref_loss, ref_parts, ref_grads = reference_gradients(
+        ref, bx, by, 0.005, 0.0, transposed=base.transposed_kernels(port.nip.module))
+    loss, parts, grads = port.loss_and_gradients(bx, by, 0.005)
+    assert_parts_close(loss, parts, ref_loss, ref_parts)
+    assert_gradients_close(port_leaves(grads), ref_grads)
+
+
+def test_remat_keeps_the_loss_and_gradients():
+    """``remat`` recomputes the NIP and the manipulations in the backward
+    pass: the same loss, parts and gradients, bit for bit on the CPU."""
+    _, plain = nip_flows('UNet')
+    _, remat = nip_flows('UNet', remat=True)
+    bx, by = camera_batches(62)
+    for augment in (False, True):
+        args = (plain._sample_strengths_in_graph() if augment else (None, None))
+        a = plain.loss_and_gradients(bx, by, 0.005, 0.0, None, *args)
+        b = remat.loss_and_gradients(bx, by, 0.005, 0.0, None, *args)
+        assert torch.equal(a[0], b[0])
+        assert all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+        for part, leaves in a[2].items():
+            for k, g in leaves.items():
+                assert torch.equal(g, b[2][part][k]), f'{part}/{k}'

@@ -465,7 +465,7 @@ def test_cli_builds_what_the_library_builds(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize('extra, item', [
-    (['--nip', 'UNet'], 'item 4'),
+    (['--nip', 'ONet'], 'item 3'),
     (['--dcn', '32c'], 'item 3'),
     (['--devices', 'auto'], 'item 5'),
     (['--coordinator', 'localhost:1234'], 'item 5'),

@@ -21,7 +21,7 @@ from neural_imaging_tpu.data import fixtures
 from neural_imaging_tpu.workflows import ManipulationClassification as JaxFlow
 import chip_smoke
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
-    ManipulationClassification, compare_probabilities)
+    DECISION_MARGIN, ManipulationClassification, compare_probabilities)
 
 torch.set_num_threads(1)
 
@@ -117,7 +117,7 @@ def test_restored_flow_shape(flows):
 @pytest.mark.parametrize('kwargs', [
     {'distribution': {'compression': 'dcn'}},
     {'manipulations': ['awgn']},
-    {'nip_model': 'UNet'},
+    {'nip_model': 'ONet'},
     {'distribution': {'compression_params': {'quality': 50, 'codec': 'soft', 'dirname': 'x'}}},
 ])
 def test_unported_options_raise(kwargs):
@@ -140,3 +140,101 @@ def test_compare_probabilities_flags_disagreement():
         compare_probabilities(p + [[-0.02, 0.02, 0]], p)
     with pytest.raises(AssertionError):
         compare_probabilities(p[:, [1, 0, 2]], p)
+
+
+# -- the other camera ISPs ------------------------------------------------------------
+
+UNET_RUN_DIR = os.path.join(ROOT, 'data/m_quality_full/QualityRef/UNet/fixed-nip/fixed-codec/000')
+NARROW_FAN = {'n_filters': 8, 'n_convolutions': 2}
+MAX_FLIPPED_BLOCKS = 0.05
+NARROW_NIPS = {'UNet': {'n_steps': 3}, 'DNet': {'n_layers': 3, 'n_features': 8},
+               'ClassicISP': {'c_filters': (4,)}}
+
+
+def narrow_flows(nip, **kwargs):
+    """The JAX flow of a narrow NIP and FAN (their initial weights) and the
+    port's with the same weights."""
+    from flax import traverse_util
+    from neural_imaging_tpu_torch.models import base
+    ref = JaxFlow(nip, fan_args=NARROW_FAN, raw_patch_size=PATCH, nip_args=NARROW_NIPS[nip],
+                  **kwargs)
+    port = ManipulationClassification(nip, fan_args=NARROW_FAN, raw_patch_size=PATCH,
+                                      nip_args=NARROW_NIPS[nip], device='cpu', **kwargs)
+    for model, params in ((port.nip, ref.nip.params), (port.fan, ref.fan.params)):
+        flat = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(params, sep='/').items()}
+        model.module.load_state_dict(base.convert_params(flat, base.transposed_kernels(model.module)),
+                                     strict=True)
+    ref.params = ref._collect_params()
+    port._snapshot()
+    port.reinitialize()
+    return ref, port
+
+
+@pytest.mark.parametrize('nip', sorted(NARROW_NIPS))
+def test_nip_flow_matches_reference(nip):
+    """The whole slice with a UNet, DNet or ClassicISP as the NIP."""
+    ref, port = narrow_flows(nip)
+    assert port.nip.class_name == nip and port.summary() == ref.summary()
+    assert_slice_matches(ref, port, camera_batch(40))
+
+
+def test_unet_run_restores_as_the_reference_restores_it():
+    """``restore`` of the m_quality_full UNet run (downsampling 'none', its
+    unet.npz and fan.npz) against the JAX flow restored as test_fan.py
+    restores it."""
+    with open(os.path.join(UNET_RUN_DIR, 'training.json')) as f:
+        log = json.load(f)
+    fan_args = {k: v for k, v in log['forensics']['args'].items() if k != 'n_classes'}
+    patch = 64                                   # the run's own raw patch
+    ref = JaxFlow('UNet', manipulations=[m for m in log['manipulations'] if m != 'native'],
+                  distribution=log['distribution'], fan_args=fan_args, raw_patch_size=patch,
+                  nip_args=log['nip']['args'])
+    ref.fan.load_model(os.path.join(UNET_RUN_DIR, 'models/fan'))
+    ref.nip.load_model(os.path.join(UNET_RUN_DIR, 'models/unet'))
+    ref.params = ref._collect_params()
+    port = ManipulationClassification.restore(UNET_RUN_DIR, patch, device='cpu')
+    assert port.nip.model_code == 'UNet_5' and port.downsampling_factor == 1
+    assert port.nip.count_parameters() == 7_763_820
+    x = np.stack([fixtures.make_raw_rgb_pair(2 * patch, 2 * patch, seed=50 + i)[0]
+                  for i in range(2)]).astype(np.float32) / 65535.0
+    expected, got = ref.run_workflow(x), port.run_workflow(x)
+    # UNet_5 saturates whole 8x8 blocks at 0 or 1, whose DC coefficients lie
+    # on a rounding tie (a white block's 1016 / 16 = 63.5 at QF 50): the last
+    # bit of the DCT's sums rounds them either way, and a flipped
+    # coefficient moves its 8x8 block by a q step, which at this FAN's 128-px
+    # input moves a row's probabilities by up to ~1e-2. So the channel's
+    # output is held block by block (at most MAX_FLIPPED_BLOCKS of its blocks
+    # differ, the others within 1e-5; measured 1.9%), the FAN on the
+    # reference's own input as at full width (compare_probabilities), and the
+    # decisions of the rows the reference decides
+    for name, i in (('batch_Y', 0), ('batch_c', 1)):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(expected[i]), atol=1e-5,
+                                   err_msg=name)
+    diff = np.abs(got[2].numpy() - np.asarray(expected[2]))
+    n, h, w, c = diff.shape
+    blocks = diff.reshape(n, h // 8, 8, w // 8, 8, c).max(axis=(2, 4))
+    assert np.mean(blocks > 1e-5) <= MAX_FLIPPED_BLOCKS
+    compare_probabilities(port.fan.process(np.asarray(expected[2])),
+                          np.asarray(ref.fan.process(expected[2])))
+    p_ref = np.sort(np.asarray(expected[-1]), axis=1)
+    decided = p_ref[:, -1] - p_ref[:, -2] > DECISION_MARGIN
+    np.testing.assert_array_equal(got[-1].numpy().argmax(1)[decided],
+                                  np.asarray(expected[-1]).argmax(1)[decided])
+
+
+def test_nip_snapshot_in_the_model_name(tmp_path):
+    """'<class>:<dir>' loads the NIP's weights from the snapshot directory."""
+    from neural_imaging_tpu_torch.models import pipelines
+    nip = pipelines.DNet(n_layers=2, n_features=8, device='cpu')
+    nip.save_model(str(tmp_path / 'snap'))
+    flow = ManipulationClassification(f'DNet:{tmp_path / "snap"}', raw_patch_size=PATCH,
+                                      nip_args={'n_layers': 2, 'n_features': 8}, device='cpu')
+    for (k, a), (_, b) in zip(sorted(nip.checkpoint().items()),
+                              sorted(flow.nip.checkpoint().items())):
+        np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+@pytest.mark.parametrize('kwargs', [{'nip_model': 'XNet'}, {'loss_metric': 'MS-SSIM'}])
+def test_flow_refuses_unknown_nips_and_losses(kwargs):
+    with pytest.raises(ValueError):
+        ManipulationClassification(raw_patch_size=PATCH, device='cpu', **kwargs)
