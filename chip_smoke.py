@@ -62,7 +62,20 @@ NVIDIA GPU:
    the CLI's batch 20 and raw patch 64, host-fed and device-resident, its
    first epoch against the CPU trainer's, its ``progress.json`` and npz
    read back;
-11. print one JSON line of the kernels, then the last line
+11. the DCN channel in the joint flow and the DCN trainer: ``[dcn flow]``
+   the ``m_quality_dcn`` lc-0.1000 run's flow (ONet at raw 64, so 128-px
+   RGB, four manipulations with jpeg:80, the 32c codec trainable with
+   λ_dcn 0.1, the FAN at its widths from its seed, batch 10: 409,600
+   latent values a step) answers requests (K1 and K2 once each) against
+   the CPU, takes its first step against the CPU's (``fan_input_flips``
+   counted), then 10 + 3 augmented timed steps (K1, K2, K3 once each) with
+   the step's peak memory and device profile, and the run's fixed-codec
+   sibling takes steps (K3 never); ``[dcn trainer]`` ``train_dcn`` of
+   TwitterDCN 32c from its seed at train_dcn.py's patch 64 and batch 50 on
+   procedural RGB images, host-fed then device-resident, its
+   ``progress.json`` and snapshot read back to the logged validation SSIM,
+   the first epoch against the CPU trainer's;
+12. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -99,9 +112,11 @@ from neural_imaging_tpu_torch.models import base, compression, pipelines
 from neural_imaging_tpu_torch.models.jpeg import qtables
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops.hopper import _build, codebook, jpeg8x8
+from neural_imaging_tpu_torch.training import compression as codec_training
 from neural_imaging_tpu_torch.training import validation
 from neural_imaging_tpu_torch.training.manipulation import train_manipulation_nip
 from neural_imaging_tpu_torch.training.pipeline import train_nip_model
+from neural_imaging_tpu_torch.utils import metrics
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.utils import logger
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
@@ -162,6 +177,26 @@ MAX_NIP_DIFF = 1e-4
 # 12 of 50) and the FAN's constrained filter's gradient norm moves by
 # 4.4e-3, above MAX_GRADIENT_NORM_DIFF.
 FLIP_THRESHOLD, FLIPPED_FAN_GRADIENT_DIFF = 1e-3, 5e-2
+# the DCN channel in the joint flow: the m_quality_dcn lc-0.1000 run's shape
+# (ONet at raw 64, so 128-px RGB in; downsampling 'none'; the 32c codec,
+# trainable, λ_dcn 0.1; sharpen, resample, gaussian, jpeg:80; the FAN at its
+# widths from its seed, the run holding no npz; batch 10): one step
+# quantizes 5 x 10 x 16 x 16 x 32 = 409,600 latent values
+DCN_FLOW_RUN = 'data/m_quality_dcn/QualityRef/ONet/fixed-nip/lc-0.1000/000'
+DCN_FLOW_RAW_PATCH, DCN_FLOW_BATCH, DCN_FLOW_LAMBDA = 64, 10, 0.1
+DCN_FLOW_LATENT = 5 * DCN_FLOW_BATCH * (2 * DCN_FLOW_RAW_PATCH // 8) ** 2 * 32
+DCN_FLOW_FROZEN_STEPS = 3
+# the DCN trainer at train_dcn.py's defaults (TwitterDCN 32c from its seed,
+# patch 64, batch 50: 102,400 latent values a step) on procedural RGB
+# images: 100 training images (2 steps an epoch) and 50 validation patches
+# (one batch), cut from 500 epochs to 5 with validation every 2, so that
+# the last epoch is validated and the snapshot holds the validated weights
+DCN_TRAINER_PATCH, DCN_TRAINER_BATCH = 64, 50
+DCN_TRAINER_IMAGES, DCN_TRAINER_SIZE, DCN_TRAINER_SPLIT = 150, (128, 192), (100, 50, 1)
+DCN_TRAINER_EPOCHS, DCN_TRAINER_VALIDATION = 5, 2
+# the restored snapshot's validation SSIM against the logged one (the same
+# weights and patches through the same kernels on one card)
+MAX_DCN_SSIM_DIFF = 1e-5
 NIP_TRAINER_BATCH, NIP_TRAINER_SPLIT = 20, (40, 20, 1)
 NIP_TRAINER_EPOCHS, NIP_TRAINER_VALIDATION = 4, 2
 # the NIP trainer's first epoch's mean loss, card against CPU (relative): the
@@ -387,9 +422,9 @@ def timed_record(shape, n, kernel, plain, bytes_moved, instructions, reps, flush
             'bound_by': bound_by, **report}
 
 
-def check_codebook(name, n, reps, flush, gen, device):
-    """K2 at N values, and K3 and K4 with it where ``name`` is a training
-    shape, against their plain versions on the card; returns their records."""
+def check_codebook(name, n, reps, flush, gen, device, backward=False):
+    """K2 at N values, and with ``backward`` K3 and K4, against their plain
+    versions on the card; returns their records."""
     cb = torch.from_numpy(quant.default_codebook(5)).to(device)
     n_codes = cb.numel()
     z = (torch.randn(n, generator=gen) * 4).to(device)
@@ -400,7 +435,7 @@ def check_codebook(name, n, reps, flush, gen, device):
         lambda: codebook.codebook_fwd_plain(z, cb), 12 * n + 4 * n_codes,
         n * (n_codes * K2_PER_CODE + K2_PER_VALUE), reps, flush,
         max_abs_err=k2['max_abs_err'], index_flip_share=k2['index_flips'] / n)}
-    if name.startswith('training'):
+    if backward:
         g = torch.randn(n, generator=gen).to(device)
         pc = torch.randn(n_codes, generator=gen).to(device)
         dz_scale, _ = codebook.backward_error_scale(z, g, cb, pc)
@@ -698,7 +733,7 @@ class ValidationClock(logging.Handler):
     validation starts (logged once the epochs before it have run on the
     device) and where it ends (after its results and snapshots reached the
     host; the joint trainer's line with the accuracy, the NIP trainer's with
-    the validation PSNR)."""
+    the validation PSNR, the DCN trainer's with the validation SSIM)."""
 
     def __init__(self):
         super().__init__(logging.DEBUG)
@@ -709,7 +744,7 @@ class ValidationClock(logging.Handler):
         if message.endswith(': validating'):
             self.starts.append(record.created)
         elif ((record.funcName == 'validate' and 'accuracy' in message)
-              or 'validation psnr' in message):
+              or 'validation psnr' in message or 'validation ssim' in message):
             self.ends.append(record.created)
 
 
@@ -1149,16 +1184,16 @@ def fan_input_flips(flow, cpu_flow, bx):
     return int(((fan_inputs[0] - fan_inputs[1]).abs() > FLIP_THRESHOLD).sum())
 
 
-def compare_flow_steps(step, step_cpu, flips):
+def compare_flow_steps(step, step_cpu, flips, part='nip'):
     """``compare_steps`` of the card's first step against the CPU's; where
     ``flips`` values of the FAN's input differ, the FAN's leaves are held to
-    ``FLIPPED_FAN_GRADIENT_DIFF`` and the NIP's and the loss parts to the
-    float32 bounds."""
+    ``FLIPPED_FAN_GRADIENT_DIFF`` and the other trainable ``part``'s ('nip'
+    or 'dcn') and the loss parts to the float32 bounds."""
     if not flips:
         return compare_steps(step, step_cpu)
     (loss, parts, grads), (loss_cpu, parts_cpu, grads_cpu) = step, step_cpu
-    report = compare_steps((loss, parts, {'nip': grads['nip']}),
-                           (loss_cpu, parts_cpu, {'nip': grads_cpu['nip']}))
+    report = compare_steps((loss, parts, {part: grads[part]}),
+                           (loss_cpu, parts_cpu, {part: grads_cpu[part]}))
     fan = compare_steps((loss, parts, {'fan': grads['fan']}),
                         (loss_cpu, parts_cpu, {'fan': grads_cpu['fan']}),
                         max_grad_diff=FLIPPED_FAN_GRADIENT_DIFF)
@@ -1370,6 +1405,292 @@ def nip_trainer_phase(args, device, tmp):
                     'cpu_first_epoch_rel_diff': rel, **results}
 
 
+# -- the DCN channel in the joint flow, and the DCN trainer -----------------------------
+
+def dcn_flow(device, trainable=True, seed=0):
+    """The m_quality_dcn lc-0.1000 run's flow (``DCN_FLOW_RUN``): ONet, its
+    manipulations, the 32c channel (trainable, or frozen as in the run's
+    ``fixed-codec`` sibling) and its FAN's widths from the seed, at raw
+    patch 64 on ``device``."""
+    with open(base.REPO_ROOT / DCN_FLOW_RUN / 'training.json') as f:
+        log = json.load(f)
+    fan_args = {k: v for k, v in log['forensics']['args'].items() if k != 'n_classes'}
+    flow = ManipulationClassification(
+        log['nip']['model'], manipulations=[m for m in log['manipulations'] if m != 'native'],
+        distribution=log['distribution'], fan_args=fan_args,
+        trainable={'dcn'} if trainable else set(), raw_patch_size=DCN_FLOW_RAW_PATCH,
+        rng_seed=seed, device=device)
+    flow.nan_check = False
+    return flow
+
+
+def dcn_flow_phase(args, device):
+    """The DCN channel's joint flow at the lc-0.1000 run's shape: requests
+    (K1 and K2 once each) against the CPU's probabilities, the first step
+    against the port's CPU step, the step's peak memory, timed steps (K1, K2
+    and K3 once each), the frozen-codec sibling's steps (K3 never), the
+    codec's and the FAN's leaves moving. Returns (launch counts, results)."""
+    flow, cpu_flow = dcn_flow(device, seed=args.seed), dcn_flow('cpu', seed=args.seed)
+    if flow.codec.count_parameters() != 2_533_293 or flow.fan.count_parameters() != 1_145_382:
+        raise AssertionError(f'{DCN_FLOW_RUN}: built {flow.summary()}')
+    side = 2 * DCN_FLOW_RAW_PATCH
+    batches = [torch.from_numpy(synthetic_rgb(args.seed + 1300 + i, DCN_FLOW_BATCH, side,
+                                              side)).to(device)
+               for i in range(TRAIN_STEPS + 1)]
+    bx = batches[0]
+    per_request = {'jpeg8x8': 1, 'codebook_fwd': 1}
+    per_step = {'jpeg8x8': 1, 'codebook_fwd': 1, 'codebook_bwd': 1}
+
+    # requests, at the flow's initial weights, against the CPU's forward
+    flow.run_workflow_to_decisions(bx)                    # warm-up (cuDNN autotuning)
+    torch.cuda.synchronize()
+    zero_counts()
+    latencies = []
+    for i in range(args.requests):
+        t0 = time.perf_counter()
+        flow.run_workflow_to_decisions(batches[1 + i])
+        latencies.append(time.perf_counter() - t0)
+    request_counts = read_counts()
+    expect_counts('DCN flow requests', request_counts,
+                  {k: v * args.requests for k, v in per_request.items()})
+    out = flow.run_workflow(bx)
+    n_rows = DCN_FLOW_BATCH * flow.n_classes
+    if tuple(out[-1].shape) != (n_rows, flow.n_classes) or not all(
+            bool(torch.isfinite(t).all()) for t in out):
+        raise AssertionError(f'DCN flow: bad outputs {[tuple(t.shape) for t in out]}')
+    report = compare_probabilities(out[-1].cpu(), cpu_flow.run_workflow(bx.cpu())[-1])
+    request_ms = 1e3 * float(np.median(latencies))
+    print(f'[dcn flow] {flow.summary_compact()}: median request {request_ms:.2f} ms '
+          f'({n_rows / request_ms * 1e3:.1f} classified images/s); launches '
+          f'{request_counts}; vs the CPU max |dp| {report["max_abs_diff"]:.3g}, '
+          f'{report["decided_rows"]}/{report["rows"]} decided rows agree', flush=True)
+
+    # the first step against the port's CPU step; its peak memory
+    t0 = time.perf_counter()
+    step_cpu = cpu_flow.loss_and_gradients(bx.cpu(), None, 0.0, DCN_FLOW_LAMBDA)
+    cpu_s = time.perf_counter() - t0
+    step_card, peak = peak_memory_mb(
+        lambda: flow.loss_and_gradients(bx, None, 0.0, DCN_FLOW_LAMBDA))
+    flips = fan_input_flips(flow, cpu_flow, bx)
+    agreement = compare_flow_steps(step_card, step_cpu, flips, part='dcn')
+    z_card = flow.codec.compress(bx).cpu()
+    latent = compression.compare_latents(z_card, cpu_flow.codec.compress(bx.cpu()),
+                                         flow.codec.get_codebook())
+    print(f'[dcn flow] first step vs the CPU ({cpu_s:.1f} s there): {flips} values of the '
+          f'FAN\'s input flipped, {latent["flipped"]}/{latent["n"]} latent indices of the '
+          f'native class differ; loss parts within {agreement["max_loss_rel_diff"]:.3g} '
+          f'(relative), gradient norms within {agreement["max_grad_norm_rel_diff"]:.3g} '
+          f'({agreement["worst_gradient"]})'
+          + (f', the FAN\'s within {agreement["fan_grad_norm_rel_diff"]:.3g}' if flips else '')
+          + f'; peak memory of the step {peak:.1f} MiB', flush=True)
+    del cpu_flow
+
+    before = {part: {k: p.detach().clone() for k, p in leaves.items()}
+              for part, leaves in flow._collect_params().items()}
+    flow.training_step(bx, None, 0.0, DCN_FLOW_LAMBDA, learning_rate=TRAIN_LR)   # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = {False: [], True: []}, []
+    for i in range(TRAIN_STEPS + TRAIN_AUGMENTED_STEPS):
+        augment = i >= TRAIN_STEPS
+        t0 = time.perf_counter()
+        loss, parts = flow.training_step(batches[1 + i % TRAIN_STEPS], None, 0.0,
+                                         DCN_FLOW_LAMBDA, augment=augment,
+                                         learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        times[augment].append(time.perf_counter() - t0)
+        losses.append({'loss': float(loss), **{k: float(v) for k, v in parts.items()}})
+    counts = read_counts()
+    n_steps = TRAIN_STEPS + TRAIN_AUGMENTED_STEPS
+    expect_counts('DCN flow training', counts, {k: v * n_steps for k, v in per_step.items()})
+    flow.assert_finite()
+    if not all(np.isfinite(v) for step in losses for v in step.values()):
+        raise AssertionError(f'DCN flow: non-finite losses {losses}')
+    moved = {part: max(float((p.detach() - before[part][k]).abs().max())
+                       for k, p in flow._collect_params()[part].items())
+             for part in ('dcn', 'fan')}
+    if not (moved['dcn'] > 0 and moved['fan'] > 0):
+        raise AssertionError(f'DCN flow: parameters did not move: {moved}')
+    profile_ = device_profile(lambda: flow.training_step(bx, None, 0.0, DCN_FLOW_LAMBDA,
+                                                         learning_rate=TRAIN_LR), 5,
+                              match=HAND_KERNELS)
+    flow.assert_finite()
+    median = float(np.median(times[False]))
+    print(f'[dcn flow] median step {1e3 * median:.2f} ms ({1 / median:.2f} steps/s); augmented '
+          f'{", ".join(f"{1e3 * t:.2f}" for t in times[True])} ms; device '
+          f'{profile_["device_ms_per_call"]:.2f} ms a step, busy '
+          f'{100 * profile_["device_busy_share"]:.1f}%, {profile_["device_ops_per_call"]:.0f} '
+          f'device ops, hand kernels {profile_["matched_kernels_ms_per_call"]:.4f} ms; '
+          f'launches {counts}; largest change {moved}', flush=True)
+    print_profile('dcn flow', profile_)
+
+    # the run's fixed-codec sibling: the codec frozen, no backward through it
+    frozen = dcn_flow(device, trainable=False, seed=args.seed)
+    frozen.training_step(bx, None, 0.0, DCN_FLOW_LAMBDA, learning_rate=TRAIN_LR)   # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    frozen_times = []
+    for i in range(DCN_FLOW_FROZEN_STEPS):
+        t0 = time.perf_counter()
+        frozen.training_step(batches[1 + i % TRAIN_STEPS], None, 0.0, DCN_FLOW_LAMBDA,
+                             learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        frozen_times.append(time.perf_counter() - t0)
+    frozen_counts = read_counts()
+    expect_counts('DCN flow, frozen codec', frozen_counts,
+                  {'jpeg8x8': DCN_FLOW_FROZEN_STEPS, 'codebook_fwd': DCN_FLOW_FROZEN_STEPS})
+    frozen.assert_finite()
+    print(f'[dcn flow] frozen codec: steps {", ".join(f"{1e3 * t:.2f}" for t in frozen_times)} '
+          f'ms; launches {frozen_counts}', flush=True)
+    total = {k: request_counts[k] + counts[k] + frozen_counts[k] for k in counts}
+    return total, {
+        'run': DCN_FLOW_RUN, 'batch': DCN_FLOW_BATCH, 'raw_patch': DCN_FLOW_RAW_PATCH,
+        'lambda_dcn': DCN_FLOW_LAMBDA, 'lr': TRAIN_LR, 'latent_values': DCN_FLOW_LATENT,
+        'request_ms': [1e3 * t for t in latencies], 'median_request_ms': request_ms,
+        'cpu_max_abs_prob_diff': report['max_abs_diff'], 'request_launches': request_counts,
+        'cpu_first_step': agreement, 'cpu_fan_input_flips': flips,
+        'cpu_native_latent_flips': latent['flipped'], 'cpu_step_s': cpu_s,
+        'peak_mb': peak, 'step_ms': [1e3 * t for t in times[False]],
+        'augmented_step_ms': [1e3 * t for t in times[True]], 'median_ms': 1e3 * median,
+        'steps_per_s': 1 / median, 'device_ms_per_step': profile_['device_ms_per_call'],
+        'device_busy_share': profile_['device_busy_share'],
+        'device_ops_per_step': profile_['device_ops_per_call'],
+        'hand_kernels_ms_per_step': profile_['matched_kernels_ms_per_call'],
+        'step_launches': counts, 'losses': losses, 'largest_change': moved,
+        'frozen_step_ms': [1e3 * t for t in frozen_times], 'frozen_launches': frozen_counts}
+
+
+def dcn_trainer(args, device):
+    """``train_dcn`` at train_dcn.py's shape on procedural RGB images,
+    host-fed then device-resident: epoch and validation times from its log
+    lines, the run directory's ``progress.json`` schema, the snapshot
+    restored to its logged validation SSIM, the first epoch's loss against
+    the port's CPU trainer. Returns (launch counts, results)."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_dcn_trainer_')
+    try:
+        return dcn_trainer_phase(args, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dcn_trainer_data(data_dir):
+    n_images, v_images, val_patches = DCN_TRAINER_SPLIT
+    return Dataset(data_dir, load='y', n_images=n_images, v_images=v_images,
+                   val_rgb_patch_size=DCN_TRAINER_PATCH, val_n_patches=val_patches)
+
+
+def dcn_trainer_run(data_dir, root, device, n_epochs, seed, device_data=False):
+    """``train_dcn`` of a TwitterDCN 32c from its seed; returns (the output
+    directory, the wall times of the call and of its validation log lines)."""
+    dcn = compression.TwitterDCN(patch_size=DCN_TRAINER_PATCH, n_features=32, device=device)
+    clock, level = ValidationClock(), logger.level
+    logger.addHandler(clock)
+    logger.setLevel(logging.DEBUG)
+    start = time.time()
+    try:
+        out = codec_training.train_dcn(
+            dcn, {'n_epochs': n_epochs, 'batch_size': DCN_TRAINER_BATCH,
+                  'patch_size': DCN_TRAINER_PATCH, 'learning_rate': DCN_LR,
+                  'validation_schedule': DCN_TRAINER_VALIDATION},
+            dcn_trainer_data(data_dir), directory=root, rng=np.random.default_rng(seed),
+            device_data=device_data)
+    finally:
+        logger.removeHandler(clock)
+        logger.setLevel(level)
+    return out, {'start': start, 'end': time.time(), 'validation_starts': clock.starts,
+                 'validation_ends': clock.ends}
+
+
+def dcn_validation_ssim(dcn, data):
+    """The trainer's validation SSIM of ``dcn`` (compress → decompress of
+    each validation batch, the mean of the batches' mean SSIM)."""
+    ssims = []
+    for batch_id in range(data.count_validation // DCN_TRAINER_BATCH):
+        x = data.next_validation_batch(batch_id, DCN_TRAINER_BATCH)
+        y = dcn.decompress(dcn.compress(x)).cpu().numpy()
+        ssims.append(metrics.batch(x, y, metrics.ssim))
+    return float(np.mean(ssims))
+
+
+def dcn_trainer_phase(args, device, tmp):
+    height, width = DCN_TRAINER_SIZE
+    t0 = time.perf_counter()
+    data_dir = fixtures.make_dataset(os.path.join(tmp, 'data'), n_images=DCN_TRAINER_IMAGES,
+                                     height=height, width=width, seed=args.seed + 1400,
+                                     rgb_only=True)
+    dataset_s = time.perf_counter() - t0
+    n_images, v_images, val_patches = DCN_TRAINER_SPLIT
+    steps_per_epoch = n_images // DCN_TRAINER_BATCH
+    val_batches = v_images * val_patches // DCN_TRAINER_BATCH
+    val_points = len(range(0, DCN_TRAINER_EPOCHS, DCN_TRAINER_VALIDATION))
+    steps = DCN_TRAINER_EPOCHS * steps_per_epoch
+    expected = {'codebook_fwd': steps + val_points * val_batches, 'codebook_bwd': steps}
+    results, counts = {}, {}
+    for label, device_data in (('host-fed', False), ('device-resident', True)):
+        torch.cuda.synchronize()
+        zero_counts()
+        out, timings = dcn_trainer_run(data_dir, os.path.join(tmp, label), device,
+                                       DCN_TRAINER_EPOCHS, args.seed, device_data)
+        counts[label] = read_counts()
+        expect_counts(f'DCN trainer ({label})', counts[label], expected)
+        with open(os.path.join(out, 'progress.json')) as f:
+            progress = json.load(f)
+        schema = {'training_spec', 'data', 'codec'}, {'model', 'init', 'args', 'codebook',
+                                                      'performance'}
+        if set(progress) != schema[0] or set(progress['codec']) != schema[1]:
+            raise AssertionError(f'DCN trainer ({label}): progress.json keys {list(progress)}')
+        perf = progress['codec']['performance']
+        losses, ssims = perf['loss']['training'], perf['ssim']['validation']
+        if len(losses) != DCN_TRAINER_EPOCHS or len(ssims) != val_points or not np.isfinite(
+                losses + ssims + perf['entropy']['training']).all():
+            raise AssertionError(f'DCN trainer ({label}): bad history {perf}')
+        restored = codec.restore(out, patch_size=DCN_TRAINER_PATCH, device=device)
+        ssim = dcn_validation_ssim(restored, dcn_trainer_data(data_dir))
+        if not abs(ssim - ssims[-1]) <= MAX_DCN_SSIM_DIFF:
+            raise AssertionError(f'DCN trainer ({label}): the restored codec validates at '
+                                 f'SSIM {ssim}, its log says {ssims[-1]}')
+        starts, ends = timings['validation_starts'], timings['validation_ends']
+        if not len(starts) == len(ends) == val_points:
+            raise AssertionError(f'DCN trainer ({label}): {len(starts)} validation starts, '
+                                 f'{len(ends)} ends logged')
+        spans = [starts[0] - timings['start']] + [s - e for s, e in zip(starts[1:], ends)]
+        validations = [e - s for s, e in zip(starts, ends)]
+        steady = sum(spans[1:]) / (DCN_TRAINER_VALIDATION * (val_points - 1))
+        results[label] = {'epoch_losses': losses, 'validation_ssim': ssims,
+                          'entropy': perf['entropy']['training'], 'training_s': spans,
+                          'epoch_s_after_first': steady,
+                          'steps_per_s': steps_per_epoch / steady,
+                          'patches_per_s': steps_per_epoch * DCN_TRAINER_BATCH / steady,
+                          'validation_s': validations,
+                          'run_s': timings['end'] - timings['start'],
+                          'restored_validation_ssim': ssim, 'launches': counts[label]}
+        print(f'[dcn trainer] {label}: {steps_per_epoch} steps an epoch at batch '
+              f'{DCN_TRAINER_BATCH}, patch {DCN_TRAINER_PATCH}; training between validations '
+              f'{", ".join(f"{1e3 * t:.1f}" for t in spans)} ms (the first holds epoch 0 and '
+              f'the set-up, the others {DCN_TRAINER_VALIDATION} epochs); after the first '
+              f'{1e3 * steady:.1f} ms an epoch ({steps_per_epoch / steady:.2f} steps/s); '
+              f'validation {", ".join(f"{1e3 * t:.1f}" for t in validations)} ms; losses '
+              f'{losses}; validation SSIM {ssims}, restored {ssim:.6f}; launches '
+              f'{counts[label]}', flush=True)
+    cpu_out, _ = dcn_trainer_run(data_dir, os.path.join(tmp, 'cpu'), 'cpu', 1, args.seed)
+    with open(os.path.join(cpu_out, 'progress.json')) as f:
+        cpu = json.load(f)['codec']['performance']['loss']['training'][0]
+    card = results['host-fed']['epoch_losses'][0]
+    rel = abs(card - cpu) / abs(cpu)
+    if not rel <= MAX_STEP_LOSS_DIFF:
+        raise AssertionError(f'DCN trainer: first epoch loss {card} on the card, {cpu} on '
+                             f'the CPU')
+    print(f'[dcn trainer] {DCN_TRAINER_IMAGES} procedural {height}x{width} images written in '
+          f'{dataset_s:.2f} s; first epoch mean loss: card {card:.6f}, CPU {cpu:.6f}, '
+          f'relative difference {rel:.3g} (bound {MAX_STEP_LOSS_DIFF:g})', flush=True)
+    total = {k: sum(c[k] for c in counts.values()) for k in COUNTERS}
+    return total, {'split': list(DCN_TRAINER_SPLIT), 'size': list(DCN_TRAINER_SIZE),
+                   'batch': DCN_TRAINER_BATCH, 'patch': DCN_TRAINER_PATCH,
+                   'epochs': DCN_TRAINER_EPOCHS, 'validation_schedule': DCN_TRAINER_VALIDATION,
+                   'dataset_s': dataset_s, 'cpu_first_epoch_loss': cpu,
+                   'card_first_epoch_loss': card, 'cpu_first_epoch_rel_diff': rel, **results}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1422,7 +1743,15 @@ def main():
     k234 = {'serving': check_codebook('serving 512x768', DCN_IMAGE[0] * DCN_IMAGE[1] // 2,
                                       args.reps, flush, gen, device),
             'training': check_codebook('training 16x128^2', DCN_BATCH * DCN_PATCH ** 2 // 2,
-                                       args.reps, flush, gen, device)}
+                                       args.reps, flush, gen, device, backward=True),
+            'dcn flow': check_codebook(
+                'dcn flow 50x128^2', DCN_FLOW_LATENT, args.reps, flush, gen, device,
+                backward=True)}
+    planes = (torch.rand((3 * DCN_FLOW_BATCH, 2 * DCN_FLOW_RAW_PATCH, 2 * DCN_FLOW_RAW_PATCH),
+                         generator=gen) * 255 - 127).to(device)
+    q_luma, q_chroma = qtables(80, device)
+    k1_dcn_flow = check_k1('dcn flow jpeg:80', planes, torch.stack(
+        [q_luma, q_chroma, q_chroma]).repeat(DCN_FLOW_BATCH, 1, 1).contiguous(), args.reps, flush)
 
     # 4. manipulation classification
     batches = [synthetic_raw(args.seed + i, args.batch, RAW_PATCH) for i in range(args.requests)]
@@ -1493,8 +1822,15 @@ def main():
     nip_trainer_counts, nip_trainer_results = nip_trainer(args, device)
     print('[nip trainer] ' + json.dumps(nip_trainer_results), flush=True)
 
-    # 11. results: K1's numbers are its two launches of one request, summed;
-    # K2's are at the serving shape, K3's and K4's at the training shape
+    # 11. the DCN channel in the joint flow, and the DCN trainer
+    dcn_flow_counts, dcn_flow_results = dcn_flow_phase(args, device)
+    print('[dcn flow] ' + json.dumps({**dcn_flow_results, 'k1_shape': k1_dcn_flow}), flush=True)
+    dcn_trainer_counts, dcn_trainer_results = dcn_trainer(args, device)
+    print('[dcn trainer] ' + json.dumps(dcn_trainer_results), flush=True)
+
+    # 12. results: K1's numbers are its two launches of one m_quality request,
+    # summed; K2's and K3's are at the DCN flow's shape (N = 409,600), K4's at
+    # the DCN training step's
     print('[slice] ' + json.dumps({
         'requests': args.requests, 'batch': args.batch,
         'latency_ms': [1e3 * t for t in latencies], 'raw_patches_per_s': args.batch / median,
@@ -1508,7 +1844,8 @@ def main():
                              + sum(c['jpeg8x8'] for c in trainer_counts.values())
                              + nip_counts['jpeg8x8'] + unet_classify_counts['jpeg8x8']
                              + sum(c['jpeg8x8'] for c in nip_train_counts.values())
-                             + sum(c['jpeg8x8'] for c in nip_trainer_counts.values())),
+                             + sum(c['jpeg8x8'] for c in nip_trainer_counts.values())
+                             + dcn_flow_counts['jpeg8x8']),
                 'max_abs_err': max(r['max_abs_err'] for r in k1),
                 'ms': sum(r['ms'] for r in k1),
                 'plain_ms': sum(r['plain_ms'] for r in k1),
@@ -1516,12 +1853,11 @@ def main():
                 'bound_by': ('bytes' if all(r['bound_by'] == 'bytes' for r in k1)
                              else 'operations'),
                 'library_ms': None}]
-    launches = {'codebook_fwd': serve_counts['codebook_fwd'] + fixed_counts['codebook_fwd']
-                + train_counts['codebook_fwd'],
-                'codebook_bwd': fixed_counts['codebook_bwd'],
-                'codebook_bwd_train': train_counts['codebook_bwd_train']}
-    for name, replaces, shape in (('codebook_fwd', 51, 'serving'),
-                                  ('codebook_bwd', 137, 'training'),
+    launches = {name: sum(c[name] for c in (serve_counts, fixed_counts, train_counts,
+                                            dcn_flow_counts, dcn_trainer_counts))
+                for name in ('codebook_fwd', 'codebook_bwd', 'codebook_bwd_train')}
+    for name, replaces, shape in (('codebook_fwd', 51, 'dcn flow'),
+                                  ('codebook_bwd', 137, 'dcn flow'),
                                   ('codebook_bwd_train', 231, 'training')):
         r = k234[shape][name]
         kernels.append({'name': name, 'route': 'cuda',

@@ -10,10 +10,12 @@ with the PyTorch port: the counterpart of the repository's
 It sweeps ``--cam``, the repetitions ``--start``..``--end`` and ``--ln`` /
 ``--lc`` (for a trainable NIP / codec) as the reference does, reusing one
 flow through ``reinitialize()``. Options the port does not have yet raise
-``NotImplementedError`` naming their item of ROADMAP.md §1: ONet and
-``--dcn``, the parallel flags and ``--jpeg_mode libjpeg``. The NIP (INet,
-UNet, DNet or ClassicISP) starts from its snapshot
-``<--nip-dir>/<camera>/<model code>`` unless ``--scratch``. The
+``NotImplementedError`` naming their item of ROADMAP.md §1: the parallel
+flags and ``--jpeg_mode libjpeg``. The NIP (INet, UNet, DNet or
+ClassicISP) starts from its snapshot ``<--nip-dir>/<camera>/<model code>``
+unless ``--scratch``; ONet takes RGB data (the dataset is loaded with
+``load='y'``). ``--dcn <directory or preset>`` makes the channel a learned
+codec, which ``--train dcn`` fine-tunes, weighted by ``--lc``. The
 bfloat16 configuration the JAX package is tuned on: ``--channel-dtype
 bfloat16 --channel-jpeg-dtype bfloat16 --manip-jpeg-dtype bfloat16 --fan
 '{"dtype": "bfloat16"}'``.
@@ -72,7 +74,8 @@ def build_parser():
     parser.add_argument('--jpeg-trainable', action='store_true',
                         help="make the channel JPEG's quantization tables trainable; "
                              'optimize them with --train dcn weighted by --lc')
-    parser.add_argument('--dcn', default=None, help='DCN channel (not ported)')
+    parser.add_argument('--dcn', default=None,
+                        help='DCN channel: a codec directory or preset (e.g. 32c)')
     parser.add_argument('--ds', default='pool', choices=['pool', 'bilinear', 'none'],
                         help='channel downsampling')
     parser.add_argument('--train', nargs='*', default=[],
@@ -116,11 +119,6 @@ def build_parser():
 
 def refuse_unported(args):
     """Raise NotImplementedError for an option the port does not have yet."""
-    if args.nip == 'ONet':
-        raise NotImplementedError("NIP 'ONet' belongs to the DCN channel, which is not ported "
-                                  '(ROADMAP.md §1 item 3)')
-    if args.dcn is not None:
-        raise NotImplementedError('the DCN channel (--dcn) is not ported (ROADMAP.md §1 item 3)')
     if any(getattr(args, flag) is not None for flag in PARALLEL_FLAGS):
         raise NotImplementedError('the parallel trainer (--devices, --coordinator, --nproc, '
                                   '--procid) is not ported (ROADMAP.md §1 item 5)')
@@ -134,7 +132,10 @@ def main(argv=None):
     refuse_unported(args)
     setup_logging()
 
-    if args.jpeg is not None:
+    if args.dcn is not None:
+        distribution = {'downsampling': args.ds, 'compression': 'dcn',
+                        'compression_params': {'dirname': args.dcn}}
+    elif args.jpeg is not None:
         quality = ([int(q) for q in args.jpeg.split(',')] if ',' in args.jpeg
                    else int(args.jpeg))
         if args.jpeg_trainable and not isinstance(quality, int):
@@ -152,11 +153,12 @@ def main(argv=None):
     nip_params = parse_json_arg(args.nip_params)
 
     n_images, v_images, val_n_patches = parse_split(args.split)
+    load = 'y' if args.nip == 'ONet' else 'xy'
     ln_sweep = args.ln if 'nip' in trainable else [0.0]
     lc_sweep = args.lc if 'dcn' in trainable else [0.0]
 
     for cam in args.cameras or ['D90']:
-        data = Dataset(args.data or cam, load='xy', n_images=n_images, v_images=v_images,
+        data = Dataset(args.data or cam, load=load, n_images=n_images, v_images=v_images,
                        val_rgb_patch_size=2 * args.patch, val_n_patches=val_n_patches)
         flow = None
         for run, ln, lc in itertools.product(range(args.start, args.end), ln_sweep, lc_sweep):
@@ -172,7 +174,7 @@ def main(argv=None):
                 flow.reinitialize()
             training = {
                 'camera_name': cam,
-                'use_pretrained_nip': not args.scratch,
+                'use_pretrained_nip': args.nip != 'ONet' and not args.scratch,
                 'patch_size': args.patch,
                 'batch_size': args.batch,
                 'n_epochs': args.epochs,

@@ -19,6 +19,7 @@ import numpy as np
 
 from neural_imaging_tpu_torch.compression import entropy
 from neural_imaging_tpu_torch.models import base, compression
+from neural_imaging_tpu_torch.utils import metrics, stats
 
 log = logging.getLogger(__name__)
 
@@ -162,6 +163,32 @@ def simulate_compression(batch_x, dcn):
     """Full round trip through the real bitstream; returns (image, n_bytes)."""
     blob = compress(batch_x, dcn)
     return decompress(blob, dcn), len(blob)
+
+
+def compress_n_stats(batch_x, dcn):
+    """Each image of an NHWC batch through the real bitstream: (decoded
+    batch, {'ssim', 'psnr', 'entropy', 'bytes', 'bpp'}), the statistics per
+    image (numpy arrays; numbers for a batch of one)."""
+    batch_x = np.asarray(batch_x)
+    batch_y = np.zeros_like(batch_x)
+    out = {k: np.zeros(batch_x.shape[0]) for k in ('ssim', 'psnr', 'entropy', 'bytes', 'bpp')}
+    for i in range(batch_x.shape[0]):
+        recon, n_bytes = simulate_compression(batch_x[i:i + 1], dcn)
+        batch_y[i] = recon[0]
+        out['bytes'][i] = n_bytes
+        out['entropy'][i] = stats.entropy(_latent(dcn, batch_x[i:i + 1]), dcn.get_codebook())
+        out['ssim'][i] = metrics.ssim(batch_x[i], batch_y[i])
+        out['psnr'][i] = metrics.psnr(batch_x[i], batch_y[i])
+        out['bpp'][i] = 8 * n_bytes / (batch_x.shape[1] * batch_x.shape[2])
+    if batch_x.shape[0] == 1:
+        out = {k: v[0] for k, v in out.items()}
+    return batch_y, out
+
+
+def global_compress(dcn, batch_x):
+    """The whole latent of ``batch_x`` coded as one rANS stream of codeword
+    indices (no header, no per-feature-map fallbacks)."""
+    return entropy.compress(_vq(_latent(dcn, batch_x), dcn.get_codebook()).tobytes())
 
 
 def coded_bytes(latent, code_book):

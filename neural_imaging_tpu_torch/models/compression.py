@@ -1,7 +1,7 @@
 """
 Learned image compression: the DCN family. Port of
 ``neural_imaging_tpu/models/compression.py`` (``TwitterEncoder``,
-``TwitterDecoder``, ``DCN``, ``TwitterDCN``) without ``training_scan``.
+``TwitterDecoder``, ``DCN``, ``TwitterDCN``).
 
 The latent is quantized against a codebook (fixed, or trainable with
 ``train_codebook``) after a learned scale, and an entropy term on the
@@ -12,6 +12,11 @@ backward, on CUDA tensors; their plain versions on CPU tensors.
 
 Tensors are NCHW inside; ``compress``, ``decompress``, ``process`` and
 ``training_step`` take and return NHWC, as the reference's do.
+``training_scan`` runs steps on batches that a ``DeviceSampler`` draws on
+the device, with the reference's in-graph flips and gamma drawn from a
+``torch.Generator`` seeded as its ``PRNGKey(29)``; PyTorch cannot
+reproduce JAX's key stream, so the draws agree with the reference's in
+distribution, not value by value.
 """
 import numpy as np
 import torch
@@ -23,8 +28,14 @@ from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops import ssim as ssim_ops
 from neural_imaging_tpu_torch.ops.hopper.codebook import quantize_with_entropy_fused
+from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 
 ROUNDING_MODES = ('identity', 'soft', 'soft-codebook', 'sin')
+# the training augmentations' default probabilities (the host-fed trainer's
+# and training_scan's; the scan has no resize) and the range of the gamma draw
+AUGMENTATION_PROBS = {'resize': 0.0, 'flip_h': 0.5, 'flip_v': 0.5, 'gamma': 0.5}
+GAMMA_RANGE = (0.25, 3.0)
+SCAN_SEED = 29
 
 
 class Conv(nn.Module):
@@ -127,10 +138,14 @@ class DCN(TorchModel):
             raise ValueError(f'Unsupported loss_metric {loss_metric!r}')
         if not 0 <= float(entropy_weight) <= 1e6:
             raise ValueError(f'entropy_weight must be in [0, 1e6], got {entropy_weight!r}')
-        self._h = {'latent_bpf': latent_bpf, 'train_codebook': bool(train_codebook),
-                   'entropy_weight': float(entropy_weight), 'scale_latent': bool(scale_latent),
-                   'use_batchnorm': bool(use_batchnorm), 'loss_metric': loss_metric,
-                   'rounding': rounding}
+        # the reference's spec: its defaults decide what ``repr`` lists
+        self._h = ParamSpec({'latent_bpf': (5, int), 'train_codebook': (False, bool),
+                             'entropy_weight': (250.0, float), 'scale_latent': (True, bool),
+                             'use_batchnorm': (False, bool), 'loss_metric': ('L2', str),
+                             'rounding': ('soft', str)})
+        self._h.update(latent_bpf=latent_bpf, train_codebook=train_codebook,
+                       entropy_weight=entropy_weight, scale_latent=scale_latent,
+                       use_batchnorm=use_batchnorm, loss_metric=loss_metric, rounding=rounding)
         self.patch_size = patch_size
         self.v, self.gamma = float(v), float(gamma)
         generator = torch.Generator().manual_seed(seed)
@@ -138,6 +153,8 @@ class DCN(TorchModel):
         codebook = quant.default_codebook(latent_bpf) if train_codebook else None
         super().__init__(DCNCore(encoder, decoder, scale_latent, codebook), device)
         self._fixed_codebook = torch.from_numpy(quant.default_codebook(latent_bpf)).to(self.device)
+        self._scan_step = 0
+        self._scan_generator = None
         self.init_optimizer()
 
     def construct_model(self, generator, **kwargs):
@@ -157,7 +174,7 @@ class DCN(TorchModel):
     # -- latent machinery -------------------------------------------------------------
 
     def _codebook(self):
-        return self.module.codebook if self._h['train_codebook'] else self._fixed_codebook
+        return self.module.codebook if self._h.train_codebook else self._fixed_codebook
 
     def get_codebook(self):
         """The codebook as a numpy float32 array (L,)."""
@@ -165,13 +182,13 @@ class DCN(TorchModel):
 
     def _quantize_latent(self, z):
         """Scale → quantize → entropy of the quantized latent."""
-        if self._h['scale_latent']:
+        if self._h.scale_latent:
             z = z * self.module.latent_scale
-        if self._h['rounding'] == 'soft-codebook':
+        if self._h.rounding == 'soft-codebook':
             q, entropy, _ = quantize_with_entropy_fused(z, self._codebook(), self.v, self.gamma,
-                                                        trainable=self._h['train_codebook'])
+                                                        trainable=self._h.train_codebook)
         else:
-            q, entropy, _ = quant.quantize_with_entropy(z, self._codebook(), self._h['rounding'],
+            q, entropy, _ = quant.quantize_with_entropy(z, self._codebook(), self._h.rounding,
                                                         self.v, self.gamma)
         return q, entropy
 
@@ -184,7 +201,7 @@ class DCN(TorchModel):
 
     def loss(self, batch_x, batch_y, entropy):
         """L2 (``tf.nn.l2_loss`` convention: 0.5·Σ²) + entropy_weight · H."""
-        return ops.l2_loss(batch_x - batch_y) + self._h['entropy_weight'] * entropy
+        return ops.l2_loss(batch_x - batch_y) + self._h.entropy_weight * entropy
 
     def _nchw(self, batch):
         x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
@@ -210,17 +227,12 @@ class DCN(TorchModel):
         y = y.permute(0, 2, 3, 1)
         return (y, entropy) if return_entropy else y
 
-    def training_step(self, batch_x, learning_rate=None):
-        """One Adam step on an NHWC batch (uint8, uint16 or float in [0, 1]).
-        Returns {loss (√(2L)), ssim (batch mean), entropy} as 0-d device
-        tensors, from the forward pass before the update. The gradients of
-        the step stay in the parameters' ``.grad``."""
-        x = ops.normalize_batch(torch.as_tensor(batch_x, device=self.device))
-        if x.ndim == 3:
-            x = x[None]
-        lr = 1e-4 if learning_rate is None else float(learning_rate)
+    def _step(self, x, learning_rate):
+        """One Adam step on an NHWC float batch in [0, 1]; returns {loss
+        (√(2L)), ssim (batch mean), entropy} as 0-d device tensors, from the
+        forward pass before the update."""
         for group in self.optimizer.param_groups:
-            group['lr'] = lr
+            group['lr'] = learning_rate
         self.optimizer.zero_grad(set_to_none=True)
         x_nchw = x.permute(0, 3, 1, 2)
         y, entropy = self._apply(x_nchw)
@@ -232,10 +244,51 @@ class DCN(TorchModel):
         return {'loss': torch.sqrt(2.0 * loss.detach()), 'ssim': ssim,
                 'entropy': entropy.detach()}
 
+    def training_step(self, batch_x, learning_rate=None):
+        """One Adam step on an NHWC batch (uint8, uint16 or float in [0, 1]).
+        Returns {loss (√(2L)), ssim (batch mean), entropy} as 0-d device
+        tensors, from the forward pass before the update. The gradients of
+        the step stay in the parameters' ``.grad``."""
+        x = ops.normalize_batch(torch.as_tensor(batch_x, device=self.device))
+        if x.ndim == 3:
+            x = x[None]
+        return self._step(x, 1e-4 if learning_rate is None else float(learning_rate))
+
+    def _augment(self, x, probs):
+        """The reference's in-graph augmentations of an NHWC batch: a
+        horizontal and a vertical flip of the whole batch and a gamma
+        x^(1/γ), γ ~ U(0.25, 3) per image, each with its probability, drawn on
+        the device."""
+        g = self._scan_generator
+        u = torch.rand(3, generator=g, device=self.device)
+        gamma = GAMMA_RANGE[0] + (GAMMA_RANGE[1] - GAMMA_RANGE[0]) * torch.rand(
+            (x.shape[0], 1, 1, 1), generator=g, device=self.device)
+        x = torch.where(u[0] < probs['flip_h'], x.flip(2), x)
+        x = torch.where(u[1] < probs['flip_v'], x.flip(1), x)
+        return torch.where(u[2] < probs['gamma'], torch.pow(x, 1.0 / gamma).clamp(0, 1), x)
+
+    def training_scan(self, sampler, n_steps, learning_rate=None, augmentation_probs=None):
+        """``n_steps`` training steps on RGB batches that ``sampler`` (a
+        ``DeviceSampler`` of RGB on the model's device) draws on the device,
+        numbered on from the model's last scanned step, each augmented as
+        :meth:`_augment` with ``augmentation_probs`` (default
+        ``AUGMENTATION_PROBS``). Returns per-step {loss, ssim, entropy}
+        tensors on the device."""
+        probs = {**AUGMENTATION_PROBS, **(augmentation_probs or {})}
+        if self._scan_generator is None:
+            self._scan_generator = torch.Generator(device=self.device).manual_seed(SCAN_SEED)
+        lr = 1e-4 if learning_rate is None else float(learning_rate)
+        outs = []
+        for _ in range(n_steps):
+            rgb = sampler(self._scan_step)
+            self._scan_step += 1
+            outs.append(self._step(self._augment(ops.normalize_batch(rgb), probs), lr))
+        return {k: torch.stack([o[k] for o in outs]) for k in ('loss', 'ssim', 'entropy')}
+
     # -- stats and names --------------------------------------------------------------
 
     def compression_stats(self, patch_size=None, n_latent_bytes=None):
-        n_latent_bytes = n_latent_bytes or self._h['latent_bpf'] / 8
+        n_latent_bytes = n_latent_bytes or self._h.latent_bpf / 8
         ps = patch_size or self.patch_size
         if ps is None:
             raise ValueError('Patch size not specified!')
@@ -260,13 +313,22 @@ class DCN(TorchModel):
             return None
         return int(np.prod(self.latent_shape))
 
+    def reset_performance_stats(self):
+        self.performance = self._reset_performance(['loss', 'entropy', 'ssim', 'psnr'])
+
+    def summary(self):
+        l_shape = 'x'.join(str(x) for x in self.latent_shape if x is not None)
+        return (f'{self.class_name} : {l_shape}-D latent space @ {self._h.latent_bpf}-bpf '
+                f'[{self.count_parameters():,} params]')
+
+    def summary_compact(self):
+        return f'{self.class_name} {self.latent_shape[-1]}-D'
+
     @property
     def model_code(self):
         h = self._h
-        parts = [h['rounding'],
-                 f"Q+{h['latent_bpf']}bpf" if h['train_codebook'] else f"Q-{h['latent_bpf']}bpf",
-                 'S+' if h['scale_latent'] else 'S-',
-                 f"H+{h['entropy_weight']:.2f}"]
+        parts = [h.rounding, f"Q{'+' if h.train_codebook else '-'}{h.latent_bpf}bpf",
+                 'S+' if h.scale_latent else 'S-', f'H+{h.entropy_weight:.2f}']
         return f'{type(self).__name__}-{self.n_features}C/{"_".join(parts)}'
 
 
@@ -279,6 +341,7 @@ class TwitterDCN(DCN):
         if activation not in ops.ACTIVATIONS:
             raise ValueError(f'Unsupported activation {activation!r}')
         self.n_features = n_features
+        self._h.add({'n_features': (32, int), 'activation': ('leaky_relu', str)})
         self._h.update(n_features=n_features, activation=activation)
         return (TwitterEncoder(n_features, activation, generator),
                 TwitterDecoder(n_features, activation, generator))

@@ -221,8 +221,9 @@ class JPEG(TorchModel):
             return {}
         return {name: t.detach().cpu().numpy() for name, t in self._model.params.items()}
 
-    def loss(self, batch_c, batch_C):
-        """Mean squared distortion of the channel (JPEG has no rate to train)."""
+    def loss(self, batch_c, batch_C, entropy=None):
+        """Mean squared distortion of the channel (``entropy`` is unused: JPEG
+        has no rate to train)."""
         return torch.mean((batch_c - batch_C) ** 2)
 
     def _resolve_quality(self, quality):

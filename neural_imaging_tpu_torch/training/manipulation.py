@@ -11,6 +11,11 @@ snapshots every ``validation_schedule`` epochs and at the end.
 Batches come from the host (``EpochPrefetcher``: sampled on a thread,
 copied ahead) or, with ``device_data=True``, from the whole training set on
 the device (``DeviceSampler`` and one ``flow.training_scan`` an epoch).
+A trainable channel is validated at each validation point (a learned
+codec also at the end) and snapshotted with the run; at the end a learned
+codec's snapshot gets a ``progress.json``, copied from its source directory
+or written anew, so that it restores as a codec on its own.
+
 Losses stay on the device between validation points, where one copy brings
 them to the host. Progress is one log line per validation point, and a
 debug line where each validation starts, once the epochs before it have
@@ -18,13 +23,16 @@ run on the device. The reference's figures need matplotlib and
 are not written; its ``parallel`` trainer is not ported.
 """
 import os
+import shutil
 from collections import OrderedDict
 
 import torch
 
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
+from neural_imaging_tpu_torch.models.compression import DCN
 from neural_imaging_tpu_torch.training import validation
+from neural_imaging_tpu_torch.training.compression import save_progress as save_codec_progress
 from neural_imaging_tpu_torch.utils import utils
 from neural_imaging_tpu_torch.utils.utils import logger
 
@@ -182,8 +190,13 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
                 flow.nip, data, loss_type='L2' if final else flow.nip.loss_metric)
             for metric, vals in zip(['ssim', 'psnr', 'loss'], values):
                 flow.nip.log_metric(metric, 'validation', vals)
-        if flow.is_trainable('dcn') and not final:
-            for metric, value in validation.validate_jpeg(flow.codec, data).items():
+        # a trainable codec is validated and saved at every point; q-tables not at the end
+        learned_codec = isinstance(flow.codec, DCN)
+        codec_point = flow.is_trainable('dcn') and (learned_codec or not final)
+        if codec_point:
+            values = (validation.validate_dcn(flow.codec, data) if learned_codec
+                      else validation.validate_jpeg(flow.codec, data))
+            for metric, value in values.items():
                 flow.codec.log_metric(metric, 'validation', value)
 
         validation.save_training_progress(training_summary, flow, save_dir, quiet=not final)
@@ -195,9 +208,17 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
             # the FAN learned on this NIP's output: a run directory restores both
             flow.nip.save_model(os.path.join(model_directory, flow.nip.scoped_name), epoch,
                                 quiet=not final)
-        if flow.is_trainable('dcn') and not final:
-            flow.codec.save_model(os.path.join(model_directory, flow.codec.scoped_name), epoch,
-                                  quiet=True)
+        if codec_point:
+            codec_dir = os.path.join(model_directory, flow.codec.scoped_name)
+            flow.codec.save_model(codec_dir, epoch, quiet=not final)
+            if learned_codec and final:
+                # the snapshot restores as a codec: its log from the source, or a new one
+                source = os.path.join(flow._distribution['compression_params']['dirname'],
+                                      flow.codec.scoped_name, 'progress.json')
+                if os.path.isfile(source):
+                    shutil.copyfile(source, os.path.join(codec_dir, 'progress.json'))
+                else:
+                    save_codec_progress(flow.codec, data, dict(training), codec_dir)
         losses = flow.fan.performance['loss']['training']
         logger.info('epoch %d%s: loss %.4f, accuracy %.3f%s', epoch, ' (final)' if final else '',
                     losses[-1] if losses else float('nan'), accuracy,

@@ -1,11 +1,11 @@
 """
 Validation of the workflow's parts and the ``training.json`` writer: port of
-``validate_fan``, ``validate_nip``, ``validate_jpeg`` and
+``validate_fan``, ``validate_nip``, ``validate_jpeg``, ``validate_dcn`` and
 ``save_training_progress`` of ``neural_imaging_tpu/training/validation.py``.
 
 The networks run on the flow's device; the image metrics (``utils.metrics``:
 skimage's SSIM and PSNR) run on the host in float64, as in the reference.
-The reference's figures (``nip_validation_*.jpg``,
+The reference's figures (``nip_validation_*.jpg``, ``dcn_validation_*.jpg``,
 ``visualize_manipulation_training``) need matplotlib and are not written.
 """
 import os
@@ -14,6 +14,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from neural_imaging_tpu_torch.models.compression import DCN
 from neural_imaging_tpu_torch.models.jpeg import JPEG
 from neural_imaging_tpu_torch.utils import jsonlog, metrics
 from neural_imaging_tpu_torch.utils.utils import logger
@@ -39,6 +40,24 @@ def validate_jpeg(jpeg_codec, data, batch_size=1):
         results['entropy'].append(entropy)
 
     return {k: float(np.mean(v)) for k, v in results.items()}
+
+
+def validate_dcn(dcn, data):
+    """Mean SSIM and PSNR, the loss and the entropy of a DCN over the
+    validation set, decoded in one batch; None for a codec that is not a
+    DCN."""
+    if not isinstance(dcn, DCN):
+        return None
+    batch_x = data.next_validation_batch(0, data.count_validation)
+    if isinstance(batch_x, tuple):
+        batch_x = batch_x[-1]
+    batch_y, entropy = dcn.process(batch_x, return_entropy=True)
+    batch_y = batch_y.cpu().numpy()
+    entropy = float(entropy)
+    loss = float(dcn.loss(torch.from_numpy(batch_x), torch.from_numpy(batch_y), entropy))
+    return {'ssim': float(np.mean(metrics.ssim(batch_x, batch_y))),
+            'psnr': float(np.mean(metrics.psnr(batch_x, batch_y))),
+            'loss': loss, 'entropy': entropy}
 
 
 def validate_nip(model, data, loss_type='L2'):
@@ -105,15 +124,18 @@ def save_training_progress(training_summary, flow, root_dir, quiet=False):
 
     training['nip'] = OrderedDict(
         model=flow.nip.class_name, init=repr(flow.nip),
-        args=flow.nip._h.to_json(), performance=flow.nip.performance)
+        args=flow.nip._h.to_json() if hasattr(flow.nip, '_h') else {},
+        performance=flow.nip.performance)
 
     training['forensics'] = OrderedDict(
         model=flow.fan.class_name, init=repr(flow.fan),
         args=flow.fan._h.to_json(), performance=flow.fan.performance)
 
     if flow.codec is not None:
-        training['codec'] = OrderedDict(model=flow.codec.class_name, init=repr(flow.codec),
-                                        performance=flow.codec.performance)
+        training['codec'] = OrderedDict(model=flow.codec.class_name, init=repr(flow.codec))
+        if hasattr(flow.codec, '_h'):
+            training['codec']['args'] = flow.codec._h.to_json()
+        training['codec']['performance'] = flow.codec.performance
 
     filename = os.path.join(root_dir, 'training.json')
     if not quiet:

@@ -18,6 +18,10 @@ class ParamSpec:
         self.__dict__['_specs'] = dict(specs)
         self.__dict__['_values'] = {}
 
+    def add(self, specs):
+        """Declare more names: {name: (default, type)}."""
+        self._specs.update(specs)
+
     def __getattr__(self, name):
         if name.startswith('_'):
             raise AttributeError(name)

@@ -12,11 +12,15 @@ quality) is made on the device from ``torch.Generator``s seeded with
 ``rng_seed``, so a step never waits on the host; PyTorch cannot reproduce
 JAX's PRNG, so parity tests pass the same strengths to both (``_losses``).
 ``training_scan`` runs steps on batches that a ``DeviceSampler`` draws on
-the device. The NIP is any ported camera ISP but ONet (INet, UNet, DNet,
-ClassicISP), optionally from its snapshot (``'UNet:<dir>'``); ``remat``
-recomputes the NIP and the manipulations in the backward pass instead of
-keeping their activations. The DCN channel (with ONet) and awgn / gamma /
-median are not ported yet.
+the device. The NIP is any ported camera ISP (INet, UNet, DNet,
+ClassicISP, optionally from its snapshot: ``'UNet:<dir>'``) or ONet, which
+passes RGB input through; ``remat`` recomputes the NIP and the
+manipulations in the backward pass instead of keeping their activations.
+The channel is a JPEG (fixed or trainable q-tables), a learned codec
+(``'dcn'``: a ``TwitterDCN`` restored from a directory or preset, its
+quantizer on K2 and K3 or K4, trainable as the ``'dcn'`` part with its
+rate-distortion loss weighted by λ_dcn) or none. awgn / gamma / median are
+not ported yet.
 
 Precision, as in the reference: the NIP develops in float32 (its fidelity
 loss too); ``channel_dtype`` is the dtype of the manipulation expansion,
@@ -32,7 +36,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from neural_imaging_tpu_torch.compression import codec as dcn_codec
 from neural_imaging_tpu_torch.models import forensics, jpeg as jpeg_models, pipelines
+from neural_imaging_tpu_torch.models.compression import DCN
 from neural_imaging_tpu_torch.ops import manipulations as manips
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.utils.device import resolve_device
@@ -44,7 +50,7 @@ JPEG_PARAMS = ('quality', 'codec', 'trainable', 'rng')
 # candidate strengths of a switched manipulation (resample) across its range
 N_STRENGTH_CANDIDATES = 8
 # the parts a flow may train; the FAN always trains, 'dcn' names the channel's
-# trainable slot (here the JPEG q-tables), as in the reference
+# trainable slot (the learned codec, or the JPEG q-tables), as in the reference
 COMPONENTS = ('fan', 'nip', 'dcn')
 # the NIP's fidelity losses the flow takes, as in the reference
 NIP_LOSSES = ('L2', 'L1', 'SSIM')
@@ -142,15 +148,18 @@ class ManipulationClassification:
                  manip_jpeg_dtype=None, pool_impl='window', remat=False, device='cuda'):
         """
         :param nip_model: '<NIP class>[:snapshot dir]' (INet, UNet, DNet or
-            ClassicISP); a directory loads the NIP's weights from it
+            ClassicISP; or ONet, which takes RGB batches of twice the raw
+            patch); a directory loads the NIP's weights from it
         :param manipulations: list of '<name>[:strength]' specs
         :param distribution: {'downsampling': 'pool[:factor]' | 'bilinear' | 'none',
-                              'compression': 'jpeg' | 'none',
+                              'compression': 'jpeg' | 'dcn' | 'none',
                               'compression_params': {'quality': int | (lo, hi) | set,
-                                                     'codec': 'soft'|…, 'trainable': bool}}
+                                                     'codec': 'soft'|…, 'trainable': bool}
+                                                    or, for 'dcn', {'dirname': directory
+                                                    or preset of the codec}}
         :param fan_args: FAN constructor arguments other than n_classes/patch_size
         :param trainable: parts to train besides the FAN: 'nip', 'dcn' (the
-            channel's q-tables, when the codec is trainable)
+            learned codec, or the channel's q-tables when the JPEG is trainable)
         :param raw_patch_size: RAW patch size (RGB patches are twice as large)
         :param loss_metric: the NIP's fidelity loss ('L2', 'L1', 'SSIM')
         :param rng_seed: seeds the host draws (``_sample_strengths``) and the
@@ -204,11 +213,14 @@ class ManipulationClassification:
         if not (ds.startswith('pool') or ds in ('bilinear', 'none')):
             raise ValueError(f'Unsupported channel down-sampling {ds!r}')
         compression = self._distribution['compression']
-        if compression not in ('jpeg', 'none'):
-            raise NotImplementedError(f"compression {compression!r} is not ported (ROADMAP.md "
-                                      "§1 item 3); use 'jpeg' or 'none'")
+        if compression not in ('jpeg', 'dcn', 'none'):
+            raise ValueError(f'Unsupported channel compression {compression}')
         self.codec = None
-        if compression == 'jpeg':
+        if compression == 'dcn':
+            self.codec = dcn_codec.restore(
+                self._distribution['compression_params']['dirname'],
+                patch_size=2 * raw_patch_size // self.downsampling_factor, device=self.device)
+        elif compression == 'jpeg':
             params = dict(self._distribution.get('compression_params') or {})
             unknown = sorted(set(params) - set(JPEG_PARAMS))
             if unknown:
@@ -220,9 +232,6 @@ class ManipulationClassification:
             raise ValueError('The current codec does not appear to be trainable!')
 
         nip_model, _, nip_pretrained = nip_model.partition(':')
-        if nip_model == 'ONet':
-            raise NotImplementedError("NIP 'ONet' (RGB input) belongs to the DCN channel, which "
-                                      'is not ported (ROADMAP.md §1 item 3)')
         if nip_model not in pipelines.supported_models:
             raise ValueError(f'Invalid NIP model ({nip_model})! '
                              f'Available: {pipelines.supported_models}')
@@ -275,7 +284,10 @@ class ManipulationClassification:
         ``models/{fan,<nip>}/*.npz``) with its weights, as the reference's
         ``test_fan.py`` rebuilds it: the channel precision its log records
         (a key it lacks means float32), each overridden by a dtype argument
-        given here; the FAN's dtype and stem from its logged arguments."""
+        given here; the FAN's dtype and stem from its logged arguments. A
+        learned codec is restored from the directory or preset its
+        distribution names, as there: a snapshot of a trained codec under
+        ``models/`` is not read."""
         with open(os.path.join(run_dir, 'training.json')) as f:
             log = json.load(f)
         precision = log.get('channel_precision') or {}
@@ -345,14 +357,16 @@ class ManipulationClassification:
         return int(ds.split(':')[-1]) if ':' in ds else 2
 
     def _codec_is_trainable(self):
-        return self.codec is not None and self.codec.trainable
+        return isinstance(self.codec, DCN) or (self.codec is not None and self.codec.trainable)
 
     def _collect_params(self):
-        """{'fan': {name: parameter}, 'nip': {...}} and, for a trainable JPEG
-        channel, its q-tables under 'dcn'."""
+        """{'fan': {name: parameter}, 'nip': {...}} and under 'dcn' the
+        learned codec's parameters or a trainable JPEG channel's q-tables."""
         params = {'fan': dict(self.fan.module.named_parameters()),
                   'nip': dict(self.nip.module.named_parameters())}
-        if self._codec_is_trainable():
+        if isinstance(self.codec, DCN):
+            params['dcn'] = dict(self.codec.module.named_parameters())
+        elif self._codec_is_trainable():
             params['dcn'] = dict(self.codec._model.params)
         return params
 
@@ -410,13 +424,17 @@ class ManipulationClassification:
         return batch
 
     def _compress(self, batch, q_luma, q_chroma):
-        """The JPEG channel, its result in the channel dtype: through the
-        codec's own (trainable) q-tables in float32 when it has them, else
-        through ``q_luma``, ``q_chroma`` in float32 (K1) or, with
-        ``channel_jpeg_dtype`` 'bfloat16', in bfloat16 through the plane
-        form; the batch itself without a codec."""
+        """The channel: (its output in the channel dtype, the entropy of the
+        learned codec's latent, else None). The learned codec runs in float32.
+        The JPEG runs through its own (trainable) q-tables in float32 when it
+        has them, else through ``q_luma``, ``q_chroma`` in float32 (K1) or,
+        with ``channel_jpeg_dtype`` 'bfloat16', in bfloat16 through the plane
+        form; without a codec the batch passes as it is."""
+        if isinstance(self.codec, DCN):
+            y, entropy = self.codec._apply(batch.to(torch.float32))
+            return y.to(self._channel_dtype), entropy
         if self.codec is None:
-            return batch
+            return batch, None
         precision = None
         if self.codec.trainable:
             tables = self.codec._model.params
@@ -428,7 +446,7 @@ class ManipulationClassification:
             batch = batch.to(torch.float32)
         y, _ = jpeg_models.jpeg_forward_nchw(batch, q_luma, q_chroma, rounding=self.codec.codec,
                                              precision=precision)
-        return y.to(self._channel_dtype)
+        return y.to(self._channel_dtype), None
 
     def _forward(self, batch_x, q_luma, q_chroma, strength_scalars=None, strength_indices=None):
         def acquire(x):
@@ -440,8 +458,8 @@ class ManipulationClassification:
             batch_Y, batch_c = checkpoint(acquire, batch_x, use_reentrant=False)
         else:
             batch_Y, batch_c = acquire(batch_x)
-        batch_C = self._compress(batch_c, q_luma, q_chroma)
-        return batch_Y, batch_c, batch_C, self.fan.module(batch_C)
+        batch_C, entropy = self._compress(batch_c, q_luma, q_chroma)
+        return batch_Y, batch_c, batch_C, entropy, self.fan.module(batch_C)
 
     def _batch_labels(self, batch_size):
         """Class-major labels of an expanded batch, on the device."""
@@ -453,15 +471,15 @@ class ManipulationClassification:
         and the target RGB ``batch_y`` (or None). The loss is the
         cross-entropy plus λ_nip times the NIP's loss if the NIP trains and
         λ_dcn times the channel's if it trains."""
-        batch_Y, batch_c, batch_C, probs = self._forward(
+        batch_Y, batch_c, batch_C, entropy, probs = self._forward(
             batch_x.permute(0, 3, 1, 2), q_luma, q_chroma, strength_scalars, strength_indices)
         loss_ce = forensics.sparse_categorical_crossentropy(
             self._batch_labels(batch_x.shape[0]), probs)
         zero = torch.zeros((), device=probs.device)
         loss_nip = (self.nip.loss(batch_y, batch_Y.permute(0, 2, 3, 1))
                     if batch_y is not None else zero)
-        loss_dcn = (self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32))
-                    if self.codec is not None else zero)
+        loss_dcn = (self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32),
+                                    entropy) if self.codec is not None else zero)
         loss = loss_ce
         if 'nip' in self._trainable:
             loss = loss + lambda_nip * loss_nip
@@ -471,10 +489,13 @@ class ManipulationClassification:
 
     # -- random draws -----------------------------------------------------------------
 
+    def _has_jpeg(self):
+        return self.codec is not None and not isinstance(self.codec, DCN)
+
     def _channel_qtables(self):
         """The channel's (luma, chroma) tables for a forward, a randomized
-        quality drawn on the host by the codec; (None, None) without a codec."""
-        if self.codec is None:
+        quality drawn on the host by the codec; (None, None) without a JPEG."""
+        if not self._has_jpeg():
             return None, None
         quality = self.codec._resolve_quality(None) if self.codec.quality is not None else 50
         return jpeg_models.qtables(quality, self.device)
@@ -482,8 +503,8 @@ class ManipulationClassification:
     def _channel_qtables_in_graph(self):
         """The channel's tables for a training step, drawn on the device: a
         fixed quality's tables, a quality drawn from [lo, hi) of a 2-range, or
-        one of a longer set's tables; (None, None) without a codec."""
-        if self.codec is None:
+        one of a longer set's tables; (None, None) without a JPEG."""
+        if not self._has_jpeg():
             return None, None
         quality = self.codec.quality if self.codec.quality is not None else 50
         if jpeg_models._is_number(quality):
@@ -615,19 +636,20 @@ class ManipulationClassification:
     # -- public API -------------------------------------------------------------------
 
     def run_workflow(self, batch_x, augment=False):
-        """NHWC RAW batch (N, h, w, 4) in [0,1] → (batch_Y, batch_c, batch_C,
-        entropy, probabilities): the developed RGB, the downsampled expanded
-        batch and its JPEG (NHWC views), 0 for the JPEG channel's entropy, and
-        the class probabilities ((K+1)·N, K+1), rows class-major. ``augment``
+        """NHWC RAW batch (N, h, w, 4) in [0,1] (RGB (N, h, w, 3) for ONet) →
+        (batch_Y, batch_c, batch_C, entropy, probabilities): the developed
+        RGB, the downsampled expanded batch and its channel output (NHWC
+        views), the learned codec's latent entropy (0 for a JPEG), and the
+        class probabilities ((K+1)·N, K+1), rows class-major. ``augment``
         draws the strengths (and a randomized channel quality) on the host."""
         x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device)
         q_luma, q_chroma = self._channel_qtables()
         scalars, indices = self._sample_strengths() if augment else (None, None)
         with torch.no_grad():
-            batch_Y, batch_c, batch_C, probs = self._forward(
+            batch_Y, batch_c, batch_C, entropy, probs = self._forward(
                 x.permute(0, 3, 1, 2), q_luma, q_chroma, scalars, indices)
         nhwc = [t.permute(0, 2, 3, 1) for t in (batch_Y, batch_c, batch_C)]
-        return (*nhwc, torch.zeros((), device=self.device), probs)
+        return (*nhwc, self._entropy_or_zero(entropy), probs)
 
     def run_workflow_to_decisions(self, batch_x, augment=False):
         """Predicted class of every row of :meth:`run_workflow`, as a numpy array."""
@@ -655,9 +677,14 @@ class ManipulationClassification:
 
     def run_compression(self, batch_y, return_entropy=False):
         with torch.no_grad():
-            out = self._compress(self._batch(batch_y).permute(0, 3, 1, 2),
-                                 *self._channel_qtables()).permute(0, 2, 3, 1)
-        return (out, torch.zeros((), device=self.device)) if return_entropy else out
+            out, entropy = self._compress(self._batch(batch_y).permute(0, 3, 1, 2),
+                                          *self._channel_qtables())
+        out = out.permute(0, 2, 3, 1)
+        return (out, self._entropy_or_zero(entropy)) if return_entropy else out
+
+    def _entropy_or_zero(self, entropy):
+        """A result's entropy: the learned codec's, else 0."""
+        return torch.zeros((), device=self.device) if entropy is None else entropy
 
     def _rgb_to_fan(self, batch_Y):
         return self.run_compression(self.run_downsampling(self.run_manipulations(batch_Y)))

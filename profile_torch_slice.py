@@ -64,7 +64,7 @@ def stage_times(flow, x, reps):
         'inet': lambda t: flow.nip.module(t),
         'manipulations': flow._manipulate,
         'pool': flow._downsample,
-        'jpeg channel': lambda t: flow._compress(t, *flow._channel_qtables()),
+        'jpeg channel': lambda t: flow._compress(t, *flow._channel_qtables())[0],
         'fan': lambda t: flow.fan.module(t),
     }
     times = {name: [] for name in stages}
@@ -124,7 +124,7 @@ def train_stage_times(flow, x, y, lambda_nip, reps):
         md = leaf(m)
         c = timer('pool fwd', lambda: flow._downsample(md))
         cd = leaf(c)
-        C = timer('jpeg channel fwd', lambda: flow._compress(cd, *q))
+        C = timer('jpeg channel fwd', lambda: flow._compress(cd, *q)[0])
         Cd = leaf(C)
         p = timer('fan fwd', lambda: flow.fan.module(Cd))
         loss = timer('loss fwd', lambda: forensics.sparse_categorical_crossentropy(labels, p)

@@ -1,8 +1,9 @@
 """Parity of the port's DCN bitstream (``compression/codec.py``) and its rANS
 binding (``compression/entropy.py``) with the JAX package on the CPU: the
 same bytes for the same input, and exact round trips. Bytes are compared
-for equality; the decoded images of the shipped 32c codec within 1e-5
-(float32 convolutions summed in another order)."""
+for equality; the decoded images of the shipped codecs (32c, and 8c, 16c,
+64c at two sizes) within 1e-5 (float32 convolutions summed in another
+order)."""
 import numpy as np
 import pytest
 import torch
@@ -121,3 +122,26 @@ def test_shipped_codec_bytes_and_images_equal_the_jax_packages(pair):
     image, n_bytes = codec.simulate_compression(x, port)
     assert n_bytes == len(blob)
     np.testing.assert_array_equal(image, y)
+
+
+_PRESETS = {}
+
+
+def preset_pair(preset):
+    if preset not in _PRESETS:
+        _PRESETS[preset] = jcodec.restore(preset), codec.restore(preset, device='cpu')
+    return _PRESETS[preset]
+
+
+@pytest.mark.parametrize('h,w', [(64, 96), (128, 192)])
+@pytest.mark.parametrize('preset', ['8c', '16c', '64c'])
+def test_other_shipped_codecs_bytes_and_images_equal_the_jax_packages(preset, h, w):
+    """The 8c, 16c and 64c codecs as the 32c one above: the same bytes for
+    one image, and its decode within 1e-5."""
+    ref, port = preset_pair(preset)
+    assert port.latent_shape[-1] == int(preset[:-1]) and port.model_code == ref.model_code
+    x = np.random.default_rng(h + int(preset[:-1])).random((1, h, w, 3)).astype(np.float32)
+    blob = codec.compress(x, port)
+    assert blob == jcodec.compress(x, ref)
+    np.testing.assert_allclose(codec.decompress(blob, port),
+                               np.asarray(jcodec.decompress(blob, ref)), atol=1e-5)

@@ -75,11 +75,12 @@ def codebook_inputs(seed, n, bpf, device, offset=0.0):
     return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
 
 
-# ragged N (1, 255, 777), the DCN's training and serving latents, and an N
-# past the grid cap (1024 blocks of 256) that exercises the grid-stride loop;
-# L from 16 to 256 codewords
+# ragged N (1, 255, 777), the DCN's training and serving latents, the DCN
+# channel's latent in the joint flow (m_quality_dcn: 50 x 16 x 16 x 32), and
+# Ns past the grid cap (1024 blocks of 256) that exercise the grid-stride
+# loop; L from 16 to 256 codewords
 @pytest.mark.parametrize('n,bpf', [(1, 5), (255, 5), (777, 4), (131072, 5), (196608, 5),
-                                   (300001, 8)])
+                                   (300001, 8), (409600, 5)])
 @pytest.mark.parametrize('v,gamma', [(50.0, 25.0), (0.0, 5.0)])
 def test_codebook_kernels_match_plain(cuda, n, bpf, v, gamma):
     z, g, cb, pc = codebook_inputs(n + bpf, n, bpf, cuda, offset=0.05)
@@ -178,6 +179,28 @@ def test_fused_quantizer_launches_its_kernels_on_the_card(cuda, trainable):
     # (hard − soft) + soft: within a float32 ulp of a codeword of magnitude <= 16
     torch.testing.assert_close(q, q_ref, rtol=0, atol=4e-6)
     assert bool(torch.isfinite(z.grad).all()) and (cb.grad is not None) == trainable
+
+
+def test_dcn_flow_step_launches_k1_k2_k3_on_the_card(cuda):
+    """The joint step of the m_quality_dcn lc-0.1000 flow (ONet → jpeg:80 →
+    the 32c codec, trainable → FAN) at batch 2: K1 once (the jpeg
+    manipulation), K2 once and K3 once a step; K2 alone and K1 once a
+    request; the first step within ``compare_flow_steps`` of the CPU's."""
+    import chip_smoke
+    flow, cpu = chip_smoke.dcn_flow(cuda), chip_smoke.dcn_flow('cpu')
+    x = torch.from_numpy(chip_smoke.synthetic_rgb(3, 2, 128, 128))
+    chip_smoke.compare_flow_steps(
+        flow.loss_and_gradients(x.to(cuda), None, 0.0, chip_smoke.DCN_FLOW_LAMBDA),
+        cpu.loss_and_gradients(x, None, 0.0, chip_smoke.DCN_FLOW_LAMBDA),
+        chip_smoke.fan_input_flips(flow, cpu, x), part='dcn')
+    counters = (jpeg8x8.jpeg_core_cuda, codebook.codebook_fwd_cuda, codebook.codebook_bwd_cuda,
+                codebook.codebook_bwd_train_cuda)
+    before = [f.launches for f in counters]
+    flow.training_step(x.to(cuda), None, 0.0, chip_smoke.DCN_FLOW_LAMBDA)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 0]
+    before = [f.launches for f in counters]
+    flow.run_workflow_to_decisions(x.to(cuda))
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0]
 
 
 def test_codebook_wrappers_refuse_what_the_kernels_do_not_take(cuda):

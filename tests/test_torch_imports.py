@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import neural_imaging_tpu_torch
-from neural_imaging_tpu_torch.cli import train_manipulation, train_nip
+from neural_imaging_tpu_torch.cli import train_dcn, train_manipulation, train_nip
 from neural_imaging_tpu_torch.compression import codec
 from neural_imaging_tpu_torch.data import fixtures
 from neural_imaging_tpu_torch.data.dataset import Dataset
@@ -43,7 +43,7 @@ def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package()
                  'compression.codec', 'compression.entropy', 'data.png', 'data.fixtures',
                  'data.dataset', 'data.prefetch', 'data.device_sampler', 'training.validation',
                  'training.manipulation', 'cli.train_manipulation', 'training.pipeline',
-                 'cli.train_nip', 'models.pipelines'):
+                 'cli.train_nip', 'models.pipelines', 'training.compression', 'cli.train_dcn'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',
@@ -87,6 +87,9 @@ def test_chip_smoke_fails_without_a_gpu():
     lambda: pipelines.ClassicISP(),
     lambda: pipelines.ONet(),
     lambda: base.restore(os.path.join(ROOT, 'data/models/nip/QualityRef/UNet_5'), pipelines),
+    lambda: manipulation_classification.ManipulationClassification(
+        'ONet', raw_patch_size=16, distribution={'downsampling': 'none', 'compression': 'dcn',
+                                                 'compression_params': {'dirname': '32c'}}),
 ])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -100,7 +103,7 @@ def test_cpu_is_taken_only_when_asked():
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
-@pytest.mark.parametrize('entry', ['sampler', 'cli', 'nip_cli'])
+@pytest.mark.parametrize('entry', ['sampler', 'cli', 'nip_cli', 'dcn_cli', 'dcn_channel_cli'])
 def test_trainer_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_path,
                                                                     monkeypatch):
     data_dir = fixtures.make_dataset(str(tmp_path / 'data'), n_images=2, height=64, width=96)
@@ -112,7 +115,14 @@ def test_trainer_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_p
             train_manipulation.main(['--nip', 'INet', '--data', data_dir, '--split', '1:1:1',
                                      '--patch', '16', '--batch', '1', '--dir',
                                      str(tmp_path / 'out')])
-        else:
+        elif entry == 'nip_cli':
             train_nip.main(['--nip', 'UNet', '--data', data_dir, '--split', '1:1:1',
                             '--patch', '16', '--batch', '1', '--out', str(tmp_path / 'out')])
+        elif entry == 'dcn_cli':
+            train_dcn.main(['--data', data_dir, '--split', '1:1:1', '--patch', '32',
+                            '--batch', '1', '--out', str(tmp_path / 'out')])
+        else:
+            train_manipulation.main(['--nip', 'ONet', '--dcn', '32c', '--data', data_dir,
+                                     '--split', '1:1:1', '--patch', '16', '--batch', '1',
+                                     '--dir', str(tmp_path / 'out')])
     assert not (tmp_path / 'out').exists()

@@ -424,7 +424,7 @@ def test_bench_configuration_builds_bf16_everywhere():
     _, port = bench_flows()
     bx, _ = camera_batches(30)
     with torch.no_grad():
-        batch_Y, batch_c, batch_C, probs = port._forward(
+        batch_Y, batch_c, batch_C, _, probs = port._forward(
             port._batch(bx).permute(0, 3, 1, 2), *port._channel_qtables())
     assert batch_Y.dtype == torch.float32 and probs.dtype == torch.float32
     assert batch_c.dtype == batch_C.dtype == BF16

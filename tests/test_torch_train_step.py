@@ -277,7 +277,7 @@ def channel_flips(ref, port, bx, scalars, indices):
     c = got[2].permute(0, 2, 3, 1).numpy()
     n, h, w, ch = c.shape
     blocks = np.abs(c - c_ref).reshape(n, h // 8, 8, w // 8, 8, ch).max(axis=(2, 4))
-    return (blocks > 1e-5).reshape(port.n_classes, -1).sum(axis=1), got[3], probs_ref
+    return (blocks > 1e-5).reshape(port.n_classes, -1).sum(axis=1), got[-1], probs_ref
 
 
 def test_trainable_qtable_run_step():

@@ -115,9 +115,9 @@ def test_restored_flow_shape(flows):
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'distribution': {'compression': 'dcn'}},
+    {'manipulations': ['median']},
     {'manipulations': ['awgn']},
-    {'nip_model': 'ONet'},
+    {'manipulations': ['gamma']},
     {'distribution': {'compression_params': {'quality': 50, 'codec': 'soft', 'dirname': 'x'}}},
 ])
 def test_unported_options_raise(kwargs):
