@@ -10,8 +10,9 @@ NVIDIA GPU:
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and time both (CUDA events, L2 flushed; a
    kernel's time is the device's alone, see ``time_ms``), and each of its
-   launches (``torch.profiler``): K1 (dJPEG core), K2 (codebook quantizer),
-   K3 and K4 (its backwards);
+   launches (``torch.profiler``): K1 (dJPEG core; also at the DCN flow's
+   and the 8-class flow's channel shapes), K2 (codebook quantizer), K3 and
+   K4 (its backwards);
 4. manipulation classification: restore the shipped ``m_quality`` run (INet
    → 4 manipulations → pool → JPEG QF 50 → FAN, full width) and answer
    requests of raw 128-px patches with ``run_workflow_to_decisions``; check
@@ -75,7 +76,20 @@ NVIDIA GPU:
    procedural RGB images, host-fed then device-resident, its
    ``progress.json`` and snapshot read back to the logged validation SSIM,
    the first epoch against the CPU trainer's;
-12. print one JSON line of the kernels, then the last line
+12. all seven manipulations through the joint flow: ``[manip7 classify]``
+   and ``[manip7 train]`` run the m_quality run's shape (its INet snapshot,
+   trainable, λ_nip 0.1; pool:2; JPEG QF 50; the FAN at its logged widths)
+   with sharpen, resample, gaussian, jpeg, awgn, gamma and median and an
+   8-class FAN from its seed, at batch 20 raw 128-px patches (160 expanded
+   256-px images): requests (K1 twice each) and request 0 against the CPU
+   with the same awgn noise; the first step against the CPU's
+   (``fan_input_flips`` counted); ``median_switch`` equal to ``median`` on
+   the card for every index a step draws; the fused pooled expansion
+   (``_manipulate(pool=True)``) against ``avg_pool(_manipulate())``, both
+   timed in turns; the peak memory of a step (and with median's 9x9 window);
+   10 + 3 augmented timed steps, K1 twice a step, with the device profile of
+   each kind of step;
+13. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -110,6 +124,8 @@ from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
 from neural_imaging_tpu_torch.models import base, compression, pipelines
 from neural_imaging_tpu_torch.models.jpeg import qtables
+from neural_imaging_tpu_torch.ops import manipulations as manips
+from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops.hopper import _build, codebook, jpeg8x8
 from neural_imaging_tpu_torch.training import compression as codec_training
@@ -120,8 +136,8 @@ from neural_imaging_tpu_torch.utils import metrics
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.utils import logger
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
-    BF16_GRADIENT_NORM_DIFF, BF16_STEP_LOSS_DIFF, MAX_STEP_LOSS_DIFF, ManipulationClassification,
-    compare_probabilities, compare_steps)
+    BF16_GRADIENT_NORM_DIFF, BF16_STEP_LOSS_DIFF, MAX_STEP_LOSS_DIFF, N_STRENGTH_CANDIDATES,
+    ManipulationClassification, compare_probabilities, compare_steps)
 
 RUN_DIR = 'data/m_quality/QualityRef/INet/fixed-nip/fixed-codec/000'
 RAW_PATCH = 128
@@ -202,6 +218,14 @@ NIP_TRAINER_EPOCHS, NIP_TRAINER_VALIDATION = 4, 2
 # the NIP trainer's first epoch's mean loss, card against CPU (relative): the
 # same batches, float32 in another summation order over one epoch's 2 steps
 MAX_NIP_EPOCH_LOSS_DIFF = 1e-4
+# all seven manipulations through the joint flow: the m_quality run's shape
+# (its INet snapshot, trainable, λ_nip 0.1; pool:2; JPEG QF 50 soft; the FAN
+# at its logged widths) with an 8-class FAN from its seed (no shipped run has
+# 8 classes), batch 20 raw 128-px patches: 160 expanded 256-px images a step
+MANIP7 = ['sharpen', 'resample', 'gaussian', 'jpeg', 'awgn', 'gamma', 'median']
+# the fused manipulate-then-pool expansion against the two-op form (the JAX
+# test's tolerance: the folded kernels sum in another order)
+POOLED_ATOL, POOLED_RTOL = 2e-5, 1e-4
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
 # kernel's work is the larger of bytes / memory rate and FLOPs / peak rate.
@@ -1172,15 +1196,17 @@ def nip_share(flow, bx, reps=5):
     return device_profile(fwd_bwd, reps, n_top=0)['device_ms_per_call']
 
 
-def fan_input_flips(flow, cpu_flow, bx):
+def fan_input_flips(flow, cpu_flow, bx, noise=None):
     """Values of the FAN's input (the channel's output at the fixed
-    strengths) that differ by more than ``FLIP_THRESHOLD`` between the card's
-    forward and the CPU's of the same raw batch: flipped dJPEG coefficients."""
+    strengths; awgn's NHWC ``noise`` given to both) that differ by more than
+    ``FLIP_THRESHOLD`` between the card's forward and the CPU's of the same
+    raw batch: flipped dJPEG coefficients."""
     fan_inputs = []
     for f in (flow, cpu_flow):
         x = f._batch(bx.to(f.device)).permute(0, 3, 1, 2)
+        n = None if noise is None else noise.to(f.device).permute(0, 3, 1, 2)
         with torch.no_grad():
-            fan_inputs.append(f._forward(x, *f._channel_qtables())[2].float().cpu())
+            fan_inputs.append(f._forward(x, *f._channel_qtables(), noise=n)[2].float().cpu())
     return int(((fan_inputs[0] - fan_inputs[1]).abs() > FLIP_THRESHOLD).sum())
 
 
@@ -1691,6 +1717,223 @@ def dcn_trainer_phase(args, device, tmp):
                    'card_first_epoch_loss': card, 'cpu_first_epoch_rel_diff': rel, **results}
 
 
+def manip7_flow(device, seed=0):
+    """The m_quality run's flow with all seven manipulations (``MANIP7``):
+    its INet from the run's snapshot, trainable; its distribution and FAN
+    widths from its log; the 8-class FAN's weights from its seed."""
+    with open(base.REPO_ROOT / RUN_DIR / 'training.json') as f:
+        log = json.load(f)
+    fan_args = {k: v for k, v in log['forensics']['args'].items() if k != 'n_classes'}
+    flow = ManipulationClassification(
+        f'INet:{base.REPO_ROOT / RUN_DIR / "models" / "inet"}', manipulations=MANIP7,
+        distribution=log['distribution'], fan_args=fan_args, trainable={'nip'},
+        raw_patch_size=RAW_PATCH, nip_args=log['nip']['args'], rng_seed=seed, device=device)
+    flow.nan_check = False
+    return flow
+
+
+def awgn_noise(seed, n, side):
+    """awgn's standard normal noise for n developed side-px RGB patches
+    (NHWC), made on the host: the same on the card and the CPU."""
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, side, side, 3), dtype=np.float32))
+
+
+def median_switch_check(y, candidates):
+    """``median_switch`` on the card against ``median(y, k)`` for every index
+    a step draws, over the flow's ``candidates``: value and gradient equal
+    bit for bit, and the device ms of each forward and backward."""
+    g = torch.randn(y.shape, generator=torch.Generator(device=y.device).manual_seed(3),
+                    device=y.device)
+
+    def value_and_grad(fn):
+        v = y.detach().clone().requires_grad_(True)
+        out = fn(v)
+        out.backward(g)
+        return out.detach(), v.grad
+
+    report = {}
+    for index in range(N_STRENGTH_CANDIDATES):
+        k = candidates[min(index, len(candidates) - 1)]
+        i = torch.tensor(index, device=y.device)
+        switched = value_and_grad(lambda v: manips.median_switch(v, i, candidates))
+        direct = value_and_grad(lambda v: manips.median(v, k))
+        diff = max(float((a - b).abs().max()) for a, b in zip(switched, direct))
+        if not all(torch.equal(a, b) for a, b in zip(switched, direct)):
+            raise AssertionError(f'median_switch index {index} (k={k}) differs from median: '
+                                 f'max |d| {diff}')
+        report[f'index {index} (k={k}) max_abs_diff'] = diff
+    i = torch.tensor(len(candidates) - 1, device=y.device)
+    for label, fn in ((f'median k={candidates[0]}', lambda v: manips.median(v, candidates[0])),
+                      (f'median_switch k={candidates[-1]}',
+                       lambda v: manips.median_switch(v, i, candidates))):
+        report[f'{label} fwd+bwd device ms'] = device_profile(
+            lambda: value_and_grad(fn), 3, n_top=0)['device_ms_per_call']
+    return report
+
+
+def pooled_check(flow, y, noise, reps, flush):
+    """``_manipulate(pool=True)`` (per-branch pooling, the folded gaussian and
+    resample kernels) against ``avg_pool(_manipulate(...))`` on the card: the
+    same values within the JAX test's tolerance; both timed in turns (fused,
+    two-op, two-op, fused): wall ms a call as a caller sees it (``time_ms``,
+    host time included) and device ms a call (``device_profile``)."""
+    def fused():
+        return flow._manipulate(y, noise=noise, pool=True)
+
+    def two_op():
+        return ops.avg_pool(flow._manipulate(y, noise=noise), 2)
+
+    with torch.no_grad():
+        a, b = fused(), two_op()
+        diff = float((a - b).abs().max())
+        if not torch.allclose(a, b, atol=POOLED_ATOL, rtol=POOLED_RTOL):
+            raise AssertionError(f'the fused pooled expansion differs from the two-op form: '
+                                 f'max |d| {diff}')
+        times = {'fused': [], 'two_op': []}
+        for label in ('fused', 'two_op', 'two_op', 'fused'):
+            fn = fused if label == 'fused' else two_op
+            times[label].append((time_ms(fn, reps, flush, device_only=False),
+                                 device_profile(fn, reps, n_top=0)['device_ms_per_call']))
+    return {'max_abs_diff': diff, **{f'{label}_wall_ms': [t[0] for t in v]
+                                     for label, v in times.items()},
+            **{f'{label}_device_ms': [t[1] for t in v] for label, v in times.items()}}
+
+
+def manip7_phase(args, device, flush):
+    """``[manip7 classify]``: requests of raw 128-px patches through the
+    8-class flow (K1 twice a request), request 0 against the CPU with the
+    same awgn noise; ``[manip7 train]``: its first step against the CPU's
+    (``compare_flow_steps``, the FAN input's flips counted), ``median_switch``
+    against ``median`` and the fused pooled expansion against the two-op form
+    on the card, the peak memory of a step at the fixed strengths and with
+    median's largest window, then 10 + 3 augmented timed steps (K1 twice a
+    step) and the device profile of each kind of step. Returns ((classify
+    counts, train counts), results)."""
+    flow, cpu = manip7_flow(device, args.seed), manip7_flow('cpu', args.seed)
+    side, n_rows = 2 * RAW_PATCH, args.batch * flow.n_classes
+    requests = [synthetic_raw(args.seed + 1500 + i, args.batch, RAW_PATCH)
+                for i in range(args.requests)]
+    flow.run_workflow_to_decisions(requests[0])             # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    latencies = []
+    for batch in requests:
+        t0 = time.perf_counter()
+        flow.run_workflow_to_decisions(batch)
+        latencies.append(time.perf_counter() - t0)
+    classify_counts = read_counts()
+    expect_counts('[manip7 classify]', classify_counts, {'jpeg8x8': 2 * args.requests})
+    noise = awgn_noise(args.seed + 1600, args.batch, side)
+    x = torch.from_numpy(requests[0]).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        probs = flow._forward(x.to(device), *flow._channel_qtables(),
+                              noise=noise.to(device).permute(0, 3, 1, 2))[-1]
+        probs_cpu = cpu._forward(x, *cpu._channel_qtables(), noise=noise.permute(0, 3, 1, 2))[-1]
+    if tuple(probs.shape) != (n_rows, 8) or not bool(torch.isfinite(probs).all()):
+        raise AssertionError(f'[manip7 classify] bad probabilities {tuple(probs.shape)}')
+    report = compare_probabilities(probs.cpu(), probs_cpu)
+    request_ms = 1e3 * float(np.median(latencies))
+    print(f'[manip7 classify] {flow.summary_compact()}: median request {request_ms:.2f} ms '
+          f'({n_rows / request_ms * 1e3:.1f} classified images/s); request 0 vs the CPU: max '
+          f'|dp| {report["max_abs_diff"]:.3g}, {report["decided_rows"]}/{report["rows"]} decided '
+          f'rows agree; K1 launches {classify_counts["jpeg8x8"]}', flush=True)
+    results = {'classify': {'requests': args.requests, 'batch': args.batch,
+                            'latency_ms': [1e3 * t for t in latencies],
+                            'median_ms': request_ms, 'images_per_s': n_rows / request_ms * 1e3,
+                            'cpu_max_abs_prob_diff': report['max_abs_diff'],
+                            'k1_launches': classify_counts['jpeg8x8']}}
+
+    batches = training_batches(args.seed + 1700, TRAIN_STEPS + 1, args.batch)
+    bx, by = batches[0]
+    t0 = time.perf_counter()
+    step_cpu = cpu.loss_and_gradients(bx.cpu(), by.cpu(), TRAIN_LAMBDA_NIP, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    step_card, peak = peak_memory_mb(
+        lambda: flow.loss_and_gradients(bx, by, TRAIN_LAMBDA_NIP, noise=noise.to(device)))
+    flips = fan_input_flips(flow, cpu, bx, noise)
+    agreement = compare_flow_steps(step_card, step_cpu, flips)
+    del cpu, step_cpu
+    print(f'[manip7 train] first step vs the CPU ({cpu_s:.1f} s there): {flips} values of the '
+          f'FAN\'s input flipped; loss parts within {agreement["max_loss_rel_diff"]:.3g} '
+          f'(relative), gradient norms within {agreement["max_grad_norm_rel_diff"]:.3g} '
+          f'({agreement["worst_gradient"]}); norms {agreement["grad_norms"]}', flush=True)
+
+    with torch.no_grad():
+        batch_Y = flow.nip.module(flow._batch(bx).permute(0, 3, 1, 2))
+    switch = median_switch_check(batch_Y, flow._strength_candidates['median'])
+    print(f'[manip7 train] median_switch equals median on the card for every index: {switch}',
+          flush=True)
+    pooled = pooled_check(flow, batch_Y, noise.to(device).permute(0, 3, 1, 2), args.reps, flush)
+    print(f'[manip7 train] _manipulate(pool=True) vs avg_pool(_manipulate()): max |d| '
+          f'{pooled["max_abs_diff"]:.3g}; wall ms fused {pooled["fused_wall_ms"]}, two-op '
+          f'{pooled["two_op_wall_ms"]}; device ms fused {pooled["fused_device_ms"]}, two-op '
+          f'{pooled["two_op_device_ms"]}', flush=True)
+    # the largest median window: every strength at its range's middle, the
+    # median's index at the last candidate
+    n_ops = len(MANIP7)
+    scalars = (flow._strength_lo + flow._strength_hi) / 2
+    indices = torch.full((n_ops,), N_STRENGTH_CANDIDATES - 1, dtype=torch.int64, device=device)
+    _, peak_median9 = peak_memory_mb(lambda: flow.loss_and_gradients(
+        bx, by, TRAIN_LAMBDA_NIP, strength_scalars=scalars, strength_indices=indices))
+
+    before = {part: {k: p.detach().clone() for k, p in leaves.items()}
+              for part, leaves in flow._collect_params().items()}
+    flow.training_step(bx, by, TRAIN_LAMBDA_NIP, learning_rate=TRAIN_LR)    # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = {False: [], True: []}, []
+    for i in range(TRAIN_STEPS + TRAIN_AUGMENTED_STEPS):
+        augment = i >= TRAIN_STEPS
+        t0 = time.perf_counter()
+        loss, parts = flow.training_step(*batches[1 + i % TRAIN_STEPS], TRAIN_LAMBDA_NIP,
+                                         augment=augment, learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        times[augment].append(time.perf_counter() - t0)
+        losses.append({'loss': float(loss), **{k: float(v) for k, v in parts.items()}})
+    train_counts = read_counts()
+    expect_counts('[manip7 train]', train_counts,
+                  {'jpeg8x8': 2 * (TRAIN_STEPS + TRAIN_AUGMENTED_STEPS)})
+    flow.assert_finite()
+    if not all(np.isfinite(v) for step in losses for v in step.values()):
+        raise AssertionError(f'[manip7 train] non-finite losses {losses}')
+    moved = {part: max(float((p.detach() - before[part][k]).abs().max())
+                       for k, p in leaves.items())
+             for part, leaves in flow._collect_params().items()}
+    if not (moved['nip'] > 0 and moved['fan'] > 0):
+        raise AssertionError(f'[manip7 train] parameters did not move: {moved}')
+    profiles = {}
+    for label, augment in (('fixed', False), ('augmented', True)):
+        profiles[label] = device_profile(lambda: flow.training_step(
+            bx, by, TRAIN_LAMBDA_NIP, augment=augment, learning_rate=TRAIN_LR), 5)
+        print_profile(f'manip7 train {label}', profiles[label])
+    flow.assert_finite()
+    median = float(np.median(times[False]))
+    print(f'[manip7 train] median step {1e3 * median:.2f} ms ({1 / median:.2f} steps/s, '
+          f'{args.batch / median:.1f} raw patches/s); augmented '
+          f'{", ".join(f"{1e3 * t:.2f}" for t in times[True])} ms; device '
+          f'{profiles["fixed"]["device_ms_per_call"]:.2f} ms a step, busy '
+          f'{100 * profiles["fixed"]["device_busy_share"]:.1f}% (augmented '
+          f'{profiles["augmented"]["device_ms_per_call"]:.2f} ms, busy '
+          f'{100 * profiles["augmented"]["device_busy_share"]:.1f}%); peak memory {peak:.1f} MiB '
+          f'a step, {peak_median9:.1f} MiB with median k=9; K1 launches '
+          f'{train_counts["jpeg8x8"]}; largest change {moved}', flush=True)
+    results['train'] = {
+        'batch': args.batch, 'raw_patch': RAW_PATCH, 'lambda_nip': TRAIN_LAMBDA_NIP,
+        'lr': TRAIN_LR, 'classes': flow.n_classes, 'cpu_first_step': agreement,
+        'cpu_fan_input_flips': flips, 'cpu_step_s': cpu_s, 'peak_mb': peak,
+        'peak_mb_median9': peak_median9, 'median_switch': switch, 'pooled': pooled,
+        'step_ms': [1e3 * t for t in times[False]],
+        'augmented_step_ms': [1e3 * t for t in times[True]], 'median_ms': 1e3 * median,
+        'steps_per_s': 1 / median, 'raw_patches_per_s': args.batch / median,
+        **{f'{label}_device_ms_per_step': p['device_ms_per_call']
+           for label, p in profiles.items()},
+        **{f'{label}_device_busy_share': p['device_busy_share'] for label, p in profiles.items()},
+        'top_kernels': {label: p['top_kernels'] for label, p in profiles.items()},
+        'k1_launches': train_counts['jpeg8x8'], 'losses': losses, 'largest_change': moved}
+    return (classify_counts, train_counts), results
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1752,6 +1995,13 @@ def main():
     q_luma, q_chroma = qtables(80, device)
     k1_dcn_flow = check_k1('dcn flow jpeg:80', planes, torch.stack(
         [q_luma, q_chroma, q_chroma]).repeat(DCN_FLOW_BATCH, 1, 1).contiguous(), args.reps, flush)
+    # the 8-class flow's channel: 8 classes of each raw patch at QF 50
+    n_manip7 = (len(MANIP7) + 1) * args.batch
+    planes = (torch.rand((3 * n_manip7, side // flow.downsampling_factor,
+                          side // flow.downsampling_factor), generator=gen) * 255 - 127).to(device)
+    q_luma, q_chroma = qtables(int(flow.codec.quality), device)
+    k1_manip7 = check_k1('manip7 channel QF50', planes, torch.stack(
+        [q_luma, q_chroma, q_chroma]).repeat(n_manip7, 1, 1).contiguous(), args.reps, flush)
 
     # 4. manipulation classification
     batches = [synthetic_raw(args.seed + i, args.batch, RAW_PATCH) for i in range(args.requests)]
@@ -1828,7 +2078,11 @@ def main():
     dcn_trainer_counts, dcn_trainer_results = dcn_trainer(args, device)
     print('[dcn trainer] ' + json.dumps(dcn_trainer_results), flush=True)
 
-    # 12. results: K1's numbers are its two launches of one m_quality request,
+    # 12. all seven manipulations through the joint flow
+    manip7_counts, manip7_results = manip7_phase(args, device, flush)
+    print('[manip7] ' + json.dumps({**manip7_results, 'k1_shape': k1_manip7}), flush=True)
+
+    # 13. results: K1's numbers are its two launches of one m_quality request,
     # summed; K2's and K3's are at the DCN flow's shape (N = 409,600), K4's at
     # the DCN training step's
     print('[slice] ' + json.dumps({
@@ -1845,8 +2099,9 @@ def main():
                              + nip_counts['jpeg8x8'] + unet_classify_counts['jpeg8x8']
                              + sum(c['jpeg8x8'] for c in nip_train_counts.values())
                              + sum(c['jpeg8x8'] for c in nip_trainer_counts.values())
-                             + dcn_flow_counts['jpeg8x8']),
-                'max_abs_err': max(r['max_abs_err'] for r in k1),
+                             + dcn_flow_counts['jpeg8x8']
+                             + sum(c['jpeg8x8'] for c in manip7_counts)),
+                'max_abs_err': max(r['max_abs_err'] for r in (*k1, k1_dcn_flow, k1_manip7)),
                 'ms': sum(r['ms'] for r in k1),
                 'plain_ms': sum(r['plain_ms'] for r in k1),
                 'bound_ms': sum(r['bound_ms'] for r in k1),

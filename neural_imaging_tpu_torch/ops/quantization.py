@@ -1,7 +1,9 @@
 """
 Differentiable rounding modes (round | sin | soft | harmonic | identity |
 soft-codebook) and the soft-histogram entropy estimator. Port of
-``neural_imaging_tpu/ops/quantization.py``.
+``neural_imaging_tpu/ops/quantization.py``, and of the soft uint8
+quantization of ``neural_imaging_tpu/ops/ops.py`` (``soft_round``,
+``soft_quantization``, ``quantize_and_clip``).
 
 The soft-codebook functions here are the plain composition: they build the
 (N, L) weight matrix of every value against every codeword, as the
@@ -24,6 +26,27 @@ def sin_round(x):
     2π rounded to x's dtype as the reference's constant is."""
     two_pi = ops.const(2 * math.pi, x.dtype)
     return x - torch.sin(two_pi * x) / ops.scalar(two_pi, x.dtype, x.device)
+
+
+def soft_round(x):
+    """Hard rounding forward, the gradient of :func:`sin_round` backward, in
+    the reference's detach form (``ops.soft_round``). ``torch.round`` rounds
+    half to even, as ``jnp.round`` does."""
+    x_ = sin_round(x)
+    return (torch.round(x) - x_).detach() + x_
+
+
+def soft_quantization(x, alpha=255.0):
+    """uint8 quantization of an image in [0, 1], differentiably:
+    ``soft_round(alpha x) / alpha``, alpha rounded to x's dtype (the
+    reference's ``ops.soft_quantization``)."""
+    alpha = ops.const(alpha, x.dtype)
+    return soft_round(alpha * x) / ops.scalar(alpha, x.dtype, x.device)
+
+
+def quantize_and_clip(x):
+    """:func:`soft_quantization` clipped to [0, 1] (``ops.clip``'s gradient)."""
+    return ops.clip(soft_quantization(x), 0.0, 1.0)
 
 
 def default_codebook(latent_bpf):
@@ -89,8 +112,7 @@ def quantize(x, rounding='soft', codebook=None, v=50.0, gamma=25.0, taylor_terms
     if rounding == 'sin':
         return sin_round(x)
     if rounding == 'soft':
-        x_ = sin_round(x)
-        return (torch.round(x) - x_).detach() + x_
+        return soft_round(x)
     if rounding == 'harmonic':
         def term(k):
             # sin(2πk x) / (kπ), its constants rounded to x's dtype

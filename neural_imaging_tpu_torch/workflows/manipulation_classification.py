@@ -7,10 +7,13 @@ Port of ``neural_imaging_tpu/workflows/manipulation_classification.py``:
 the forward at fixed or randomized strengths (``run_workflow``),
 and ``training_step``, which takes one Adam step of the FAN and the other
 trainable parts on cross-entropy plus the NIP's and the channel's weighted
-losses. Every random draw of a step (manipulation strengths, the channel's
-quality) is made on the device from ``torch.Generator``s seeded with
-``rng_seed``, so a step never waits on the host; PyTorch cannot reproduce
-JAX's PRNG, so parity tests pass the same strengths to both (``_losses``).
+losses. The manipulations are any of the reference's seven (sharpen,
+resample, gaussian, jpeg, awgn, gamma, median), in its class order. Every
+random draw of a step (manipulation strengths, the channel's quality,
+awgn's noise) is made on the device from a ``torch.Generator`` seeded
+with ``rng_seed``, so a step never waits on the host; PyTorch cannot
+reproduce JAX's PRNG, so parity tests pass the same strengths and noise to
+both (``_losses``, ``loss_and_gradients``).
 ``training_scan`` runs steps on batches that a ``DeviceSampler`` draws on
 the device. The NIP is any ported camera ISP (INet, UNet, DNet,
 ClassicISP, optionally from its snapshot: ``'UNet:<dir>'``) or ONet, which
@@ -19,8 +22,10 @@ manipulations in the backward pass instead of keeping their activations.
 The channel is a JPEG (fixed or trainable q-tables), a learned codec
 (``'dcn'``: a ``TwitterDCN`` restored from a directory or preset, its
 quantizer on K2 and K3 or K4, trainable as the ``'dcn'`` part with its
-rate-distortion loss weighted by λ_dcn) or none. awgn / gamma / median are
-not ported yet.
+rate-distortion loss weighted by λ_dcn) or none. awgn's noise is drawn
+before the ``remat`` checkpoint and passed in, so the recomputed forward
+adds the same noise (the checkpoint restores the default generators' state,
+not the flow's).
 
 Precision, as in the reference: the NIP develops in float32 (its fidelity
 loss too); ``channel_dtype`` is the dtype of the manipulation expansion,
@@ -44,10 +49,12 @@ from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.utils.device import resolve_device
 
 # the reference's class order of the manipulations
-CANONICAL_ORDER = ('sharpen', 'resample', 'gaussian', 'jpeg')
+CANONICAL_ORDER = ('sharpen', 'resample', 'gaussian', 'jpeg', 'awgn', 'gamma', 'median')
+# the reference's manipulations when none are given
+DEFAULT_MANIPULATIONS = ('sharpen', 'resample', 'gaussian', 'jpeg')
 # the channel's compression_params that the port's JPEG takes
 JPEG_PARAMS = ('quality', 'codec', 'trainable', 'rng')
-# candidate strengths of a switched manipulation (resample) across its range
+# candidate strengths of a switched manipulation (resample, median) across its range
 N_STRENGTH_CANDIDATES = 8
 # the parts a flow may train; the FAN always trains, 'dcn' names the channel's
 # trainable slot (the learned codec, or the JPEG q-tables), as in the reference
@@ -222,11 +229,14 @@ class ManipulationClassification:
                 patch_size=2 * raw_patch_size // self.downsampling_factor, device=self.device)
         elif compression == 'jpeg':
             params = dict(self._distribution.get('compression_params') or {})
+            if params.get('codec') == 'libjpeg':
+                raise NotImplementedError("the 'libjpeg' channel codec (PIL) is not ported "
+                                          '(ROADMAP.md §1 item 2)')
             unknown = sorted(set(params) - set(JPEG_PARAMS))
             if unknown:
-                raise NotImplementedError(f'JPEG channel parameters {unknown} are not ported '
-                                          f'(ROADMAP.md §1 item 2); the port takes '
-                                          f'{list(JPEG_PARAMS)}')
+                raise NotImplementedError(f'JPEG channel parameters {unknown} are not taken: '
+                                          f'the JPEG takes {list(JPEG_PARAMS)}, as the '
+                                          f"reference's does")
             self.codec = jpeg_models.JPEG(**params, device=self.device)
         if 'dcn' in self._trainable and not self._codec_is_trainable():
             raise ValueError('The current codec does not appear to be trainable!')
@@ -245,11 +255,11 @@ class ManipulationClassification:
 
         self._strengths = dict(manips.DEFAULT_STRENGTHS)
         requested = []
-        for m in manipulations or list(CANONICAL_ORDER):
+        for m in manipulations or list(DEFAULT_MANIPULATIONS):
             name, *strength = m.split(':')
             if name not in self._strengths:
-                raise NotImplementedError(f'manipulation {name!r} is not ported (ROADMAP.md §1 '
-                                          f'item 2); available: {sorted(self._strengths)}')
+                raise ValueError(f'Unsupported manipulation {name}! '
+                                 f'Available: {sorted(self._strengths)}')
             if name not in requested:
                 requested.append(name)
             if strength:
@@ -260,6 +270,11 @@ class ManipulationClassification:
         self._strength_candidates = {
             name: np.linspace(*manips.STRENGTH_RANGES[name], N_STRENGTH_CANDIDATES)
             for name in self._operations}
+        if 'median' in self._strength_candidates:
+            # the reference's candidates: odd sizes of the range, a drawn
+            # index 0..7 clipped to them (so 9 takes 5 draws in 8)
+            self._strength_candidates['median'] = sorted(
+                {int(c) | 1 for c in self._strength_candidates['median']})
         # the strength ranges, copied to the device once for the steps' draws
         self._strength_lo, self._strength_hi = (
             torch.tensor([manips.STRENGTH_RANGES[m][k] for m in self._operations],
@@ -279,22 +294,25 @@ class ManipulationClassification:
     @classmethod
     def restore(cls, run_dir, raw_patch_size=128, trainable=None, rng_seed=0,
                 channel_dtype=None, channel_jpeg_dtype=None, manip_jpeg_dtype=None,
-                remat=False, device='cuda'):
+                remat=False, manipulations=None, distribution=None, device='cuda'):
         """Rebuild the flow of a finished run directory (``training.json`` +
         ``models/{fan,<nip>}/*.npz``) with its weights, as the reference's
         ``test_fan.py`` rebuilds it: the channel precision its log records
         (a key it lacks means float32), each overridden by a dtype argument
-        given here; the FAN's dtype and stem from its logged arguments. A
-        learned codec is restored from the directory or preset its
-        distribution names, as there: a snapshot of a trained codec under
-        ``models/`` is not read."""
+        given here; the FAN's dtype and stem from its logged arguments; the
+        logged manipulations and distribution unless ``manipulations`` /
+        ``distribution`` replace them. A learned codec is restored from the
+        directory or preset its distribution names, as there: a snapshot of a
+        trained codec under ``models/`` is not read."""
         with open(os.path.join(run_dir, 'training.json')) as f:
             log = json.load(f)
         precision = log.get('channel_precision') or {}
         fan_args = {k: v for k, v in log['forensics']['args'].items() if k != 'n_classes'}
-        flow = cls(log['nip']['model'],
-                   manipulations=[m for m in log['manipulations'] if m != 'native'],
-                   distribution=log['distribution'], fan_args=fan_args, trainable=trainable,
+        if manipulations is None:
+            manipulations = [m for m in log['manipulations'] if m != 'native']
+        flow = cls(log['nip']['model'], manipulations=manipulations,
+                   distribution=log['distribution'] if distribution is None else distribution,
+                   fan_args=fan_args, trainable=trainable,
                    raw_patch_size=raw_patch_size, rng_seed=rng_seed,
                    nip_args=log['nip'].get('args'),
                    channel_dtype=channel_dtype or precision.get('channel_dtype', 'float32'),
@@ -390,27 +408,55 @@ class ManipulationClassification:
         return jpeg_models.jpeg_forward_nchw(batch.to(torch.bfloat16), q_luma, q_chroma,
                                              precision='default')[0]
 
-    def _manipulate(self, batch_Y, strength_scalars=None, strength_indices=None):
+    def _manipulate(self, batch_Y, strength_scalars=None, strength_indices=None, noise=None,
+                    pool=False):
         """(K+1)-way batch expansion in the channel dtype: [native] + each
         manipulation, class-major. ``strength_scalars`` (K,) and
         ``strength_indices`` (K,), tensors on the device, randomize the
-        strengths: manipulation i takes scalar i, or (resample) candidate
-        ``strength_indices[i]`` of its range."""
+        strengths: manipulation i takes scalar i, or (resample, median)
+        candidate ``strength_indices[i]`` of its range. ``noise``: awgn's
+        standard normal noise (batch_Y's shape), drawn from the flow's
+        generator when None.
+
+        ``pool`` fuses the channel's 2x average pooling into each branch, as
+        the reference's ``pool=True`` does: gaussian and resample at a fixed
+        strength take their exact folded kernels (``POOLED_MANIPULATIONS``),
+        every other branch is pooled in its own dtype before the cast, and
+        the concatenation joins quarter-size tensors. Off in ``_forward``, as
+        in the reference; no entry point sets it (only the tests and
+        ``chip_smoke.py``'s comparison with the two-op form do)."""
         batch_Y = batch_Y.to(self._channel_dtype)
-        y_list = [batch_Y]
+        if noise is None:
+            noise = self._awgn_noise(batch_Y.shape, batch_Y.dtype)
+        p2 = (lambda t: ops.avg_pool(t, 2)) if pool else (lambda t: t)
+        y_list = [p2(batch_Y)]
         for i, name in enumerate(self._operations):
             strength = self._strengths[name] if strength_scalars is None else strength_scalars[i]
             if name == 'jpeg' and self._manip_jpeg_bf16:
-                y = self._manip_jpeg(batch_Y, strength)
+                y = p2(self._manip_jpeg(batch_Y, strength))
+            elif strength_scalars is None and pool and name in manips.POOLED_MANIPULATIONS:
+                y = manips.POOLED_MANIPULATIONS[name](batch_Y, strength)
             elif strength_scalars is None:
-                y = manips.MANIPULATIONS[name](batch_Y, strength)
+                y = p2(manips.MANIPULATIONS[name](batch_Y, strength, noise))
             elif name in manips.TRACED_MANIPULATIONS:
-                y = manips.TRACED_MANIPULATIONS[name](batch_Y, strength)
+                y = p2(manips.TRACED_MANIPULATIONS[name](batch_Y, strength, noise))
+            elif name == 'resample':
+                y = p2(manips.resample_switch(batch_Y, strength_indices[i],
+                                              self._strength_candidates[name]))
             else:
-                y = manips.resample_switch(batch_Y, strength_indices[i],
-                                           self._strength_candidates[name])
+                y = p2(manips.median_switch(batch_Y, strength_indices[i],
+                                            self._strength_candidates[name]))
             y_list.append(y.to(self._channel_dtype))
         return torch.cat(y_list, dim=0)
+
+    def _awgn_noise(self, shape, dtype):
+        """awgn's standard normal noise for the expansion of an RGB batch of
+        ``shape`` (NCHW), drawn on the device from the flow's generator in
+        float32 and rounded to ``dtype`` once (the reference draws it in that
+        dtype); None without an awgn branch."""
+        if 'awgn' not in self._operations:
+            return None
+        return torch.randn(shape, generator=self._generator, device=self.device).to(dtype)
 
     def _downsample(self, batch):
         ds = self._distribution['downsampling']
@@ -448,11 +494,17 @@ class ManipulationClassification:
                                              precision=precision)
         return y.to(self._channel_dtype), None
 
-    def _forward(self, batch_x, q_luma, q_chroma, strength_scalars=None, strength_indices=None):
+    def _forward(self, batch_x, q_luma, q_chroma, strength_scalars=None, strength_indices=None,
+                 noise=None):
+        if noise is None:
+            scale = 1 if self.nip.in_channels == 3 else 2          # ONet passes RGB through
+            noise = self._awgn_noise((batch_x.shape[0], 3, scale * batch_x.shape[-2],
+                                      scale * batch_x.shape[-1]), self._channel_dtype)
+
         def acquire(x):
             batch_Y = self.nip.module(x)
             return batch_Y, self._downsample(self._manipulate(batch_Y, strength_scalars,
-                                                              strength_indices))
+                                                              strength_indices, noise))
 
         if self.remat and torch.is_grad_enabled():
             batch_Y, batch_c = checkpoint(acquire, batch_x, use_reentrant=False)
@@ -466,13 +518,14 @@ class ManipulationClassification:
         return torch.arange(self.n_classes, device=self.device).repeat_interleave(batch_size)
 
     def _losses(self, batch_x, batch_y, q_luma, q_chroma, lambda_nip, lambda_dcn,
-                strength_scalars=None, strength_indices=None):
+                strength_scalars=None, strength_indices=None, noise=None):
         """(loss, {'ce', 'nip', 'dcn'}) of NHWC float batches: RAW ``batch_x``
-        and the target RGB ``batch_y`` (or None). The loss is the
-        cross-entropy plus λ_nip times the NIP's loss if the NIP trains and
-        λ_dcn times the channel's if it trains."""
+        and the target RGB ``batch_y`` (or None), and awgn's NHWC ``noise``
+        (or None). The loss is the cross-entropy plus λ_nip times the NIP's
+        loss if the NIP trains and λ_dcn times the channel's if it trains."""
         batch_Y, batch_c, batch_C, entropy, probs = self._forward(
-            batch_x.permute(0, 3, 1, 2), q_luma, q_chroma, strength_scalars, strength_indices)
+            batch_x.permute(0, 3, 1, 2), q_luma, q_chroma, strength_scalars, strength_indices,
+            None if noise is None else noise.permute(0, 3, 1, 2))
         loss_ce = forensics.sparse_categorical_crossentropy(
             self._batch_labels(batch_x.shape[0]), probs)
         zero = torch.zeros((), device=probs.device)
@@ -547,16 +600,21 @@ class ManipulationClassification:
         return ops.normalize_batch(torch.as_tensor(batch).to(self.device))
 
     def loss_and_gradients(self, batch_x, batch_y, lambda_nip=0, lambda_dcn=0,
-                           q_tables=None, strength_scalars=None, strength_indices=None):
+                           q_tables=None, strength_scalars=None, strength_indices=None,
+                           noise=None):
         """The loss, its parts and the gradient of every trainable parameter,
         without an update: (loss, {'ce', 'nip', 'dcn'}, {part: {name:
         gradient}}). ``q_tables`` (luma, chroma) default to the channel's
-        fixed quality; the strengths to the fixed ones."""
+        fixed quality; the strengths to the fixed ones; awgn's noise (NHWC,
+        the developed RGB batch's shape) to a draw from the flow's
+        generator."""
         x = self._batch(batch_x)
         y = None if batch_y is None else self._batch(batch_y)
+        if noise is not None:
+            noise = torch.as_tensor(noise, device=self.device)
         q_luma, q_chroma = q_tables if q_tables is not None else self._channel_qtables()
         loss, parts = self._losses(x, y, q_luma, q_chroma, lambda_nip, lambda_dcn,
-                                   strength_scalars, strength_indices)
+                                   strength_scalars, strength_indices, noise)
         names = [(part, k) for part, ps in self._train_partition(self._collect_params()).items()
                  for k in ps]
         grads = torch.autograd.grad(loss, self._train_params, allow_unused=True)
@@ -659,13 +717,15 @@ class ManipulationClassification:
     def run_manipulations(self, batch_y, randomize=False, override=None):
         """The expanded NHWC batch of an NHWC RGB batch: at the fixed
         strengths, at host-drawn ones (``randomize``) or at ``override``
-        {name: strength}."""
+        {name: strength} (float32, as the reference's); awgn's noise drawn
+        from the flow's generator."""
         y = self._batch(batch_y).permute(0, 3, 1, 2)
         with torch.no_grad():
             if randomize:
                 out = self._manipulate(y, *self._sample_strengths())
             elif override is not None:
-                out = torch.cat([y] + [manips.MANIPULATIONS[name](y, override[name])
+                noise = self._awgn_noise(y.shape, y.dtype)
+                out = torch.cat([y] + [manips.MANIPULATIONS[name](y, override[name], noise)
                                        for name in self._operations], dim=0)
             else:
                 out = self._manipulate(y)

@@ -246,20 +246,16 @@ def test_restore_builds_a_run_with_a_dcn_channel(tmp_path, joint):
 
 
 @pytest.mark.parametrize('kwargs, error', [
-    ({'manipulations': ['awgn']}, NotImplementedError),
+    ({'manipulations': ['blur']}, ValueError),
     ({'distribution': {**DISTRIBUTION, 'compression': 'bpg'}}, ValueError),
     ({'trainable': {'nip'}}, ValueError),
 ], ids=['manipulation', 'compression', 'onet-trainable'])
 def test_refusals_that_remain(kwargs, error):
-    """An unported manipulation names its ROADMAP item; an unknown channel
-    is refused by both packages, and so is a trainable ONet (it has no
-    parameters) once the trainer checks it."""
+    """An unknown manipulation and an unknown channel are refused by both
+    packages, and so is a trainable ONet (it has no parameters) once the
+    trainer checks it."""
     args = {'manipulations': MANIPULATIONS, 'distribution': DISTRIBUTION,
             'fan_args': FAN_ARGS, 'raw_patch_size': PATCH, **kwargs}
-    if error is NotImplementedError:
-        with pytest.raises(error, match='item 2'):
-            ManipulationClassification('ONet', device='cpu', **args)
-        return
     if 'trainable' in kwargs:
         from neural_imaging_tpu_torch.training.manipulation import train_manipulation_nip
         flow = ManipulationClassification('ONet', device='cpu', **args)

@@ -414,3 +414,43 @@ def test_percentile_normalize_beyond_the_quantile_limit(cuda):
     x = torch.rand(2 ** 24 + 7, generator=torch.Generator().manual_seed(4))
     torch.testing.assert_close(ops.percentile_normalize(x.to(cuda)).cpu(),
                                ops.percentile_normalize(x), rtol=0, atol=0)
+
+
+def test_eight_class_step_on_the_card(cuda):
+    """The joint step with all seven manipulations (chip_smoke's manip7 flow:
+    the m_quality INet, an 8-class FAN from its seed) at batch 4, raw 128:
+    K1 twice, and the loss parts and gradient norms within
+    ``compare_flow_steps`` of the CPU step with the same awgn noise."""
+    import chip_smoke
+    flow, cpu = chip_smoke.manip7_flow(cuda), chip_smoke.manip7_flow('cpu')
+    (bx, by), = chip_smoke.training_batches(7, 1, 4)
+    noise = chip_smoke.awgn_noise(8, 4, 256)
+    before = jpeg8x8.jpeg_core_cuda.launches
+    step = flow.loss_and_gradients(bx, by, 0.1, noise=noise.to(cuda))
+    assert jpeg8x8.jpeg_core_cuda.launches == before + 2
+    chip_smoke.compare_flow_steps(step, cpu.loss_and_gradients(bx.cpu(), by.cpu(), 0.1,
+                                                               noise=noise),
+                                  chip_smoke.fan_input_flips(flow, cpu, bx, noise))
+    loss, _ = flow.training_step(bx, by, 0.1, augment=True)
+    assert np.isfinite(float(loss))
+
+
+@pytest.mark.parametrize('index', range(8))
+def test_median_switch_equals_median_on_the_card(cuda, index):
+    """median_switch's one sort of the 9x9 window's views, the views outside
+    the k x k block set to ±inf, against median(x, k): value and gradient
+    bit for bit on the card, saturated (tied) blocks included."""
+    from neural_imaging_tpu_torch.ops import manipulations as manips
+    candidates = [3, 5, 7, 9]
+    rng = np.random.default_rng(index)
+    x = rng.random((2, 3, 64, 64)).astype(np.float32)
+    x[0, :, 8:24, 8:24] = 1.0
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(cuda)
+    outs = []
+    for fn in (lambda v: manips.median_switch(v, torch.tensor(index, device=cuda), candidates),
+               lambda v: manips.median(v, candidates[min(index, 3)])):
+        v = torch.from_numpy(x).to(cuda).requires_grad_(True)
+        y = fn(v)
+        y.backward(g)
+        outs.append((y.detach(), v.grad))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

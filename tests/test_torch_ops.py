@@ -194,7 +194,8 @@ def test_gaussian(std):
 
 
 def test_manipulation_registry_covers_the_slice():
-    assert set(manipulations.MANIPULATIONS) == {'sharpen', 'resample', 'gaussian', 'jpeg'}
+    assert set(manipulations.MANIPULATIONS) == {'sharpen', 'resample', 'gaussian', 'jpeg', 'awgn',
+                                                'gamma', 'median'}
     for name, strength in manipulations.DEFAULT_STRENGTHS.items():
         assert jmanips.DEFAULT_STRENGTHS[name] == strength
 

@@ -465,8 +465,8 @@ def test_cli_builds_what_the_library_builds(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize('extra, item', [
-    (['--nip', 'ONet', '--manip', 'awgn'], 'item 2'),
-    (['--dcn', '32c', '--manip', 'median'], 'item 2'),
+    (['--nip', 'ONet', '--jpeg', '50', '--jpeg_mode', 'libjpeg'], 'item 2'),
+    (['--dcn', '32c', '--jpeg_mode', 'libjpeg'], 'item 2'),
     (['--devices', 'auto'], 'item 5'),
     (['--coordinator', 'localhost:1234'], 'item 5'),
     (['--nproc', '2'], 'item 5'),

@@ -115,9 +115,7 @@ def test_restored_flow_shape(flows):
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'manipulations': ['median']},
-    {'manipulations': ['awgn']},
-    {'manipulations': ['gamma']},
+    {'distribution': {'compression_params': {'quality': 50, 'codec': 'libjpeg'}}},
     {'distribution': {'compression_params': {'quality': 50, 'codec': 'soft', 'dirname': 'x'}}},
 ])
 def test_unported_options_raise(kwargs):
