@@ -89,7 +89,19 @@ NVIDIA GPU:
    timed in turns; the peak memory of a step (and with median's 9x9 window);
    10 + 3 augmented timed steps, K1 twice a step, with the device profile of
    each kind of step;
-13. print one JSON line of the kernels, then the last line
+13. RAW ingestion and development at the Nikon D90's 4288x2848 (GBRG, its
+   colour matrix from ``config/cameras.json``): ``[raw]`` builds the
+   lossless-JPEG scan codec from ``native/ljpeg``, writes one procedural
+   14-bit capture as DNG (uncompressed and lossless JPEG), CR2, NEF (lossless
+   and lossy), ARW and ARW cRAW and reads each back exactly (``unpack``
+   timed); ``raw.process`` with the bilinear, Malvar and Menon demosaicers on
+   the card in float64 (CUDA events, peak memory), each against the CPU on a
+   1024x1024 crop; each shipped QualityRef NIP develops the whole 1424x2144
+   RGGB stack in one forward (ms, peak memory), a crop against the CPU; the
+   CLIs ``train_prepare_training_set --dev manual`` (its output read by the
+   ``Dataset``) and ``develop_images --pipeline UNet`` (its PNG read back).
+   No kernel of the port runs;
+14. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -117,8 +129,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from neural_imaging_tpu_torch.cli import develop_images as develop_cli
+from neural_imaging_tpu_torch.cli import train_prepare_training_set as prepare_cli
 from neural_imaging_tpu_torch.compression import codec, entropy
-from neural_imaging_tpu_torch.data import fixtures
+from neural_imaging_tpu_torch.data import (camera_raw, dng, fixtures, ljpeg, menon, nikon, png, raw,
+                                           sony)
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
@@ -132,7 +147,7 @@ from neural_imaging_tpu_torch.training import compression as codec_training
 from neural_imaging_tpu_torch.training import validation
 from neural_imaging_tpu_torch.training.manipulation import train_manipulation_nip
 from neural_imaging_tpu_torch.training.pipeline import train_nip_model
-from neural_imaging_tpu_torch.utils import metrics
+from neural_imaging_tpu_torch.utils import metrics, native
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.utils import logger
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
@@ -226,6 +241,26 @@ MANIP7 = ['sharpen', 'resample', 'gaussian', 'jpeg', 'awgn', 'gamma', 'median']
 # the fused manipulate-then-pool expansion against the two-op form (the JAX
 # test's tolerance: the folded kernels sum in another order)
 POOLED_ATOL, POOLED_RTOL = 2e-5, 1e-4
+
+# RAW ingestion and development at the repository's default camera, the Nikon
+# D90 (config/cameras.json: GBRG and its camera → sRGB matrix; the shipped
+# QualityRef NIPs are GBRG), at its full 4288x2848: a 14-bit capture with the
+# fixtures' black 512, white 16383 and multipliers, written in every
+# container and coding; the lossy NEF codes its last rows after its tree
+# split (closed loop, a Python loop a row) and passes a 17-point curve; the
+# cRAW uses a Sony tone curve of 12-bit range (white 4301 ≥ the capture's
+# 14-bit values / 4)
+RAW_CAMERA, RAW_HEIGHT, RAW_WIDTH = 'D90', 2848, 4288
+RAW_BITS, RAW_BLACK, RAW_WHITE, RAW_CAM_MUL = 14, 512, 16383, (2.0, 1.0, 1.5, 1.0)
+NEF_LOSSY_TAIL = 16
+SONY_CURVE_POSTS = (8000, 10400, 12900, 14100)
+RAW_DEMOSAICERS, RAW_DEVELOP_REPS, RAW_NIP_REPS = ('bilinear', 'malvar', 'menon'), 5, 3
+RAW_CROP, RAW_NIP_CROP = 1024, 256
+RAW_CLI_CONTAINERS = ('DNG', 'CR2', 'NEF lossless')
+# the card's development against the CPU's: float64 through the same
+# operations, so the same sums; the last bit of pow (gamma) may differ, and
+# a uint8 value where 255·x lies on a rounding boundary with it
+MAX_DEVELOP_DIFF, MAX_DEVELOP_U8_SHARE = 1e-12, 1e-5
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
 # kernel's work is the larger of bytes / memory rate and FLOPs / peak rate.
@@ -1934,6 +1969,295 @@ def manip7_phase(args, device, flush):
     return (classify_counts, train_counts), results
 
 
+# -- RAW ingestion and full-resolution development ---------------------------------------
+
+def raw_scene(seed):
+    """The D90 capture (``RAW_HEIGHT`` x ``RAW_WIDTH``, GBRG, 14 bits) of one
+    procedural scene, as a uint16 mosaic, and the camera's sRGB matrix."""
+    camera = json.loads((base.REPO_ROOT / 'config' / 'cameras.json').read_text())[RAW_CAMERA]
+    scene = fixtures.procedural_image(RAW_HEIGHT, RAW_WIDTH, seed)
+    srgb = np.asarray(camera['srgb'])
+    mosaic = fixtures.simulate_sensor_mosaic(scene, camera['cfa'], RAW_CAM_MUL, srgb,
+                                             RAW_BLACK, RAW_WHITE)
+    return mosaic, camera['cfa'], srgb
+
+
+def write_containers(directory, mosaic, cfa, srgb):
+    """The capture in every container and coding the port writes; returns
+    {name: (path, the mosaic the container must give back, seconds to write)}.
+    The lossy codings give back a mosaic other than the written one: the NEF
+    rows from its tree split on hold the encoder's closed-loop reconstruction,
+    and every NEF value passes the linearization curve; the cRAW payload is
+    12-bit codes through Sony's tone curve, written from a mosaic that has
+    been through the coding once (the coding is idempotent)."""
+    h, w = mosaic.shape
+    common = dict(cfa_pattern=cfa, black=RAW_BLACK, white=RAW_WHITE)
+    split = h - NEF_LOSSY_TAIL
+    samples = np.round(RAW_WHITE * (np.arange(17) / 16) ** 1.25).astype(np.uint16)
+    curve = nikon.parse_meta(nikon.build_meta_lossy((0, 0, 0, 0), curve_samples=samples,
+                                                    split=split), bits=RAW_BITS)['curve']
+    recon = mosaic.astype(np.int32)
+    recon[split:] = nikon.encode_lossy(mosaic[split - 2:], RAW_BITS, split=2)[1][2:]
+    sony_curve = sony.build_curve(SONY_CURVE_POSTS)
+    craw = sony.decode(sony.encode(mosaic >> 2, sony_curve), h, w, sony_curve)
+    g = RAW_CAM_MUL[1]
+    sr2 = {'curve_posts': SONY_CURVE_POSTS, 'black': RAW_BLACK >> 2, 'key': 0x5EED,
+           'wb': (round(1024 * RAW_CAM_MUL[0] / g), 1024, 1024, round(1024 * RAW_CAM_MUL[2] / g))}
+    writers = {
+        'DNG': ('dng', mosaic, lambda p: dng.write_dng(
+            p, mosaic, cam_mul=RAW_CAM_MUL, cam2srgb=srgb, camera=RAW_CAMERA, bits=RAW_BITS,
+            **common)),
+        'DNG lossless JPEG': ('dng', mosaic, lambda p: dng.write_dng(
+            p, mosaic, cam_mul=RAW_CAM_MUL, cam2srgb=srgb, camera=RAW_CAMERA, bits=RAW_BITS,
+            compression='ljpeg', **common)),
+        'CR2': ('cr2', mosaic, lambda p: camera_raw.write_cr2(
+            p, mosaic, precision=RAW_BITS, cam_mul=RAW_CAM_MUL, camera=RAW_CAMERA, **common)),
+        'NEF lossless': ('nef', mosaic, lambda p: camera_raw.write_nef(
+            p, mosaic, bits=RAW_BITS, camera=RAW_CAMERA, compression='nikon-lossless',
+            **common)),
+        'NEF lossy': ('nef', curve[np.clip(recon, 0, len(curve) - 1)], lambda p: camera_raw.write_nef(
+            p, mosaic, bits=RAW_BITS, camera=RAW_CAMERA, compression='nikon-lossy',
+            nikon_split=split, nikon_curve_samples=samples, **common)),
+        'ARW': ('arw', mosaic, lambda p: camera_raw.write_arw(
+            p, mosaic, bits=16, camera=RAW_CAMERA, **common)),
+        'ARW cRAW': ('arw', craw, lambda p: camera_raw.write_arw_craw(
+            p, craw, cfa_pattern=cfa, camera=RAW_CAMERA, sr2_meta=sr2)),
+    }
+    out = {}
+    for i, (name, (ext, expected, write)) in enumerate(writers.items()):
+        path = os.path.join(directory, f'capture_{i}.{ext}')
+        t0 = time.perf_counter()
+        write(path)
+        out[name] = (path, expected, time.perf_counter() - t0)
+    return out
+
+
+def read_containers(containers):
+    """Each container read back: its parsed mosaic equal to the expected one
+    bit for bit, ``raw.unpack``'s RGGB stack of the right shape in [0, 1],
+    and ``unpack``'s wall time (host only)."""
+    results = {}
+    for name, (path, expected, write_s) in containers.items():
+        parse = dng.read_dng if path.endswith('.dng') else camera_raw.read_camera_raw
+        parsed = parse(path)['mosaic']
+        if parsed.shape != expected.shape or not np.array_equal(parsed, expected):
+            raise AssertionError(f'[raw] {name}: the mosaic read back differs from the written '
+                                 f'one in {int((parsed != expected).sum())} values')
+        t0 = time.perf_counter()
+        stack, cfa, _, _ = raw.unpack(path)
+        unpack_s = time.perf_counter() - t0
+        if stack.shape != (RAW_HEIGHT // 2, RAW_WIDTH // 2, 4) or cfa != 'GBRG' \
+                or not np.isfinite(stack).all() or stack.min() < 0 or stack.max() > 1:
+            raise AssertionError(f'[raw] {name}: bad stack {stack.shape} {cfa}')
+        results[name] = {'bytes': os.path.getsize(path), 'write_s': write_s,
+                         'unpack_ms': 1e3 * unpack_s}
+        print(f'[raw] {name}: {os.path.getsize(path):,} bytes written in {write_s:.2f} s; '
+              f'mosaic read back exactly; unpack {1e3 * unpack_s:.1f} ms', flush=True)
+    return results
+
+
+def event_ms(fn, reps):
+    """``fn()`` ``reps`` times, each between two CUDA events (the host's work
+    inside the call included); the times in ms and the last result."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, out
+
+
+def develop_check(crop, cfa, cam2srgb, demosaicing, device):
+    """``raw.develop`` of a mosaic crop on the card against the CPU (float64,
+    the same operations): Menon's direction decisions that differ (the
+    pixels within 3 of one are left out of the comparison), the largest
+    difference elsewhere, and the uint8 values that differ."""
+    args = dict(cfa_pattern=cfa, cam2srgb=cam2srgb, brightness='percentile',
+                demosaicing=demosaicing)
+    card = raw.develop(crop, device=device, **args).cpu()
+    cpu = raw.develop(crop, device='cpu', **args)
+    keep = torch.ones(crop.shape, dtype=torch.bool)
+    flips = 0
+    if demosaicing == 'menon':
+        m = torch.from_numpy(crop).to(torch.float64)
+        flipped = menon.directions(m.to(device), cfa)[0].cpu() != menon.directions(m, cfa)[0]
+        flips = int(flipped.sum())
+        near = torch.nn.functional.max_pool2d(flipped[None, None].double(), 7, 1, 3)[0, 0] > 0
+        keep = ~near
+    diff = float((card - cpu).abs()[keep].max())
+    u8 = int((raw.to_uint8(card) != raw.to_uint8(cpu)).sum())
+    return flips, diff, u8
+
+
+def raw_development(path, crop, device):
+    """``raw.process`` of the DNG capture with each demosaicer at full size on
+    the card (CUDA events around the call, its host reading included; median
+    of ``RAW_DEVELOP_REPS``), ``raw.develop`` alone from the mosaic already on
+    the card, the peak memory of each, and each against the CPU on a crop."""
+    results = {}
+    mosaic, cfa, cam2srgb, cam_mul = raw._load_raw_data(path)
+    mosaic = torch.from_numpy(raw._apply_wb(mosaic, cfa, cam_mul)).to(device)
+    for demosaicing in RAW_DEMOSAICERS:
+        raw.process(path, demosaicing=demosaicing, device=device)            # warm-up
+        process_ms, rgb = event_ms(lambda: raw.process(path, demosaicing=demosaicing,
+                                                       device=device), RAW_DEVELOP_REPS)
+        if tuple(rgb.shape) != (RAW_HEIGHT, RAW_WIDTH, 3) or rgb.dtype != torch.float64 \
+                or not bool(torch.isfinite(rgb).all()) or float(rgb.min()) < 0 \
+                or float(rgb.max()) > 1:
+            raise AssertionError(f'[raw] process({demosaicing}): bad RGB {tuple(rgb.shape)}')
+        del rgb
+        develop_ms, _ = event_ms(lambda: raw.develop(
+            mosaic, cfa, cam2srgb, brightness='percentile', demosaicing=demosaicing,
+            device=device), RAW_DEVELOP_REPS)
+        _, peak = peak_memory_mb(lambda: raw.develop(
+            mosaic, cfa, cam2srgb, brightness='percentile', demosaicing=demosaicing,
+            device=device))
+        flips, diff, u8 = develop_check(crop, cfa, cam2srgb, demosaicing, device)
+        if not diff <= MAX_DEVELOP_DIFF:
+            raise AssertionError(f'[raw] {demosaicing}: card and CPU differ by {diff}')
+        if u8 > MAX_DEVELOP_U8_SHARE * crop.size * 3:
+            raise AssertionError(f'[raw] {demosaicing}: {u8} uint8 values differ from the CPU')
+        results[demosaicing] = {
+            'process_ms': process_ms, 'process_median_ms': float(np.median(process_ms)),
+            'develop_ms': develop_ms, 'develop_median_ms': float(np.median(develop_ms)),
+            'peak_mib': peak, 'cpu_direction_flips': flips, 'cpu_max_abs_diff': diff,
+            'cpu_uint8_differ': u8}
+        print(f'[raw] process {demosaicing}: {RAW_WIDTH}x{RAW_HEIGHT} in '
+              f'{results[demosaicing]["process_median_ms"]:.1f} ms (CUDA events, median of '
+              f'{RAW_DEVELOP_REPS}, host reading included), develop alone '
+              f'{results[demosaicing]["develop_median_ms"]:.1f} ms, peak {peak:.0f} MiB; '
+              f'{RAW_CROP}^2 crop vs the CPU: {flips} direction flips, max |d| {diff:.3g} '
+              f'(bound {MAX_DEVELOP_DIFF:g}), {u8} uint8 values differ', flush=True)
+    return results
+
+
+def raw_nips(path, device):
+    """Each shipped QualityRef NIP develops the capture's whole RGGB stack in
+    one forward on the card (median of ``RAW_NIP_REPS``, peak memory), and a
+    ``RAW_NIP_CROP``-px crop of it against the CPU within ``MAX_NIP_DIFF``."""
+    stack = raw.unpack(path)[0]
+    y0 = (stack.shape[0] - RAW_NIP_CROP) // 2
+    x0 = (stack.shape[1] - RAW_NIP_CROP) // 2
+    crop = stack[y0:y0 + RAW_NIP_CROP, x0:x0 + RAW_NIP_CROP][None]
+    results = {}
+    for name, snapshot in NIP_SNAPSHOTS.items():
+        model = base.restore(str(base.REPO_ROOT / snapshot), pipelines, device=device)
+
+        def develop():
+            with torch.inference_mode():
+                return model.process(stack[None])
+
+        develop()                                                   # warm-up
+        times, y = event_ms(develop, RAW_NIP_REPS)
+        del y
+        y, peak = peak_memory_mb(develop)
+        if tuple(y.shape) != (1, RAW_HEIGHT, RAW_WIDTH, 3) or not bool(torch.isfinite(y).all()) \
+                or float(y.min()) < 0 or float(y.max()) > 1:
+            raise AssertionError(f'[raw] {name}: bad RGB of shape {tuple(y.shape)}')
+        del y
+        with torch.inference_mode():
+            card = model.process(crop).cpu().numpy()
+            cpu = base.restore(str(base.REPO_ROOT / snapshot), pipelines,
+                               device='cpu').process(crop).numpy()
+        diff = float(np.abs(card - cpu).max())
+        if not diff <= MAX_NIP_DIFF:
+            raise AssertionError(f'[raw] {name}: the crop on the card and the CPU differ by {diff}')
+        results[name] = {'model_code': model.model_code, 'ms': times,
+                         'median_ms': float(np.median(times)), 'peak_mib': peak,
+                         'crop_cpu_max_abs_diff': diff}
+        print(f'[raw] {model.model_code}: {stack.shape[0]}x{stack.shape[1]}x4 → '
+              f'{RAW_HEIGHT}x{RAW_WIDTH} RGB in {results[name]["median_ms"]:.1f} ms (median of '
+              f'{RAW_NIP_REPS}), peak {peak:.0f} MiB; {RAW_NIP_CROP}^2 crop vs the CPU max |dy| '
+              f'{diff:.3g} (bound {MAX_NIP_DIFF:g})', flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return results
+
+
+def raw_clis(containers, tmp):
+    """The two CLIs end to end on the card: ``train_prepare_training_set
+    --dev manual`` on a directory of captures, whose output the port's
+    ``Dataset`` reads a training and a validation batch from, and
+    ``develop_images --pipeline UNet --cam QualityRef`` on one capture, whose
+    PNG ``read_png`` reads back. Seconds per image of each."""
+    captures = os.path.join(tmp, 'captures')
+    os.makedirs(captures)
+    for name in RAW_CLI_CONTAINERS:
+        path = containers[name][0]
+        os.link(path, os.path.join(captures, os.path.basename(path)))
+    prepared = os.path.join(tmp, 'prepared')
+    t0 = time.perf_counter()
+    stems = prepare_cli.main(['--dir', captures, '--out', prepared, '--dev', 'manual'])
+    prepare_s = (time.perf_counter() - t0) / len(RAW_CLI_CONTAINERS)
+    if len(stems) != len(RAW_CLI_CONTAINERS):
+        raise AssertionError(f'[raw] train_prepare_training_set wrote {stems}')
+    data = Dataset(prepared, n_images=len(stems) - 1, v_images=1, val_rgb_patch_size=256)
+    bx, by = data.next_training_batch(0, len(stems) - 1, 256)
+    vx, vy = data.next_validation_batch(0, 1)
+    for label, b, shape in (('training raw', bx, (len(stems) - 1, 128, 128, 4)),
+                            ('training rgb', by, (len(stems) - 1, 256, 256, 3)),
+                            ('validation raw', vx, (1, 128, 128, 4)),
+                            ('validation rgb', vy, (1, 256, 256, 3))):
+        if b.shape != shape or not np.isfinite(b).all() or b.min() < 0 or b.max() > 1:
+            raise AssertionError(f'[raw] Dataset {label} batch: {b.shape}')
+    one = os.path.join(tmp, 'one')
+    os.makedirs(one)
+    os.link(containers['DNG'][0], os.path.join(one, 'capture.dng'))
+    t0 = time.perf_counter()
+    written = develop_cli.main(['--dir', one, '--out', os.path.join(tmp, 'developed'),
+                                '--pipeline', 'UNet', '--cam', 'QualityRef'])
+    develop_s = time.perf_counter() - t0
+    rgb = png.read_png(written[0])
+    if rgb.shape != (RAW_HEIGHT, RAW_WIDTH, 3) or rgb.dtype != np.uint8:
+        raise AssertionError(f'[raw] develop_images wrote {rgb.shape} {rgb.dtype}')
+    print(f'[raw] train_prepare_training_set --dev manual: {len(stems)} captures, '
+          f'{prepare_s:.2f} s an image; Dataset batches {bx.shape} + {by.shape}, '
+          f'{vx.shape} + {vy.shape}; develop_images --pipeline UNet --cam QualityRef: '
+          f'{develop_s:.2f} s an image, {os.path.basename(written[0])} read back '
+          f'{rgb.shape}', flush=True)
+    return {'prepare_s_per_image': prepare_s, 'develop_images_s_per_image': develop_s}
+
+
+def raw_phase(args, device):
+    """``[raw]``: RAW ingestion and development at the Nikon D90's full
+    resolution. No kernel of the port runs. Returns (launch counts, results)."""
+    built_before = ljpeg.library_path().exists()
+    t0 = time.perf_counter()
+    library = ljpeg.build()
+    build_s = time.perf_counter() - t0
+    print(f'[raw] lossless-JPEG scan codec {library.name} (native/ljpeg/ljpeg.cpp, g++ '
+          f'{" ".join(native.CXX_FLAGS)}): '
+          + ('found, built earlier in this checkout' if built_before
+             else f'built in {build_s:.2f} s'), flush=True)
+    t0 = time.perf_counter()
+    mosaic, cfa, srgb = raw_scene(args.seed + 1300)
+    scene_s = time.perf_counter() - t0
+    print(f'[raw] {RAW_CAMERA} capture {RAW_WIDTH}x{RAW_HEIGHT} {cfa}, {RAW_BITS}-bit, black '
+          f'{RAW_BLACK}, white {RAW_WHITE}: made in {scene_s:.1f} s', flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        containers = write_containers(tmp, mosaic, cfa, srgb)
+        torch.cuda.synchronize()
+        zero_counts()
+        reads = read_containers(containers)
+        # a crop at even offsets, so that it keeps the CFA's phase
+        y0 = (RAW_HEIGHT - RAW_CROP) // 4 * 2
+        x0 = (RAW_WIDTH - RAW_CROP) // 4 * 2
+        unbalanced, cfa_, _, cam_mul = raw._load_raw_data(containers['DNG'][0])
+        crop = np.ascontiguousarray(
+            raw._apply_wb(unbalanced, cfa_, cam_mul)[y0:y0 + RAW_CROP, x0:x0 + RAW_CROP])
+        develop = raw_development(containers['DNG'][0], crop, device)
+        nips = raw_nips(containers['DNG'][0], device)
+        clis = raw_clis(containers, tmp)
+        counts = read_counts()
+    expect_counts('RAW ingestion and development', counts, {})
+    return counts, {'library': library.name, 'built_before': built_before, 'build_s': build_s,
+                    'scene_s': scene_s,
+                    'containers': reads, 'develop': develop, 'nips': nips, 'clis': clis}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2082,7 +2406,11 @@ def main():
     manip7_counts, manip7_results = manip7_phase(args, device, flush)
     print('[manip7] ' + json.dumps({**manip7_results, 'k1_shape': k1_manip7}), flush=True)
 
-    # 13. results: K1's numbers are its two launches of one m_quality request,
+    # 13. RAW ingestion and full-resolution development
+    _, raw_results = raw_phase(args, device)
+    print('[raw] ' + json.dumps(raw_results), flush=True)
+
+    # 14. results: K1's numbers are its two launches of one m_quality request,
     # summed; K2's and K3's are at the DCN flow's shape (N = 409,600), K4's at
     # the DCN training step's
     print('[slice] ' + json.dumps({

@@ -2,10 +2,10 @@
 Entropy coding for the DCN bitstream: a ``ctypes`` binding to the rANS coder
 in ``native/ans/ans.cpp`` (12-bit static frequency model).
 
-The library is built from that source at first use with
-``g++ -O3 -fPIC -shared -std=c++17`` (no ``-march=native``, so it runs on any
-x86-64 host) into ``neural_imaging_tpu_torch/_build/``, named by a hash of the
-source and the flags. A failed build raises; there is no other coder.
+The library is built from that source at first use by ``utils/native.py``
+(``g++ -O3 -fPIC -shared -std=c++17``, no ``-march=native``) into
+``neural_imaging_tpu_torch/_build/``, named by a hash of the source and the
+flags. A failed build raises; there is no other coder.
 
 API: ``compress(bytes) -> bytes`` and ``decompress(bytes, n) -> bytes``, with
 typed exceptions for the all-identical-symbols and not-compressible cases
@@ -13,15 +13,12 @@ that the bitstream handles with its RLE and raw fallbacks.
 """
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
 
 from neural_imaging_tpu_torch.models.base import REPO_ROOT
-from neural_imaging_tpu_torch.ops.hopper._build import BUILD_DIR
+from neural_imaging_tpu_torch.utils import native
+from neural_imaging_tpu_torch.utils.native import CXX_FLAGS  # noqa: F401 (the build's flags)
 
 SOURCE = REPO_ROOT / 'native' / 'ans' / 'ans.cpp'
-CXX_FLAGS = ('-O3', '-fPIC', '-shared', '-std=c++17')
 
 
 class ANSException(Exception):
@@ -46,28 +43,13 @@ _ERR = {-1: ANSNotCompressibleError, -2: ANSSymbolRepetitionError,
 
 def library_path():
     """Where the library built from ``native/ans/ans.cpp`` lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + ' '.join(CXX_FLAGS).encode())
-    return BUILD_DIR / f'libans-{digest.hexdigest()[:16]}.so'
+    return native.library_path(SOURCE, 'ans')
 
 
 def build():
     """Compile the coder if its library is missing; returns the library path.
     Raises RuntimeError with the compiler's output if the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    try:
-        result = subprocess.run(['g++', *CXX_FLAGS, '-o', str(tmp), str(SOURCE)],
-                                capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f'rANS build failed: cannot run g++: {e}') from e
-    if result.returncode != 0:
-        raise RuntimeError(f'rANS build failed (g++ exited {result.returncode}):\n'
-                           f'{result.stdout}{result.stderr}')
-    os.replace(tmp, out)
-    return out
+    return native.build(SOURCE, 'ans')
 
 
 @functools.lru_cache()

@@ -169,8 +169,14 @@ def test_develop_mosaic_matches_the_reference(cfa):
 
 @pytest.mark.parametrize('demosaicing', ['menon', 'malvar'])
 def test_unported_demosaicing_raises(demosaicing):
-    with pytest.raises(NotImplementedError, match=demosaicing):
-        raw.develop_mosaic(np.zeros((8, 8)), 'GBRG', demosaicing=demosaicing)
+    """Malvar and Menon were refused here until the port had them; now they
+    develop as the reference does (tests/test_torch_raw_develop.py holds
+    them to it), and a demosaicer neither package has raises."""
+    mosaic = np.random.default_rng(4).random((HEIGHT, WIDTH))
+    assert np.abs(raw.develop_mosaic(mosaic, 'GBRG', demosaicing=demosaicing)
+                  - jraw.develop_mosaic(mosaic, 'GBRG', demosaicing=demosaicing)).max() <= 1e-12
+    with pytest.raises(ValueError, match='demosaicing'):
+        raw.develop_mosaic(np.zeros((8, 8)), 'GBRG', demosaicing=demosaicing + '2')
 
 
 # -- loading and the dataset ------------------------------------------------------------

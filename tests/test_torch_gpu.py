@@ -454,3 +454,63 @@ def test_median_switch_equals_median_on_the_card(cuda, index):
         y.backward(g)
         outs.append((y.detach(), v.grad))
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+# -- RAW ingestion and development ------------------------------------------------------
+
+@pytest.mark.parametrize('demosaicing', ['bilinear', 'malvar', 'menon'])
+@pytest.mark.parametrize('cfa', ['GBRG', 'RGGB'])
+def test_development_on_the_card_matches_the_cpu(cuda, demosaicing, cfa):
+    """raw.develop in float64 on the card against the CPU: the same
+    operations in the same order, so Menon decides every direction alike
+    and the values agree within chip_smoke.MAX_DEVELOP_DIFF (the last bit
+    of pow may differ)."""
+    from chip_smoke import MAX_DEVELOP_DIFF
+    from neural_imaging_tpu_torch.data import menon, raw
+    m = np.random.default_rng(7).random((256, 384)) ** 2
+    m[:64, :96] = 0.25                                  # a flat region: tied directions
+    srgb = np.array([[1.8, -0.6, -0.2], [0.0, 1.3, -0.3], [0.1, -0.4, 1.3]])
+    card = raw.develop(m, cfa, srgb, brightness='percentile', demosaicing=demosaicing,
+                       device=cuda)
+    cpu = raw.develop(m, cfa, srgb, brightness='percentile', demosaicing=demosaicing,
+                      device='cpu')
+    assert card.device.type == 'cuda' and card.dtype == torch.float64
+    if demosaicing == 'menon':
+        t = torch.from_numpy(m)
+        assert torch.equal(menon.directions(t.to(cuda), cfa)[0].cpu(), menon.directions(t, cfa)[0])
+    assert float((card.cpu() - cpu).abs().max()) <= MAX_DEVELOP_DIFF
+
+
+def test_ljpeg_library_builds_and_codes_as_the_plain_loops():
+    """The scan codec built from native/ljpeg/ljpeg.cpp with g++ (no card
+    needed, but this is the GPU machine's toolchain) codes and decodes as the
+    Python loops, bit for bit."""
+    from neural_imaging_tpu_torch.data import ljpeg
+    path = ljpeg.build()
+    assert path == ljpeg.library_path() and path.exists()
+    s = np.random.default_rng(2).integers(0, 1 << 14, (24, 40, 2)).astype(np.uint16)
+    stream = ljpeg.encode(s, precision=14)
+    assert stream == ljpeg.encode_plain(s, precision=14)
+    assert np.array_equal(ljpeg.decode(stream)[0], s)
+
+
+def test_nip_full_stack_on_the_card_matches_a_cpu_crop(cuda):
+    """INet develops a 512x768 RGGB stack in one forward on the card; a crop
+    of the stack developed on the CPU gives the same RGB away from the
+    crop's border, within MAX_NIP_DIFF."""
+    from chip_smoke import MAX_NIP_DIFF
+    from neural_imaging_tpu_torch.cli import develop_images
+    from neural_imaging_tpu_torch.models import base, pipelines
+    path = os.path.join(ROOT, 'data/models/nip/QualityRef/INet_gbrg_5x5')
+    # away from black, where gamma's slope turns float32 noise into 1e-4
+    stack = (0.05 + 0.9 * np.random.default_rng(4).random((512, 768, 4))).astype(np.float32)
+    card = base.restore(path, pipelines, device=cuda)
+    with torch.inference_mode():
+        full = card.process(stack[None])[0].cpu()
+    assert tuple(full.shape) == (1024, 1536, 3)
+    cpu = base.restore(path, pipelines, device='cpu').process(stack[None, 100:164, 200:264])[0]
+    m = 16
+    d = (full[200 + m:328 - m, 400 + m:528 - m] - cpu[m:-m, m:-m]).abs().max()
+    assert float(d) <= MAX_NIP_DIFF
+    rgb = develop_images.develop_stack(card, stack)
+    assert rgb.shape == (1024, 1536, 3) and rgb.dtype == np.uint8

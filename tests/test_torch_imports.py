@@ -23,7 +23,7 @@ from neural_imaging_tpu_torch.workflows import manipulation_classification
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'imageio', 'neural_imaging_tpu', 'tqdm',
-           'matplotlib', 'pandas')
+           'matplotlib', 'pandas', 'rawpy')
 
 
 def port_modules():
@@ -44,7 +44,9 @@ def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package()
                  'data.dataset', 'data.prefetch', 'data.device_sampler', 'training.validation',
                  'training.manipulation', 'cli.train_manipulation', 'training.pipeline',
                  'cli.train_nip', 'models.pipelines', 'training.compression', 'cli.train_dcn',
-                 'cli.test_fan', 'utils.results_data'):
+                 'cli.test_fan', 'utils.results_data', 'utils.native', 'data.raw', 'data.menon',
+                 'data.dng', 'data.ljpeg', 'data.nikon', 'data.sony', 'data.camera_raw',
+                 'cli.train_prepare_training_set', 'cli.develop_images'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',
