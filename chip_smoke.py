@@ -101,7 +101,18 @@ NVIDIA GPU:
    CLIs ``train_prepare_training_set --dev manual`` (its output read by the
    ``Dataset``) and ``develop_images --pipeline UNet`` (its PNG read back).
    No kernel of the port runs;
-14. print one JSON line of the kernels, then the last line
+14. the codec-evaluation layer: ``[codec eval]`` builds the host baseline
+   JPEG codec from ``csrc/baseline_jpeg.cpp`` and holds it against its plain
+   version (bytes and pixels, 2 procedural images x 3 subsamplings x 2
+   qualities) and the committed digests of PIL's files; K1 at test_jpeg's
+   shape and K2 at the four DCN presets' 512x768 latents against their plain
+   versions; the rate-distortion sweep of 4 Kodak-like 512x768 PNGs
+   (``get_jpeg_df`` QF 10-95 step 5, 72 rows on the host; ``get_dcn_df`` over
+   the shipped 8c/16c/32c/64c, 16 rows, K2 once a row), rows against a
+   recomputation and the CPU's 32c, the cache, each codec's fits; the CLIs
+   ``test_jpeg`` at its defaults (K1 once a quality, 18) and ``test_dcn`` in
+   its four modes on 32c; ``validate_jpeg`` with the libjpeg codec;
+15. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -130,15 +141,18 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from neural_imaging_tpu_torch.cli import develop_images as develop_cli
+from neural_imaging_tpu_torch.cli import test_dcn as test_dcn_cli
+from neural_imaging_tpu_torch.cli import test_jpeg as test_jpeg_cli
 from neural_imaging_tpu_torch.cli import train_prepare_training_set as prepare_cli
-from neural_imaging_tpu_torch.compression import codec, entropy
+from neural_imaging_tpu_torch.compression import baseline_jpeg, codec, entropy, jpeg_helpers
+from neural_imaging_tpu_torch.compression import ratedistortion as rd
 from neural_imaging_tpu_torch.data import (camera_raw, dng, fixtures, ljpeg, menon, nikon, png, raw,
                                            sony)
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
 from neural_imaging_tpu_torch.models import base, compression, pipelines
-from neural_imaging_tpu_torch.models.jpeg import qtables
+from neural_imaging_tpu_torch.models.jpeg import JPEG, qtables
 from neural_imaging_tpu_torch.ops import manipulations as manips
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops import quantization as quant
@@ -261,6 +275,26 @@ RAW_CLI_CONTAINERS = ('DNG', 'CR2', 'NEF lossless')
 # operations, so the same sums; the last bit of pow (gamma) may differ, and
 # a uint8 value where 255·x lies on a rounding boundary with it
 MAX_DEVELOP_DIFF, MAX_DEVELOP_U8_SHARE = 1e-12, 1e-5
+
+# the codec-evaluation layer: the R/D sweep on the Kodak stand-in (4 images of
+# 512x768 written as PNG; the JPEG leg's QF 10-95 step 5, 72 rows; the DCN leg
+# over the shipped 8c/16c/32c/64c, 16 rows, one K2 launch a row), then the
+# evaluation CLIs at their defaults (test_jpeg: 4 images of 256x384, one K1
+# launch a quality; test_dcn on 32c: 4 images of 256x256) and validate_jpeg
+# with the libjpeg codec
+RD_IMAGES, RD_SHAPE, RD_QUALITIES = 4, (512, 768), range(10, 96, 5)
+RD_DCN_ROOT = 'data/models/dcn'
+RD_PRESETS = ('8c', '16c', '32c', '64c')
+RD_METRICS = ('ssim', 'psnr', 'msssim_db')
+# the host codec against its plain version: small procedural images at every subsampling
+CODEC_CHECK_SHAPES, CODEC_CHECK_QUALITIES = ((37, 53), (64, 96)), (25, 75)
+JPEG_ROUND_TRIP_REPS = 10
+# K2 launches of the test_dcn modes on 4 images: 'batch' codes the batch once
+# and each image twice (its bitstream and its entropy), the others each image once
+TEST_DCN_K2 = {'batch': 9, 'jpeg-match-ssim': 4, 'jpeg-match-bpp': 4, 'rate-dist': 4}
+# test_jpeg's dJPEG PSNR on the card against the CPU's (K1 against its plain
+# version: a few coefficients on rounding ties)
+MAX_DJPEG_PSNR_DIFF = 1e-3
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
 # kernel's work is the larger of bytes / memory rate and FLOPs / peak rate.
@@ -2258,6 +2292,278 @@ def raw_phase(args, device):
                     'containers': reads, 'develop': develop, 'nips': nips, 'clis': clis}
 
 
+def host_codec_check(seed):
+    """The native baseline JPEG codec: built, held byte for byte and pixel for
+    pixel against its plain version, and against the committed digests of
+    PIL's files; a 512x768 round trip timed. Returns its record."""
+    built_before = baseline_jpeg.library_path().exists()
+    t0 = time.perf_counter()
+    library = baseline_jpeg.build()
+    build_s = time.perf_counter() - t0
+    checked = 0
+    for i, (h, w) in enumerate(CODEC_CHECK_SHAPES):
+        image = (fixtures.procedural_image(h, w, seed + i) * 255).astype(np.uint8)
+        for subsampling in baseline_jpeg.SUBSAMPLING:
+            for quality in CODEC_CHECK_QUALITIES:
+                data = baseline_jpeg.encode(image, quality, subsampling)
+                if data != baseline_jpeg.encode_plain(image, quality, subsampling):
+                    raise AssertionError(f'native and plain JPEG bytes differ: {h}x{w} '
+                                         f'QF {quality} {subsampling}')
+                if not np.array_equal(baseline_jpeg.decode(data),
+                                      baseline_jpeg.decode_plain(data)):
+                    raise AssertionError(f'native and plain JPEG decodes differ: {h}x{w} '
+                                         f'QF {quality} {subsampling}')
+                checked += 1
+    wrong = baseline_jpeg.digest_mismatches()
+    if wrong:
+        raise AssertionError(f'the native JPEG codec misses PIL\'s digests: {wrong}')
+    image = (fixtures.kodak_like_batch(1, *RD_SHAPE, seed=seed)[0] * 255).astype(np.uint8)
+    times = []
+    for _ in range(JPEG_ROUND_TRIP_REPS):
+        t0 = time.perf_counter()
+        baseline_jpeg.decode(baseline_jpeg.encode(image, 75))
+        times.append(time.perf_counter() - t0)
+    record = {'library': library.name, 'built_before': built_before, 'build_s': build_s,
+              'plain_checks': checked, 'digests': len(baseline_jpeg.PIL_DIGESTS),
+              'round_trip_ms': 1e3 * float(np.median(times))}
+    print(f'[codec eval] host JPEG codec {library.name} (csrc/baseline_jpeg.cpp, g++ '
+          f'{" ".join(native.CXX_FLAGS)}): '
+          + ('found, built earlier in this checkout' if built_before
+             else f'built in {build_s:.2f} s')
+          + f'; {checked} files equal to the plain version\'s, bytes and pixels; all '
+          f'{record["digests"]} PIL digests reproduced; {RD_SHAPE[0]}x{RD_SHAPE[1]} 4:4:4 '
+          f'QF 75 round trip {record["round_trip_ms"]:.2f} ms (median of '
+          f'{JPEG_ROUND_TRIP_REPS})', flush=True)
+    return record
+
+
+def check_rd_table(name, table, rows, codecs):
+    """A sweep's table: its rows, codecs and finite metrics in range."""
+    if len(table) != rows or set(table['codec']) != set(codecs):
+        raise AssertionError(f'{name}: {len(table)} rows of {sorted(set(table["codec"]))}, '
+                             f'expected {rows} of {sorted(codecs)}')
+    for column in (*RD_METRICS, 'bpp'):
+        values = table[column].astype(np.float64)
+        if not np.isfinite(values).all():
+            raise AssertionError(f'{name}: non-finite {column}')
+    ssim = table['ssim'].astype(np.float64)
+    if not ((ssim > 0) & (ssim <= 1)).all() or not (table['bpp'].astype(np.float64) > 0).all():
+        raise AssertionError(f'{name}: SSIM or bpp out of range')
+
+
+def rd_fits(table):
+    """Each codec's fit of each metric: the per-image fit-then-average where a
+    codec has several samples an image, else the pooled fit; a fit that does
+    not converge on a DCN's four samples is recorded, not raised."""
+    fits = {}
+    for codec_name in table.unique('codec'):
+        sel = table.where(table['codec'] == codec_name)
+        per_image = len(sel) > len(sel.unique('image_id'))
+        for metric in RD_METRICS:
+            try:
+                fit = rd.fit_rd_curve_per_image if per_image else rd.fit_rd_curve
+                grid, fitted = fit(sel, metric)
+            except (RuntimeError, ValueError, TypeError) as e:
+                if per_image:
+                    raise
+                fits[f'{codec_name}/{metric}'] = f'no fit: {e}'
+                continue
+            if not np.isfinite(fitted).all():
+                raise AssertionError(f'{codec_name}: non-finite {metric} fit')
+            fits[f'{codec_name}/{metric}'] = {'bpp': [float(grid[0]), float(grid[-1])],
+                                              metric: [float(fitted[0]), float(fitted[-1])]}
+    return fits
+
+
+def codec_eval_phase(args, device, flush):
+    """``[codec eval]``: the host JPEG codec, the rate-distortion sweep's JPEG
+    and DCN legs and their fits, the evaluation CLIs and ``validate_jpeg``
+    with the libjpeg codec. Returns (K1 and K2 launch counts of the phase,
+    results)."""
+    t_phase = time.perf_counter()
+    host = host_codec_check(args.seed + 1400)
+    gen = torch.Generator().manual_seed(args.seed + 1401)
+    # K1 at test_jpeg's shape, K2 at the DCN leg's, against their plain versions
+    n_jpeg, (jh, jw) = 4, (256, 384)
+    planes = (torch.rand((3 * n_jpeg, jh, jw), generator=gen) * 255 - 127).to(device)
+    q_luma, q_chroma = qtables(50, device)
+    k1 = check_k1('test_jpeg 4x256x384', planes, torch.stack(
+        [q_luma, q_chroma, q_chroma]).repeat(n_jpeg, 1, 1).contiguous(), args.reps, flush)
+    k2 = {preset: check_codebook(f'rd {preset} {RD_SHAPE[0]}x{RD_SHAPE[1]}',
+                                 RD_SHAPE[0] * RD_SHAPE[1] // 64 * int(preset[:-1]), args.reps,
+                                 flush, gen, device)['codebook_fwd']
+          for preset in RD_PRESETS}
+    counts = {}
+    results = {'host_codec': host, 'k1_shape': k1, 'k2_shapes': k2}
+    with tempfile.TemporaryDirectory() as tmp:
+        images_dir = os.path.join(tmp, 'kodak_like')
+        os.makedirs(images_dir)
+        batch = fixtures.kodak_like_batch(RD_IMAGES, *RD_SHAPE)
+        for i, image in enumerate(batch):
+            png.write_png(os.path.join(images_dir, f'kodak_like_{i:02d}.png'),
+                          (image * 255).round().astype(np.uint8))
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        jpeg_table = rd.get_jpeg_df(images_dir, qualities=RD_QUALITIES, device=device)
+        jpeg_s = time.perf_counter() - t0
+        counts['jpeg leg'] = read_counts()
+        expect_counts('[codec eval] JPEG leg', counts['jpeg leg'], {})
+        check_rd_table('JPEG leg', jpeg_table, RD_IMAGES * len(RD_QUALITIES), ['jpeg'])
+        zero_counts()
+        t0 = time.perf_counter()
+        dcn_table = rd.get_dcn_df(images_dir, str(base.REPO_ROOT / RD_DCN_ROOT), device=device)
+        dcn_s = time.perf_counter() - t0
+        counts['dcn leg'] = read_counts()
+        expect_counts('[codec eval] DCN leg', counts['dcn leg'],
+                      {'codebook_fwd': RD_IMAGES * len(RD_PRESETS)})
+        codes = {p: codec.restore(p, device='cpu').model_code for p in RD_PRESETS}
+        check_rd_table('DCN leg', dcn_table, RD_IMAGES * len(RD_PRESETS), codes.values())
+
+        # rows against a recomputation: image 0's QF 50 row from the host codec
+        # again, exactly; its 32c row against the CPU's codec (the same bytes and
+        # SSIM within MAX_DCN_SSIM_DIFF unless a latent index flipped)
+        row = next(r for r in jpeg_table.rows if r['image_id'] == 0 and r['quality'] == 50)
+        image0 = png.read_png(os.path.join(images_dir, row['filename'])).astype(np.float32) / 255
+        decoded, nbytes = jpeg_helpers.compress_batch(image0, 50, effective=True)
+        if nbytes != row['bytes'] or metrics.ssim(image0, decoded) != row['ssim']:
+            raise AssertionError(f'JPEG row differs from a fresh round trip: {row}')
+        dcn_card, dcn_cpu = codec.restore('32c', device=device), codec.restore('32c', device='cpu')
+        latent = compression.compare_latents(dcn_card.compress(image0).cpu(),
+                                             dcn_cpu.compress(image0), dcn_card.get_codebook())
+        card_row = next(r for r in dcn_table.rows
+                        if r['codec'] == codes['32c'] and r['image_id'] == 0)
+        decoded_cpu, bytes_cpu = codec.simulate_compression(image0[None], dcn_cpu)
+        ssim_cpu = metrics.ssim(image0, decoded_cpu[0])
+        if latent['flipped'] == 0 and (bytes_cpu != card_row['bytes'] or
+                                       abs(ssim_cpu - card_row['ssim']) > MAX_DCN_SSIM_DIFF):
+            raise AssertionError(f'32c row differs from the CPU: {bytes_cpu} bytes, ssim '
+                                 f'{ssim_cpu} against {card_row}')
+        # a second call reads the cache
+        t0 = time.perf_counter()
+        cached = rd.get_jpeg_df(images_dir, qualities=RD_QUALITIES, device=device)
+        cache_s = time.perf_counter() - t0
+        if cached.rows != jpeg_table.rows:
+            raise AssertionError('the cached JPEG sweep differs from the sweep')
+        t0 = time.perf_counter()
+        fits = {**rd_fits(jpeg_table), **rd_fits(dcn_table)}
+        fits_s = time.perf_counter() - t0
+        results['sweep'] = {
+            'images': RD_IMAGES, 'shape': list(RD_SHAPE),
+            'jpeg_rows': len(jpeg_table), 'jpeg_s': jpeg_s,
+            'jpeg_ms_per_row': 1e3 * jpeg_s / len(jpeg_table),
+            'dcn_rows': len(dcn_table), 'dcn_s': dcn_s,
+            'dcn_ms_per_row': 1e3 * dcn_s / len(dcn_table), 'cache_hit_s': cache_s,
+            'fits_s': fits_s, 'fits': fits,
+            'dcn_32c_cpu': {'latent_flips': latent['flipped'], 'n': latent['n'],
+                            'bytes_card': card_row['bytes'], 'bytes_cpu': bytes_cpu,
+                            'ssim_card': card_row['ssim'], 'ssim_cpu': ssim_cpu},
+            'jpeg_bpp_range': [float(jpeg_table['bpp'].min()), float(jpeg_table['bpp'].max())],
+            'dcn_bpp': {p: float(np.mean(dcn_table.where(dcn_table['codec'] == codes[p])['bpp']))
+                        for p in RD_PRESETS}}
+        print(f'[codec eval] sweep of {RD_IMAGES} {RD_SHAPE[0]}x{RD_SHAPE[1]} images: JPEG leg '
+              f'{len(jpeg_table)} rows in {jpeg_s:.2f} s ({1e3 * jpeg_s / len(jpeg_table):.1f} '
+              f'ms a row), DCN leg {len(dcn_table)} rows in {dcn_s:.2f} s '
+              f'({1e3 * dcn_s / len(dcn_table):.1f} ms a row, K2 '
+              f'{counts["dcn leg"]["codebook_fwd"]}), cache hit {1e3 * cache_s:.1f} ms, fits '
+              f'{fits_s:.2f} s; 32c image 0 against the CPU: {latent["flipped"]} latent flips, '
+              f'{card_row["bytes"]} / {bytes_cpu} bytes', flush=True)
+
+        # a JPEG row's parts on image 0 at QF 50: the host codec (compress_batch,
+        # effective bytes), the host's float64 SSIM and PSNR, MS-SSIM on the card
+        parts = {'jpeg': lambda: jpeg_helpers.compress_batch(image0, 50, effective=True),
+                 'ssim': lambda: metrics.ssim(image0, decoded),
+                 'psnr': lambda: metrics.psnr(image0, decoded),
+                 'msssim': lambda: rd._msssim_db(image0, decoded, device)}
+        part_ms = {}
+        for name, fn in parts.items():
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            part_ms[name] = 1e3 * float(np.median(times))
+        results['jpeg_row_parts_ms'] = part_ms
+        print('[codec eval] a JPEG row\'s parts (median of 3): '
+              + ', '.join(f'{k} {v:.2f} ms' for k, v in part_ms.items()), flush=True)
+
+        # per codec, one DCN row's round trip (a 512x768 image through the bitstream)
+        row_ms = {}
+        for preset in RD_PRESETS:
+            dcn = codec.restore(preset, device=device)
+            codec.simulate_compression(image0[None], dcn)           # warm-up
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                codec.simulate_compression(image0[None], dcn)
+                times.append(time.perf_counter() - t0)
+            row_ms[preset] = 1e3 * float(np.median(times))
+        results['dcn_round_trip_ms'] = row_ms
+        print(f'[codec eval] DCN round trip of a {RD_SHAPE[0]}x{RD_SHAPE[1]} image: '
+              + ', '.join(f'{p} {ms:.2f} ms' for p, ms in row_ms.items()), flush=True)
+
+        # the CLIs at their defaults
+        zero_counts()
+        t0 = time.perf_counter()
+        rows = test_jpeg_cli.main(['--device', 'cuda'])
+        test_jpeg_s = time.perf_counter() - t0
+        counts['test_jpeg'] = read_counts()
+        expect_counts('[codec eval] test_jpeg', counts['test_jpeg'],
+                      {'jpeg8x8': len(RD_QUALITIES)})
+        qf, psnr_card, _ = rows[len(rows) // 2]
+        small = test_jpeg_cli.load_batch(None, 4)
+        y_cpu = JPEG(50, 'soft', device='cpu').process(torch.from_numpy(small), qf).numpy()
+        psnr_cpu = float(np.mean(metrics.psnr(small, y_cpu)))
+        if abs(psnr_card - psnr_cpu) > MAX_DJPEG_PSNR_DIFF or len(rows) != len(RD_QUALITIES):
+            raise AssertionError(f'test_jpeg: QF {qf} dJPEG {psnr_card} dB on the card, '
+                                 f'{psnr_cpu} dB on the CPU')
+        results['test_jpeg'] = {'s': test_jpeg_s, 'rows': len(rows),
+                                'qf': qf, 'djpeg_psnr_card': psnr_card,
+                                'djpeg_psnr_cpu': psnr_cpu,
+                                'mean_delta_db': float(np.mean([r[1] - r[2] for r in rows]))}
+        results['test_dcn'] = {}
+        for mode, k2_expected in TEST_DCN_K2.items():
+            zero_counts()
+            t0 = time.perf_counter()
+            out = test_dcn_cli.main([mode, '--device', 'cuda',
+                                     '--out', os.path.join(tmp, 'rate_dist.csv')])
+            mode_s = time.perf_counter() - t0
+            counts[f'test_dcn {mode}'] = read_counts()
+            expect_counts(f'[codec eval] test_dcn {mode}', counts[f'test_dcn {mode}'],
+                          {'codebook_fwd': k2_expected})
+            if mode == 'batch':
+                summary = {k: float(np.mean(v)) for k, v in out.items()}
+            elif mode == 'rate-dist':
+                summary = {'ssim': float(np.mean(out['ssim'])), 'bpp': float(np.mean(out['bpp']))}
+            else:
+                summary = {'qf': [r[3] for r in out], 'dcn_ssim': [r[1] for r in out],
+                           'jpeg_ssim': [r[4] for r in out]}
+            if not all(np.isfinite(v).all() for v in summary.values()):
+                raise AssertionError(f'test_dcn {mode}: {summary}')
+            results['test_dcn'][mode] = {'s': mode_s, **summary}
+
+        # validate_jpeg with the libjpeg codec on a small RGB set
+        data_dir = fixtures.make_dataset(os.path.join(tmp, 'rgb'), n_images=4, height=128,
+                                         width=192, seed=args.seed + 1402, rgb_only=True)
+        data = Dataset(data_dir, load='y', n_images=2, v_images=2, val_rgb_patch_size=64)
+        zero_counts()
+        values = validation.validate_jpeg(JPEG(50, 'libjpeg', device=device), data)
+        counts['validate_jpeg'] = read_counts()
+        expect_counts('[codec eval] validate_jpeg', counts['validate_jpeg'], {})
+        x = data.next_validation_batch(0, data.count_validation)
+        x = x[-1] if isinstance(x, tuple) else x
+        y, _ = jpeg_helpers.compress_batch(x, 50)
+        want = metrics.batch(x, y, metrics.ssim)
+        if not np.isnan(values['entropy']) or abs(values['ssim'] - want) > 1e-12:
+            raise AssertionError(f'validate_jpeg: {values}, expected ssim {want}')
+        results['validate_jpeg'] = values
+    results['phase_s'] = time.perf_counter() - t_phase
+    print(f'[codec eval] phase {results["phase_s"]:.1f} s', flush=True)
+    totals = {name: sum(c[name] for c in counts.values()) for name in COUNTERS}
+    return totals, results
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2410,7 +2716,11 @@ def main():
     _, raw_results = raw_phase(args, device)
     print('[raw] ' + json.dumps(raw_results), flush=True)
 
-    # 14. results: K1's numbers are its two launches of one m_quality request,
+    # 14. the codec-evaluation layer
+    codec_eval_counts, codec_eval = codec_eval_phase(args, device, flush)
+    print('[codec eval] ' + json.dumps(codec_eval), flush=True)
+
+    # 15. results: K1's numbers are its two launches of one m_quality request,
     # summed; K2's and K3's are at the DCN flow's shape (N = 409,600), K4's at
     # the DCN training step's
     print('[slice] ' + json.dumps({
@@ -2428,7 +2738,8 @@ def main():
                              + sum(c['jpeg8x8'] for c in nip_train_counts.values())
                              + sum(c['jpeg8x8'] for c in nip_trainer_counts.values())
                              + dcn_flow_counts['jpeg8x8']
-                             + sum(c['jpeg8x8'] for c in manip7_counts)),
+                             + sum(c['jpeg8x8'] for c in manip7_counts)
+                             + codec_eval_counts['jpeg8x8']),
                 'max_abs_err': max(r['max_abs_err'] for r in (*k1, k1_dcn_flow, k1_manip7)),
                 'ms': sum(r['ms'] for r in k1),
                 'plain_ms': sum(r['plain_ms'] for r in k1),
@@ -2437,7 +2748,8 @@ def main():
                              else 'operations'),
                 'library_ms': None}]
     launches = {name: sum(c[name] for c in (serve_counts, fixed_counts, train_counts,
-                                            dcn_flow_counts, dcn_trainer_counts))
+                                            dcn_flow_counts, dcn_trainer_counts,
+                                            codec_eval_counts))
                 for name in ('codebook_fwd', 'codebook_bwd', 'codebook_bwd_train')}
     for name, replaces, shape in (('codebook_fwd', 51, 'dcn flow'),
                                   ('codebook_bwd', 137, 'dcn flow'),

@@ -10,11 +10,11 @@ plus ``--device`` (default ``cuda``; ``cpu`` must be asked for).
 A single run (``--run-dir``) or every ``**/training.json`` under ``--dir``
 whose path matches ``--re``. Each run is rebuilt from its log with the
 overrides given (``--jpeg``, ``--codec``, ``--dcn``, ``--ds``, ``--manip``
-and the three dtypes; ``--codec libjpeg`` is not ported, ROADMAP.md §1 item
-2), validated on the dataset's validation patches (an ONet run on its RGB
-images, any other on its RAW ones; a dataset is loaded once per mode), and
-printed with its validated against its logged accuracy and its confusion
-table.
+and the three dtypes; ``--codec libjpeg`` builds the 'libjpeg' channel,
+which rounds 'soft' inside the flow, as the reference's does), validated on
+the dataset's validation patches (an ONet run on its RGB images, any other
+on its RAW ones; a dataset is loaded once per mode), and printed with its
+validated against its logged accuracy and its confusion table.
 """
 import argparse
 import json
@@ -78,7 +78,7 @@ def build_parser():
     parser.add_argument('--patch', type=int, default=64, help='RAW patch size')
     parser.add_argument('--jpeg', type=int, default=None, help='override channel JPEG quality')
     parser.add_argument('--codec', default=None, choices=['soft', 'sin', 'harmonic', 'libjpeg'],
-                        help='override channel JPEG codec (libjpeg is not ported)')
+                        help='override channel JPEG codec')
     parser.add_argument('--dcn', default=None,
                         help='override channel DCN model (a directory or preset)')
     parser.add_argument('--ds', default=None, choices=['pool', 'bilinear', 'none'],

@@ -11,8 +11,10 @@ It sweeps ``--cam``, the repetitions ``--start``..``--end`` and ``--ln`` /
 ``--lc`` (for a trainable NIP / codec) as the reference does, reusing one
 flow through ``reinitialize()``. Options the port does not have yet raise
 ``NotImplementedError`` naming their item of ROADMAP.md §1: the parallel
-flags and ``--jpeg_mode libjpeg``. The NIP (INet, UNet, DNet or
-ClassicISP) starts from its snapshot ``<--nip-dir>/<camera>/<model code>``
+flags. ``--jpeg_mode libjpeg`` makes the channel libjpeg's codec (the
+port's own, on the host), which the flow replaces by 'soft' rounding, as
+the reference's does. The NIP (INet, UNet, DNet or ClassicISP) starts from
+its snapshot ``<--nip-dir>/<camera>/<model code>``
 unless ``--scratch``; ONet takes RGB data (the dataset is loaded with
 ``load='y'``). ``--dcn <directory or preset>`` makes the channel a learned
 codec, which ``--train dcn`` fine-tunes, weighted by ``--lc``. The
@@ -60,8 +62,7 @@ def build_parser():
                         help='train the NIP from scratch (skip pre-trained weights)')
     parser.add_argument('--jpeg_mode', default='soft',
                         choices=['soft', 'sin', 'harmonic', 'libjpeg'],
-                        help='dJPEG rounding approximation for the channel (libjpeg is '
-                             'not ported)')
+                        help='dJPEG rounding approximation for the channel')
     parser.add_argument('--split', default='120:30:4')
     parser.add_argument('--epochs', type=int, default=1001)
     parser.add_argument('--patch', type=int, default=64, help='RAW patch size')
@@ -122,8 +123,6 @@ def refuse_unported(args):
     if any(getattr(args, flag) is not None for flag in PARALLEL_FLAGS):
         raise NotImplementedError('the parallel trainer (--devices, --coordinator, --nproc, '
                                   '--procid) is not ported (ROADMAP.md §1 item 5)')
-    if args.jpeg_mode == 'libjpeg':
-        raise NotImplementedError("--jpeg_mode libjpeg is not ported (ROADMAP.md §1 item 2)")
 
 
 def main(argv=None):
@@ -138,9 +137,11 @@ def main(argv=None):
     elif args.jpeg is not None:
         quality = ([int(q) for q in args.jpeg.split(',')] if ',' in args.jpeg
                    else int(args.jpeg))
-        if args.jpeg_trainable and not isinstance(quality, int):
+        if args.jpeg_trainable and (not isinstance(quality, int)
+                                    or args.jpeg_mode == 'libjpeg'):
             parser.error('--jpeg-trainable needs a scalar --jpeg quality (the tables '
-                         'initialize from it)')
+                         'initialize from it) and a differentiable --jpeg_mode '
+                         '(soft/sin/harmonic)')
         distribution = {'downsampling': args.ds, 'compression': 'jpeg',
                         'compression_params': {'quality': quality, 'codec': args.jpeg_mode,
                                                'trainable': args.jpeg_trainable}}

@@ -64,6 +64,11 @@ def procedural_image(height, width, seed=0):
     return np.clip(img, 0, 1)
 
 
+def kodak_like_batch(n=4, height=512, width=768, seed=77):
+    """Procedural stand-in for the Kodak benchmark set (float32 RGB in [0,1])."""
+    return np.stack([procedural_image(height, width, seed + i) for i in range(n)]).astype(np.float32)
+
+
 def make_raw_rgb_pair(height, width, seed=0, cfa_pattern='GBRG', cam2srgb='example'):
     """
     Simulate a camera capture: scene RGB → camera color space → linear → Bayer

@@ -1,8 +1,9 @@
 """
 Differentiable JPEG: the codec as one function of the image and two
 quantization tables, plus the ``DifferentiableJPEG`` and ``JPEG`` wrappers.
-Port of ``neural_imaging_tpu/models/jpeg.py`` without the libjpeg codec
-(which needs PIL).
+Port of ``neural_imaging_tpu/models/jpeg.py``; its 'libjpeg' codec runs on
+the host through the port's own libjpeg-exact codec
+(``compression/baseline_jpeg.py``).
 
 Dispatch, as the reference routes it: a call with a matrix-unit
 ``precision`` (a bfloat16 channel or manipulation) takes the plane form
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from neural_imaging_tpu_torch.compression import jpeg_helpers
 from neural_imaging_tpu_torch.compression.jpeg_helpers import (K1_LUMA, K2_CHROMA, jpeg_qf_estimation,
                                                               jpeg_qtable)
 from neural_imaging_tpu_torch.models.base import TorchModel
@@ -194,30 +196,33 @@ class DifferentiableJPEG:
 
 
 class JPEG(TorchModel):
-    """JPEG channel codec with the differentiable approximation ('soft' /
-    'sin' / 'harmonic') and scalar, range or set quality randomization. The
-    reference's 'libjpeg' codec is not ported. Its checkpoint holds the
+    """JPEG channel codec: the differentiable approximation ('soft' / 'sin' /
+    'harmonic') on the device, or libjpeg's codec ('libjpeg') on the host,
+    with scalar, range or set quality randomization. Its checkpoint holds the
     q-tables of a trainable codec and nothing otherwise."""
 
     def __init__(self, quality=None, codec='soft', trainable=False, rng=None,
                  device='cuda'):
-        if codec not in ('soft', 'sin', 'harmonic'):
+        if codec not in ('libjpeg', 'soft', 'sin', 'harmonic'):
             raise ValueError(f'Unsupported codec version: {codec}')
         super().__init__(None, device)
         self.codec = codec
         self.quality = quality
         self.trainable = trainable
         self._rng = rng or np.random.default_rng()
-        self._model = DifferentiableJPEG(quality, codec, trainable=trainable, device=device)
+        self._model = None if codec == 'libjpeg' else DifferentiableJPEG(
+            quality, codec, trainable=trainable, device=device)
 
     def reset_performance_stats(self):
         self.performance = self._reset_performance(['entropy', 'ssim', 'psnr'])
 
     def count_parameters(self):
-        return sum(t.numel() for t in self._model.params.values()) if self.trainable else 0
+        if self._model is None or not self.trainable:
+            return 0
+        return sum(t.numel() for t in self._model.params.values())
 
     def checkpoint(self):
-        if not self.trainable:
+        if self._model is None or not self.trainable:
             return {}
         return {name: t.detach().cpu().numpy() for name, t in self._model.params.items()}
 
@@ -241,8 +246,15 @@ class JPEG(TorchModel):
     def process(self, batch_x, quality=None, return_entropy=False):
         """Compress an NHWC RGB batch; quality as in the constructor. With
         ``return_entropy`` also the empirical entropy (bits) of the rounded
-        dequantized coefficients, as (image, entropy)."""
+        dequantized coefficients, as (image, entropy). The 'libjpeg' codec
+        returns the decoded batch as numpy (float32 in [0, 1]) and NaN for
+        the entropy, as the reference does."""
         quality = self._resolve_quality(quality)
+        if self._model is None:
+            if torch.is_tensor(batch_x):
+                batch_x = batch_x.detach().cpu().numpy()
+            y = jpeg_helpers.compress_batch(np.asarray(batch_x), quality)[0]
+            return (y, np.nan) if return_entropy else y
         x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device)
         with torch.no_grad():
             if self.trainable or quality == self.quality:
@@ -259,6 +271,8 @@ class JPEG(TorchModel):
         """Differentiable round trip of an NHWC batch through explicit
         (trainable) tables ``params`` {'q_mtx_luma', 'q_mtx_chroma'}: (y,
         coefficients), as :func:`jpeg_forward`."""
+        if self._model is None:
+            raise ValueError('libjpeg codec has no differentiable parameters')
         return self._model(batch_x, params=params)
 
     def estimate_qf(self, channel=0):
@@ -267,6 +281,8 @@ class JPEG(TorchModel):
         return jpeg_qf_estimation(table, channel)
 
     def __repr__(self):
+        if self._model is None:
+            return f'JPEG(quality={self.quality},codec="{self.codec}")'
         return f'JPEG(quality={self.quality},codec="{self.codec}",trainable={self.trainable})'
 
     def summary(self, quality=None):
@@ -281,7 +297,7 @@ class JPEG(TorchModel):
 
     def _quality_mode(self, quality=None):
         quality = quality or self.quality
-        if self.trainable:
+        if self._model is not None and self.trainable:
             return 'trainable QF~{}/{}'.format(
                 jpeg_qf_estimation(self._model.q_mtx_luma, 0),
                 jpeg_qf_estimation(self._model.q_mtx_chroma, 1))

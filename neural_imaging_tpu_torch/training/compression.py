@@ -1,9 +1,11 @@
 """
 The DCN (learned codec) trainer: port of ``neural_imaging_tpu/training/compression.py``.
 
-Epochs of Adam steps over RGB patches, host-fed with the reference's flip and
-gamma augmentations drawn from the caller's numpy generator in its order
-(so both packages draw the same batches), or, with ``device_data=True``,
+Epochs of Adam steps over RGB patches, host-fed with the reference's resize
+(a patch of [patch, 2·patch) shrunk by ``utils/image.resize_area``, OpenCV's
+INTER_AREA), flip and gamma augmentations drawn from the caller's numpy
+generator in its order (so both packages draw the same batches), or, with
+``device_data=True`` (no resize, as in the reference),
 ``DCN.training_scan`` over a ``DeviceSampler`` with the same augmentations
 drawn on the device. The learning rate halves every
 ``learning_rate_reduction_schedule`` epochs (re-applied on resume). Every
@@ -16,9 +18,8 @@ stops early when the validation SSIM converges or deteriorates. Per-epoch
 scalars go to ``scalars.jsonl``.
 
 Losses stay on the device between validation points, where one copy brings
-them to the host. Not ported: the resize augmentation (it needs OpenCV's
-``INTER_AREA``), ``visualize_distribution`` (matplotlib) and the
-``parallel`` trainer.
+them to the host. Not ported: ``visualize_distribution`` (matplotlib) and
+the ``parallel`` trainer.
 """
 import json
 import os
@@ -31,6 +32,7 @@ from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.png import write_png
 from neural_imaging_tpu_torch.models.compression import AUGMENTATION_PROBS, GAMMA_RANGE
 from neural_imaging_tpu_torch.utils import jsonlog, metrics, stats
+from neural_imaging_tpu_torch.utils.image import resize_area
 from neural_imaging_tpu_torch.utils.utils import logger
 
 # the Adam state a validation point writes beside the npz, for resume
@@ -92,10 +94,13 @@ def _host_batch(data, batch_id, training, rng):
     """A training batch (float32 NHWC) augmented on the host, drawing from
     ``rng`` in the reference's order: resize, flip h, flip v, gamma."""
     probs = training['augmentation_probs']
-    rng.uniform()                 # the resize draw (its probability is 0 here)
-    batch_x = data.next_training_batch(batch_id, training['batch_size'], training['patch_size'])
+    patch = training['patch_size']
+    current_patch = int(rng.integers(patch, 2 * patch)) if rng.uniform() < probs['resize'] else patch
+    batch_x = data.next_training_batch(batch_id, training['batch_size'], current_patch)
     if isinstance(batch_x, tuple):
         batch_x = batch_x[-1]
+    if current_patch != patch:
+        batch_x = resize_area(batch_x, patch)
     if rng.uniform() < probs['flip_h']:
         batch_x = batch_x[:, :, ::-1, :]
     if rng.uniform() < probs['flip_v']:
@@ -149,9 +154,9 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
     if parallel is not None:
         raise NotImplementedError('the parallel trainer is not ported (ROADMAP.md §1 item 5); '
                                   'train on one device')
-    if training['augmentation_probs'].get('resize', 0) > 0:
-        raise NotImplementedError('the resize augmentation (OpenCV INTER_AREA) is not ported '
-                                  '(ROADMAP.md §1 item 9); set its probability to 0')
+    if device_data and training['augmentation_probs'].get('resize', 0) > 0:
+        raise ValueError('the resize augmentation is host-only; disable it or drop '
+                         '--device-data')
 
     out_dir = os.path.join(directory, dcn.model_code, dcn.scoped_name)
     start_epoch = 0

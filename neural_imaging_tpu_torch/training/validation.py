@@ -21,7 +21,8 @@ from neural_imaging_tpu_torch.utils.utils import logger
 
 
 def validate_jpeg(jpeg_codec, data, batch_size=1):
-    """Mean PSNR, SSIM and entropy of the JPEG codec over the validation set."""
+    """Mean PSNR, SSIM and entropy of the JPEG codec over the validation set
+    (the entropy is NaN for the 'libjpeg' codec, as in the reference)."""
     if not isinstance(jpeg_codec, JPEG):
         raise ValueError(f'Codec needs to be an instance of JPEG but is {type(jpeg_codec)}')
 
@@ -34,7 +35,7 @@ def validate_jpeg(jpeg_codec, data, batch_size=1):
         if isinstance(batch_x, tuple):
             batch_x = batch_x[-1]
         batch_y, entropy = jpeg_codec.process(batch_x, return_entropy=True)
-        batch_y = batch_y.cpu().numpy()
+        batch_y = batch_y.cpu().numpy() if torch.is_tensor(batch_y) else batch_y  # libjpeg: numpy
         results['ssim'].append(metrics.batch(batch_x, batch_y, metrics.ssim))
         results['psnr'].append(metrics.batch(batch_x, batch_y, metrics.psnr))
         results['entropy'].append(entropy)

@@ -1,6 +1,8 @@
 """
-Build the repository's host C++ sources (``native/*/*.cpp``) with ``g++``
-into shared libraries, loaded with ``ctypes``.
+Build host C++ sources with ``g++`` into shared libraries, loaded with
+``ctypes``: the repository's ``native/*/*.cpp`` (the rANS coder, the
+lossless-JPEG codec) and the port's own ``csrc/baseline_jpeg.cpp`` (the
+baseline JPEG codec).
 
 ``g++ -O3 -fPIC -shared -std=c++17`` (no ``-march=native``, so a library
 runs on any x86-64 host) into ``neural_imaging_tpu_torch/_build/``

@@ -19,7 +19,8 @@ the device. The NIP is any ported camera ISP (INet, UNet, DNet,
 ClassicISP, optionally from its snapshot: ``'UNet:<dir>'``) or ONet, which
 passes RGB input through; ``remat`` recomputes the NIP and the
 manipulations in the backward pass instead of keeping their activations.
-The channel is a JPEG (fixed or trainable q-tables), a learned codec
+The channel is a JPEG (fixed or trainable q-tables; a 'libjpeg' channel
+rounds 'soft' inside the flow, as the reference's does), a learned codec
 (``'dcn'``: a ``TwitterDCN`` restored from a directory or preset, its
 quantizer on K2 and K3 or K4, trainable as the ``'dcn'`` part with its
 rate-distortion loss weighted by λ_dcn) or none. awgn's noise is drawn
@@ -161,7 +162,7 @@ class ManipulationClassification:
         :param distribution: {'downsampling': 'pool[:factor]' | 'bilinear' | 'none',
                               'compression': 'jpeg' | 'dcn' | 'none',
                               'compression_params': {'quality': int | (lo, hi) | set,
-                                                     'codec': 'soft'|…, 'trainable': bool}
+                                                     'codec': 'soft'|…|'libjpeg', 'trainable': bool}
                                                     or, for 'dcn', {'dirname': directory
                                                     or preset of the codec}}
         :param fan_args: FAN constructor arguments other than n_classes/patch_size
@@ -229,9 +230,6 @@ class ManipulationClassification:
                 patch_size=2 * raw_patch_size // self.downsampling_factor, device=self.device)
         elif compression == 'jpeg':
             params = dict(self._distribution.get('compression_params') or {})
-            if params.get('codec') == 'libjpeg':
-                raise NotImplementedError("the 'libjpeg' channel codec (PIL) is not ported "
-                                          '(ROADMAP.md §1 item 2)')
             unknown = sorted(set(params) - set(JPEG_PARAMS))
             if unknown:
                 raise NotImplementedError(f'JPEG channel parameters {unknown} are not taken: '
@@ -490,7 +488,9 @@ class ManipulationClassification:
             batch, precision = batch.to(torch.bfloat16), 'default'
         else:
             batch = batch.to(torch.float32)
-        y, _ = jpeg_models.jpeg_forward_nchw(batch, q_luma, q_chroma, rounding=self.codec.codec,
+        # the reference never calls libjpeg inside the flow: its channel rounds 'soft' there
+        rounding = 'soft' if self.codec.codec == 'libjpeg' else self.codec.codec
+        y, _ = jpeg_models.jpeg_forward_nchw(batch, q_luma, q_chroma, rounding=rounding,
                                              precision=precision)
         return y.to(self._channel_dtype), None
 

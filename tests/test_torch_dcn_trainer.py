@@ -216,12 +216,14 @@ def test_device_resident_augmentations_draw_at_their_rates(data_dir):
 
 
 def test_resize_augmentation_and_parallel_are_refused(data_dir, tmp_path):
+    """The resize is host-only (as in the reference): refused with
+    device-resident data; the parallel trainer is not ported."""
     data = Dataset(data_dir, load='y', **SPLIT)
     dcn = compression.TwitterDCN(patch_size=PATCH, n_features=4, device='cpu')
     probs = {'resize': 0.5, 'flip_h': 0.5, 'flip_v': 0.5, 'gamma': 0.5}
-    with pytest.raises(NotImplementedError, match='item 9'):
+    with pytest.raises(ValueError, match='host-only'):
         training.train_dcn(dcn, {**SPEC, 'augmentation_probs': probs}, data,
-                           directory=str(tmp_path))
+                           directory=str(tmp_path), device_data=True)
     with pytest.raises(NotImplementedError, match='item 5'):
         training.train_dcn(dcn, SPEC, data, directory=str(tmp_path), parallel=object())
     assert not os.listdir(tmp_path)

@@ -514,3 +514,53 @@ def test_nip_full_stack_on_the_card_matches_a_cpu_crop(cuda):
     assert float(d) <= MAX_NIP_DIFF
     rgb = develop_images.develop_stack(card, stack)
     assert rgb.shape == (1024, 1536, 3) and rgb.dtype == np.uint8
+
+
+def test_baseline_jpeg_library_builds_and_codes_as_the_plain_version():
+    """The host JPEG codec built from csrc/baseline_jpeg.cpp with g++ (no
+    card needed, but this is the GPU machine's toolchain): the files and
+    decodes of its plain version, and the committed digests of PIL's."""
+    from neural_imaging_tpu_torch.compression import baseline_jpeg
+    from neural_imaging_tpu_torch.data import fixtures
+    path = baseline_jpeg.build()
+    assert path == baseline_jpeg.library_path() and path.exists()
+    image = (fixtures.procedural_image(40, 56, 3) * 255).astype(np.uint8)
+    for subsampling in baseline_jpeg.SUBSAMPLING:
+        data = baseline_jpeg.encode(image, 70, subsampling)
+        assert data == baseline_jpeg.encode_plain(image, 70, subsampling)
+        assert np.array_equal(baseline_jpeg.decode(data), baseline_jpeg.decode_plain(data))
+    assert baseline_jpeg.digest_mismatches() == []
+
+
+def test_djpeg_sweep_launches_k1_once_a_quality_on_the_card(cuda):
+    """test_jpeg's dJPEG: one K1 launch a quality, its PSNR within 1e-3 dB of
+    the CPU's (K1 against its plain version: rounding ties only)."""
+    from neural_imaging_tpu_torch.models.jpeg import JPEG
+    from neural_imaging_tpu_torch.utils import metrics
+    batch = np.random.default_rng(8).random((2, 64, 96, 3)).astype(np.float32)
+    card, cpu = JPEG(50, 'soft', device=cuda), JPEG(50, 'soft', device='cpu')
+    before = jpeg8x8.jpeg_core_cuda.launches
+    for quality in (20, 50, 90):
+        y = card.process(torch.from_numpy(batch), quality).cpu().numpy()
+        y_cpu = cpu.process(torch.from_numpy(batch), quality).numpy()
+        assert abs(np.mean(metrics.psnr(batch, y)) - np.mean(metrics.psnr(batch, y_cpu))) <= 1e-3
+    assert jpeg8x8.jpeg_core_cuda.launches == before + 3
+
+
+def test_dcn_leg_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The R/D sweep's DCN leg (8c) on the card: one K2 launch a row; the
+    CPU's bytes within 1% (equal unless a latent index flipped on a rounding
+    tie), SSIM within 1e-5."""
+    from neural_imaging_tpu_torch.compression import ratedistortion as rd
+    from neural_imaging_tpu_torch.data import fixtures, png
+    for i in range(2):
+        image = (fixtures.procedural_image(64, 96, 30 + i) * 255).astype(np.uint8)
+        png.write_png(str(tmp_path / f'{i}.png'), image)
+    model_dir = os.path.join(ROOT, 'data/models/dcn/baselines/8c')
+    before = codebook.codebook_fwd_cuda.launches
+    card = rd.get_dcn_df(str(tmp_path), model_dir, device=cuda)
+    assert codebook.codebook_fwd_cuda.launches == before + 2
+    cpu = rd.get_dcn_df(str(tmp_path), model_dir, force_calc=True, device='cpu')
+    np.testing.assert_allclose(card['ssim'].astype(float), cpu['ssim'].astype(float),
+                               rtol=0, atol=1e-5)
+    assert np.abs(card['bytes'] - cpu['bytes']).max() <= 0.01 * cpu['bytes'].max()

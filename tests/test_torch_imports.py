@@ -12,8 +12,9 @@ import pytest
 import torch
 
 import neural_imaging_tpu_torch
-from neural_imaging_tpu_torch.cli import test_fan, train_dcn, train_manipulation, train_nip
-from neural_imaging_tpu_torch.compression import codec
+from neural_imaging_tpu_torch.cli import (test_dcn, test_dcn_rate_dist, test_fan, test_jpeg,
+                                          train_dcn, train_manipulation, train_nip)
+from neural_imaging_tpu_torch.compression import codec, ratedistortion
 from neural_imaging_tpu_torch.data import fixtures
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
@@ -23,7 +24,7 @@ from neural_imaging_tpu_torch.workflows import manipulation_classification
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'imageio', 'neural_imaging_tpu', 'tqdm',
-           'matplotlib', 'pandas', 'rawpy')
+           'matplotlib', 'pandas', 'rawpy', 'cv2')
 
 
 def port_modules():
@@ -46,7 +47,10 @@ def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package()
                  'cli.train_nip', 'models.pipelines', 'training.compression', 'cli.train_dcn',
                  'cli.test_fan', 'utils.results_data', 'utils.native', 'data.raw', 'data.menon',
                  'data.dng', 'data.ljpeg', 'data.nikon', 'data.sony', 'data.camera_raw',
-                 'cli.train_prepare_training_set', 'cli.develop_images'):
+                 'cli.train_prepare_training_set', 'cli.develop_images',
+                 'compression.baseline_jpeg', 'compression.jpeg_helpers',
+                 'compression.ratedistortion', 'utils.image', 'cli.test_jpeg', 'cli.test_dcn',
+                 'cli.test_dcn_rate_dist'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',
@@ -93,6 +97,9 @@ def test_chip_smoke_fails_without_a_gpu():
     lambda: manipulation_classification.ManipulationClassification(
         'ONet', raw_patch_size=16, distribution={'downsampling': 'none', 'compression': 'dcn',
                                                  'compression_params': {'dirname': '32c'}}),
+    lambda: jpeg.JPEG(50, 'libjpeg'),
+    lambda: ratedistortion.get_jpeg_df(ROOT),
+    lambda: ratedistortion.get_dcn_df(ROOT, ROOT),
 ])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -107,7 +114,8 @@ def test_cpu_is_taken_only_when_asked():
 
 
 @pytest.mark.parametrize('entry', ['sampler', 'cli', 'nip_cli', 'dcn_cli', 'dcn_channel_cli',
-                                   'test_fan_cli'])
+                                   'test_fan_cli', 'test_jpeg_cli', 'test_dcn_cli',
+                                   'test_dcn_rate_dist_cli'])
 def test_trainer_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_path,
                                                                     monkeypatch):
     data_dir = fixtures.make_dataset(str(tmp_path / 'data'), n_images=2, height=64, width=96)
@@ -129,6 +137,13 @@ def test_trainer_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_p
             train_manipulation.main(['--nip', 'ONet', '--dcn', '32c', '--data', data_dir,
                                      '--split', '1:1:1', '--patch', '16', '--batch', '1',
                                      '--dir', str(tmp_path / 'out')])
+        elif entry == 'test_jpeg_cli':
+            test_jpeg.main(['--dir', data_dir, '--images', '1'])
+        elif entry == 'test_dcn_cli':
+            test_dcn.main(['rate-dist', '--data', data_dir, '--images', '1', '--out',
+                           str(tmp_path / 'out')])
+        elif entry == 'test_dcn_rate_dist_cli':
+            test_dcn_rate_dist.main(['--data', data_dir, '--out', str(tmp_path / 'out')])
         else:
             test_fan.main(['--run-dir', os.path.join(ROOT, 'data/m_quality/QualityRef/INet/'
                                                      'fixed-nip/fixed-codec/000'),

@@ -134,7 +134,7 @@ def test_codec_wrappers_match_reference():
     dj = jpeg.DifferentiableJPEG(50, 'soft', trainable=True, device='cpu')
     assert dj.params['q_mtx_luma'].requires_grad
     with pytest.raises(ValueError):
-        jpeg.JPEG(50, 'libjpeg', device='cpu')
+        jpeg.JPEG(50, 'round', device='cpu')
     with pytest.raises(ValueError):
         jpeg.DifferentiableJPEG(101, device='cpu')
 

@@ -130,11 +130,19 @@ def test_restore_flow_takes_the_reference_overrides(kwargs):
         'manip_jpeg_dtype': 'bfloat16' if ref._manip_jpeg_bf16 else 'float32'}
 
 
-def test_restore_flow_refuses_libjpeg():
-    """The 'libjpeg' channel codec (PIL) is not ported, and says so."""
-    with pytest.raises(NotImplementedError, match='item 2'):
-        port_test_fan.restore_flow(os.path.join(QUALITY_RUN, 'training.json'),
-                                   overrides(patch=PATCH, codec='libjpeg'))
+def test_restore_flow_takes_libjpeg():
+    """``--codec libjpeg`` builds what the reference builds: a host libjpeg
+    codec whose channel rounds 'soft' inside the flow, so the run classifies
+    as with the 'soft' codec, bit for bit."""
+    port, ref = both_flows(QUALITY_RUN, overrides(patch=PATCH, codec='libjpeg'))
+    assert port.codec._model is None and repr(port.codec) == repr(ref.codec)
+    assert port.summary() == ref.summary()
+    soft, _ = port_test_fan.restore_flow(os.path.join(QUALITY_RUN, 'training.json'),
+                                         overrides(patch=PATCH, codec='soft'))
+    x = np.random.default_rng(5).random((2, PATCH, PATCH, 4)).astype(np.float32)
+    with torch.no_grad():
+        torch.testing.assert_close(port.run_workflow(x)[-1], soft.run_workflow(x)[-1],
+                                   rtol=0, atol=0)
 
 
 def test_confusion_text_matches_reference():

@@ -57,6 +57,10 @@ CONFIGS = {
                  'compression_params': {'quality': 50, 'codec': 'soft', 'trainable': True}},
                 {'dcn'}, 0.0, 0.1),
 }
+# the reference's 'libjpeg' channel, which its flow replaces by 'soft' rounding
+CONFIGS['libjpeg'] = ({'downsampling': 'pool:2', 'compression': 'jpeg',
+                       'compression_params': {'quality': 50, 'codec': 'libjpeg'}},
+                      {'nip'}, 0.1, 0.0)
 CONFIGS['qtables_run'] = CONFIGS['qtables']
 # configurations restored from a shipped run (its FAN and INet), not built
 RUNS = {'qtables_run': QTABLES_RUN_DIR}
@@ -223,7 +227,7 @@ def assert_gradients_close(grads, ref_grads):
             assert err <= GRAD_RTOL * scale, f'{part}/{name}: {err} vs scale {scale}'
 
 
-@pytest.mark.parametrize('config', ['pool', 'bilinear', 'qtables'])
+@pytest.mark.parametrize('config', ['pool', 'bilinear', 'qtables', 'libjpeg'])
 def test_step_gradients_match_reference(config):
     """Loss parts and every trainable leaf's gradient at fixed strengths."""
     ref, port = flows(config)
@@ -235,7 +239,7 @@ def test_step_gradients_match_reference(config):
     assert_gradients_close(port_leaves(grads), ref_grads)
 
 
-@pytest.mark.parametrize('config', ['pool', 'qtables'])
+@pytest.mark.parametrize('config', ['pool', 'qtables', 'libjpeg'])
 def test_updated_parameters_match_reference(config):
     """Two Adam steps of each package from the same weights and batches."""
     ref, port = flows(config)

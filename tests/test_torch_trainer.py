@@ -465,18 +465,42 @@ def test_cli_builds_what_the_library_builds(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize('extra, item', [
-    (['--nip', 'ONet', '--jpeg', '50', '--jpeg_mode', 'libjpeg'], 'item 2'),
-    (['--dcn', '32c', '--jpeg_mode', 'libjpeg'], 'item 2'),
     (['--devices', 'auto'], 'item 5'),
     (['--coordinator', 'localhost:1234'], 'item 5'),
     (['--nproc', '2'], 'item 5'),
     (['--procid', '0'], 'item 5'),
-    (['--jpeg', '50', '--jpeg_mode', 'libjpeg'], 'item 2'),
-], ids=['nip', 'dcn', 'devices', 'coordinator', 'nproc', 'procid', 'libjpeg'])
+], ids=['devices', 'coordinator', 'nproc', 'procid'])
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(cli_args(data_dir, str(tmp_path), *extra))
     assert not os.path.exists(tmp_path / 'SyntheticCam')
+
+
+def test_cli_trains_with_jpeg_mode_libjpeg(data_dir, tmp_path):
+    """``--jpeg_mode libjpeg``: the run logs the reference's libjpeg channel
+    (its codec summary and distribution), and since the flow rounds 'soft' in its
+    place, it trains as the ``--jpeg_mode soft`` run does, loss for loss;
+    ``--jpeg-trainable`` with it is refused, as by the reference's CLI."""
+    logs = {}
+    for mode in ('libjpeg', 'soft'):
+        root = str(tmp_path / mode)
+        cli.main(cli_args(data_dir, root, '--jpeg', '50', '--jpeg_mode', mode, '--epochs', '1'))
+        with open(os.path.join(run_dir(root, 'fixed'), 'training.json')) as f:
+            logs[mode] = json.load(f)
+    ref = JaxFlow('INet', distribution={'downsampling': 'pool', 'compression': 'jpeg',
+                                        'compression_params': {'quality': 50,
+                                                               'codec': 'libjpeg',
+                                                               'trainable': False}},
+                  fan_args=FAN_ARGS, raw_patch_size=PATCH)
+    assert logs['libjpeg']['summary']['Channel Compression'] == ref.codec.summary() == \
+        'JPEG (libjpeg) QF=50'
+    assert logs['libjpeg']['distribution']['compression_params']['codec'] == 'libjpeg'
+    for part in ('forensics', 'nip'):
+        assert (logs['libjpeg'][part]['performance']['loss']
+                == logs['soft'][part]['performance']['loss'])
+    with pytest.raises(SystemExit):
+        cli.main(cli_args(data_dir, str(tmp_path / 'x'), '--jpeg', '50', '--jpeg_mode',
+                          'libjpeg', '--jpeg-trainable'))
 
 
 @pytest.mark.parametrize('flag, key', [('--channel-dtype', 'channel_dtype'),

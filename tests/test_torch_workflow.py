@@ -115,12 +115,28 @@ def test_restored_flow_shape(flows):
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'distribution': {'compression_params': {'quality': 50, 'codec': 'libjpeg'}}},
     {'distribution': {'compression_params': {'quality': 50, 'codec': 'soft', 'dirname': 'x'}}},
 ])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         ManipulationClassification(raw_patch_size=PATCH, device='cpu', **kwargs)
+
+
+def test_libjpeg_channel_rounds_soft_in_the_flow():
+    """The 'libjpeg' channel (the reference's JPEG(codec='libjpeg')) is built
+    on the host codec, and the flow's channel rounds 'soft' in its place, as
+    the reference's does: the same probabilities as the 'soft' flow's."""
+    flows = [ManipulationClassification(
+        raw_patch_size=PATCH, device='cpu', rng_seed=3,
+        distribution={'compression_params': {'quality': 50, 'codec': codec}})
+        for codec in ('libjpeg', 'soft')]
+    flows[1].fan.module.load_state_dict(flows[0].fan.module.state_dict())
+    flows[1].nip.module.load_state_dict(flows[0].nip.module.state_dict())
+    assert flows[0].codec._model is None and flows[0].codec.codec == 'libjpeg'
+    x = np.random.default_rng(2).random((2, PATCH, PATCH, 4)).astype(np.float32)
+    with torch.no_grad():
+        torch.testing.assert_close(flows[0].run_workflow(x)[-1], flows[1].run_workflow(x)[-1],
+                                   rtol=0, atol=0)
 
 
 def test_slice_at_full_width():
