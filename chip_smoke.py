@@ -112,7 +112,23 @@ NVIDIA GPU:
    recomputation and the CPU's 32c, the cache, each codec's fits; the CLIs
    ``test_jpeg`` at its defaults (K1 once a quality, 18) and ``test_dcn`` in
    its four modes on 32c; ``validate_jpeg`` with the libjpeg codec;
-15. print one JSON line of the kernels, then the last line
+15. data parallelism and development in bands: ``[parallel]`` takes the
+   four steps (the m_quality joint step at batch 20 raw 128; the
+   m_quality_dcn lc-0.1000 flow at batch 10; the 32c DCN with a trainable
+   codebook at 16 x 128²; UNet_5 at batch 20 raw 64) in one process at the
+   global batch on the card; the joint step through ``DataParallel`` on one
+   NCCL rank against it; then 2 ranks sharing the card over gloo, started by
+   ``parallel.launch.run``, each with half of every batch: the first step
+   against the one-process step (``compare_steps``, the FAN's input's dJPEG
+   flips counted as ``fan_input_flips`` counts them), the DCN flow's entropy
+   against the global batch's, 5 timed steps, K1-K4 launched as expected on
+   each rank, the ranks' parameters bit-identical, gloo's all-reduce of the
+   gradients' size timed; on a machine with two cards, the joint step over
+   NCCL on both and ``train_nip --devices 2`` for an epoch (skipped, and
+   said so, with one); each QualityRef NIP develops the D90's 1424x2144
+   stack in 2 and 4 bands against the whole stack, with each band's peak
+   memory;
+16. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -124,6 +140,7 @@ Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before doing anything.
 """
 import argparse
+import hashlib
 import json
 import logging
 import os
@@ -133,6 +150,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -146,8 +164,8 @@ from neural_imaging_tpu_torch.cli import test_jpeg as test_jpeg_cli
 from neural_imaging_tpu_torch.cli import train_prepare_training_set as prepare_cli
 from neural_imaging_tpu_torch.compression import baseline_jpeg, codec, entropy, jpeg_helpers
 from neural_imaging_tpu_torch.compression import ratedistortion as rd
-from neural_imaging_tpu_torch.data import (camera_raw, dng, fixtures, ljpeg, menon, nikon, png, raw,
-                                           sony)
+from neural_imaging_tpu_torch.data import (bayer, camera_raw, dng, fixtures, ljpeg, menon, nikon,
+                                           png, raw, sony)
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
@@ -157,6 +175,9 @@ from neural_imaging_tpu_torch.ops import manipulations as manips
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops.hopper import _build, codebook, jpeg8x8
+from neural_imaging_tpu_torch.parallel import launch, multihost, spatial
+from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
+from neural_imaging_tpu_torch.parallel import train as ptrain
 from neural_imaging_tpu_torch.training import compression as codec_training
 from neural_imaging_tpu_torch.training import validation
 from neural_imaging_tpu_torch.training.manipulation import train_manipulation_nip
@@ -2564,6 +2585,384 @@ def codec_eval_phase(args, device, flush):
     return totals, results
 
 
+# -- data parallelism ---------------------------------------------------------------------
+
+# the [parallel] phase: each of the four steps over 2 ranks sharing cuda:0 over
+# gloo, each rank holding half of the global batch of its full-width shape
+# (the joint step: batch 20 raw 128, 10 a rank; the DCN flow: batch 10, 5 a
+# rank, N = 204,800 latent values a rank; the DCN step with a trainable
+# codebook: 16 x 128², 8 a rank; the NIP step: UNet_5 at batch 20 raw 64, 10
+# a rank), its first step against the one-process step at the global batch
+# on the card, then PARALLEL_STEPS timed steps
+PARALLEL_KINDS = ('joint', 'dcn flow', 'dcn', 'nip')
+PARALLEL_JOINT_BATCH = 20
+PARALLEL_STEPS = 5
+PARALLEL_RANKS = 2
+PARALLEL_DEADLINE_S = 400
+# launches of K1-K4 a timed step, each rank
+PARALLEL_PER_STEP = {'joint': {'jpeg8x8': 2},
+                     'dcn flow': {'jpeg8x8': 1, 'codebook_fwd': 1, 'codebook_bwd': 1},
+                     'dcn': {'codebook_fwd': 1, 'codebook_bwd_train': 1},
+                     'nip': {}}
+# the DCN flow's entropy over 2 ranks against the global batch's: the counts
+# are exact, but the encoder's convolutions at batch 5 and 10 may pick other
+# cuDNN algorithms, and a latent on a codeword midpoint may land on the other
+# codeword (at most MAX_LATENT_FLIP_SHARE of them, ~1e-6 bits each)
+MAX_PARALLEL_ENTROPY_DIFF = 1e-4
+# development in bands against the whole stack on the card
+PARALLEL_BANDS = (2, 4)
+MAX_BAND_DIFF = 1e-5
+
+
+def parallel_batches(kind, seed):
+    """The global batches (numpy) of a kind's first step and its timed steps."""
+    n = PARALLEL_STEPS + 1
+    if kind == 'joint':
+        return [(synthetic_raw(seed + i, PARALLEL_JOINT_BATCH, RAW_PATCH),
+                 synthetic_rgb(seed + 50 + i, PARALLEL_JOINT_BATCH, 2 * RAW_PATCH,
+                               2 * RAW_PATCH))
+                for i in range(n)]
+    if kind == 'dcn flow':
+        side = 2 * DCN_FLOW_RAW_PATCH
+        return [(synthetic_rgb(seed + 100 + i, DCN_FLOW_BATCH, side, side),) for i in range(n)]
+    if kind == 'dcn':
+        return [(synthetic_rgb(seed + 200 + i, DCN_BATCH, DCN_PATCH, DCN_PATCH),)
+                for i in range(n)]
+    return [(synthetic_raw(seed + 300 + i, NIP_TRAINER_BATCH, NIP_RAW_PATCH),
+             synthetic_rgb(seed + 350 + i, NIP_TRAINER_BATCH, 2 * NIP_RAW_PATCH,
+                           2 * NIP_RAW_PATCH)) for i in range(n)]
+
+
+def parallel_model(kind, device, seed):
+    """A kind's model at its full width, built alike in every process."""
+    if kind == 'joint':
+        model = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, trainable={'nip'},
+                                                   rng_seed=seed, device=device)
+        model.nan_check = False
+        return model
+    if kind == 'dcn flow':
+        return dcn_flow(device, trainable=True, seed=seed)
+    if kind == 'dcn':
+        return trainable_dcn(DCN_PRESET, DCN_PATCH, device)
+    return base.restore(str(base.REPO_ROOT / NIP_SNAPSHOTS['UNet']), pipelines,
+                        patch_size=NIP_RAW_PATCH, device=device)
+
+
+def parallel_train(kind, model, batch):
+    """One training step of a kind on (this rank's rows of) a batch."""
+    if kind == 'joint':
+        return model.training_step(*batch, TRAIN_LAMBDA_NIP, learning_rate=TRAIN_LR)
+    if kind == 'dcn flow':
+        return model.training_step(batch[0], None, 0.0, DCN_FLOW_LAMBDA, learning_rate=TRAIN_LR)
+    if kind == 'dcn':
+        return model.training_step(batch[0], DCN_LR)
+    return model.training_step(*batch, TRAIN_LR)
+
+
+def parallel_first_step(kind, model, batch):
+    """A kind's first step as ``compare_steps`` takes it, (loss, parts,
+    {part: gradients}), and what its checks read besides: the FAN's input
+    of a flow (class-major rows), the DCN flow's entropy."""
+    extra = {}
+    if kind in ('joint', 'dcn flow'):
+        y, lam = (batch[1], TRAIN_LAMBDA_NIP) if kind == 'joint' else (None, 0.0)
+        lam_dcn = 0.0 if kind == 'joint' else DCN_FLOW_LAMBDA
+        step = model.loss_and_gradients(batch[0], y, lam, lam_dcn)
+        mesh = None if model.parallel is None else model.parallel.mesh
+        with torch.no_grad(), mesh_lib.batch_reductions(mesh):
+            out = model._forward(model._batch(batch[0]).permute(0, 3, 1, 2),
+                                 *model._channel_qtables())
+        extra = {'fan_input': out[2].float().cpu(),
+                 'entropy': None if out[3] is None else float(out[3])}
+        return step, extra
+    grads = {}
+    step_fn = model.optimizer.step
+
+    def keep_the_gradients():
+        grads.update({k: p.grad.detach().clone() for k, p in model.module.named_parameters()})
+        step_fn()
+    model.optimizer.step = keep_the_gradients
+    out = parallel_train(kind, model, batch)
+    model.optimizer.step = step_fn
+    if kind == 'dcn':
+        return (float(out['loss']) ** 2 / 2, {'entropy': out['entropy']}, {'dcn': grads}), extra
+    return (out, {}, {'nip': grads}), extra
+
+
+def parameters_of(kind, model):
+    if kind in ('joint', 'dcn flow'):
+        return {f'{part}/{k}': p for part, leaves in model._collect_params().items()
+                for k, p in leaves.items()}
+    return dict(model.module.named_parameters())
+
+
+def parallel_run(parallel, kind, seed):
+    """A kind's first step and timed steps, on this rank's rows of the global
+    batches (the whole batches without ``parallel``): the first step's
+    results, the step times, each kernel's launches in the timed steps, the
+    parameters' digest, and with ``parallel`` the all-reduce of a buffer the
+    size of the gradients timed alone."""
+    device = resolve_device(parallel.device if parallel is not None else 'cuda')
+    model = parallel_model(kind, device, seed)
+    if parallel is not None:
+        parallel.distribute(model)
+    batches = [tuple(torch.from_numpy(b).to(device) for b in
+                     (parallel.shard(*batch) if parallel is not None else batch))
+               for batch in parallel_batches(kind, seed)]
+    first, extra = parallel_first_step(kind, model, batches[0])
+    parallel_train(kind, model, batches[0])                       # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    times = []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        parallel_train(kind, model, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    digest = {k: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+              for k, p in parameters_of(kind, model).items()}
+    result = {'first': first, **extra, 'step_ms': [1e3 * t for t in times],
+              'counts': counts, 'digest': digest}
+    if parallel is not None:
+        n = sum(p.numel() for p in parameters_of(kind, model).values() if p.requires_grad)
+        buf = torch.zeros(n, device=device)
+        reduce_ms = []
+        for _ in range(PARALLEL_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh_lib.all_reduce_sum(buf, parallel.mesh)
+            torch.cuda.synchronize()
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        result['all_reduce'] = {'floats': n, 'ms': reduce_ms[1:]}
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def parallel_rank(parallel, seed, kinds):
+    """One rank of the [parallel] phase: every kind of ``kinds``."""
+    return {kind: parallel_run(parallel, kind, seed) for kind in kinds}
+
+
+def rank_rows(t, n_classes, world, rank):
+    """A rank's class-major rows of a flow's expanded global batch."""
+    per = t.shape[0] // n_classes // world
+    blocks = t.reshape(n_classes, world, per, *t.shape[1:])
+    return blocks[:, rank].reshape(n_classes * per, *t.shape[1:])
+
+
+def check_parallel_kind(kind, ranks, single, n_classes=None):
+    """Hold each rank's first step against the one-process step at the
+    global batch; the ranks' parameters bit-identical; their launches."""
+    report = {'ranks': []}
+    for r, got in enumerate(ranks):
+        flips = 0
+        if 'fan_input' in got:
+            ref_rows = rank_rows(single['fan_input'], n_classes, len(ranks), r)
+            flips = int(((got['fan_input'] - ref_rows).abs() > FLIP_THRESHOLD).sum())
+            agreement = compare_flow_steps(got['first'], single['first'], flips,
+                                           part='nip' if kind == 'joint' else 'dcn')
+        else:
+            agreement = compare_steps(got['first'], single['first'])
+        entry = {'flips': flips, 'max_loss_rel_diff': agreement['max_loss_rel_diff'],
+                 'max_grad_norm_rel_diff': agreement['max_grad_norm_rel_diff'],
+                 'worst_gradient': agreement['worst_gradient'],
+                 'median_step_ms': float(np.median(got['step_ms'])), 'step_ms': got['step_ms'],
+                 'all_reduce_floats': got['all_reduce']['floats'],
+                 'all_reduce_median_ms': float(np.median(got['all_reduce']['ms'])),
+                 'launches': got['counts']}
+        if kind == 'dcn flow':
+            entry['entropy'] = got['entropy']
+            diff = abs(got['entropy'] - single['entropy'])
+            if not diff <= MAX_PARALLEL_ENTROPY_DIFF:
+                raise AssertionError(f'[parallel] {kind} rank {r}: entropy {got["entropy"]} '
+                                     f'against the global batch\'s {single["entropy"]}')
+        expect_counts(f'[parallel] {kind} rank {r}', got['counts'],
+                      {k: v * PARALLEL_STEPS for k, v in PARALLEL_PER_STEP[kind].items()})
+        report['ranks'].append(entry)
+    if any(got['digest'] != ranks[0]['digest'] for got in ranks[1:]):
+        raise AssertionError(f'[parallel] {kind}: the ranks\' parameters differ')
+    report['identical_parameters'] = True
+    report['one_process_median_step_ms'] = float(np.median(single['step_ms']))
+    report['one_process_launches'] = single['counts']
+    if kind == 'dcn flow':
+        report['one_process_entropy'] = single['entropy']
+    return report
+
+
+def d90_stack(seed):
+    """The D90 capture's 1424x2144 RGGB stack (normalized, unbalanced)."""
+    mosaic, cfa, _ = raw_scene(seed)
+    m = (mosaic.astype(np.float32) - RAW_BLACK) / (RAW_WHITE - RAW_BLACK)
+    off = bayer._offsets(cfa)
+    return np.stack([m[off[p][0]::2, off[p][1]::2] for p in bayer.STACK_PLANES],
+                    axis=-1).clip(0, 1)
+
+
+def parallel_bands(stack, device):
+    """Each QualityRef NIP develops the stack in 2 and 4 bands on the card,
+    against the whole stack in one forward there; peak memory of each."""
+    results = {}
+    for name, snapshot in NIP_SNAPSHOTS.items():
+        model = base.restore(str(base.REPO_ROOT / snapshot), pipelines, device=device)
+
+        def whole():
+            with torch.inference_mode():
+                return model.process(stack[None])[0]
+        whole()                                                      # warm-up
+        t0 = time.perf_counter()
+        ref, peak = peak_memory_mb(whole)
+        whole_ms = 1e3 * (time.perf_counter() - t0)
+        ref = ref.cpu()
+        entry = {'whole_ms': whole_ms, 'whole_peak_mib': peak,
+                 'halo_rows': spatial.receptive_rows(model)[0]}
+        for n in PARALLEL_BANDS:
+            report = []
+            t0 = time.perf_counter()
+            got = spatial.develop_bands(model, stack, [device] * n, report)
+            ms = 1e3 * (time.perf_counter() - t0)
+            diff = float((got - ref).abs().max())
+            if not diff <= MAX_BAND_DIFF:
+                raise AssertionError(f'[parallel] {name}: {n} bands differ from the whole '
+                                     f'stack by {diff}')
+            peaks = [r.get('peak_bytes', 0) / 2 ** 20 for r in report]
+            entry[f'{n} bands'] = {'ms': ms, 'max_abs_diff': diff, 'peak_mib': peaks,
+                                   'windows': [r['window'] for r in report]}
+            print(f'[parallel] {model.model_code} in {n} bands: max |dy| {diff:.3g} against '
+                  f'the whole stack; peak per band {max(peaks):.0f} MiB against '
+                  f'{peak:.0f} MiB whole ({max(peaks) / max(peak, 1e-9):.2f}); {ms:.1f} ms against '
+                  f'{whole_ms:.1f} ms', flush=True)
+        results[name] = entry
+        del model, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def parallel_two_cards(args, single, n_classes, rank_counts):
+    """On a machine with two cards or more: the joint step over NCCL on
+    cuda:0 and cuda:1 against the one-process step, and ``train_nip
+    --devices 2`` for one epoch; None (and said so) on one card. Adds the
+    ranks' launches to ``rank_counts``."""
+    if torch.cuda.device_count() < 2:
+        print(f'[parallel] two cards: skipped, this machine has {torch.cuda.device_count()} '
+              f'card', flush=True)
+        return None
+    t0 = time.perf_counter()
+    two = launch.run(parallel_rank, ['cuda:0', 'cuda:1'], args=(args.seed, ('joint',)),
+                     timeout_s=PARALLEL_DEADLINE_S)
+    results = check_parallel_kind('joint', [r['joint'] for r in two], single['joint'],
+                                  n_classes['joint'])
+    for r, got in enumerate(two):
+        for name, n in got['joint']['counts'].items():
+            rank_counts[r][name] += n
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = fixtures.make_dataset(os.path.join(tmp, 'data'), n_images=60, height=256,
+                                         width=384, seed=args.seed)
+        cmd = [sys.executable, '-m', 'neural_imaging_tpu_torch.cli.train_nip', '--nip', 'INet',
+               '--cam', 'Cam', '--data', data_dir, '--split', '40:20:1', '--epochs', '1',
+               '--patch', '64', '--batch', '20', '--val-schedule', '1', '--out',
+               os.path.join(tmp, 'nips'), '--devices', '2']
+        subprocess.run(cmd, check=True, cwd=base.REPO_ROOT, timeout=PARALLEL_DEADLINE_S)
+        progress = json.loads((Path(tmp) / 'nips' / 'Cam' / 'INet_gbrg_5x5' / 'inet'
+                               / 'progress.json').read_text())
+    results['train_nip_devices_2'] = progress['performance']['loss']
+    results['s'] = time.perf_counter() - t0
+    print(f'[parallel] two cards: the joint step over NCCL on cuda:0 and cuda:1 (first step '
+          f'against the one-process step: gradient norms within '
+          f'{max(e["max_grad_norm_rel_diff"] for e in results["ranks"]):.3g}; '
+          f'{results["ranks"][0]["median_step_ms"]:.2f} ms a step against '
+          f'{results["one_process_median_step_ms"]:.2f} ms; NCCL all-reduce of '
+          f'{results["ranks"][0]["all_reduce_floats"]} floats '
+          f'{results["ranks"][0]["all_reduce_median_ms"]:.3f} ms), and train_nip --devices 2 '
+          f'for one epoch: losses {progress["performance"]["loss"]}', flush=True)
+    return results
+
+
+def parallel_phase(args, device):
+    """``[parallel]``: data parallelism and development in bands. Returns
+    (this process's launch counts, the ranks' launch counts, results)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    zero_counts()
+    # the one-process steps at the global batch, on the card
+    single = {kind: parallel_run(None, kind, args.seed) for kind in PARALLEL_KINDS}
+    print(f'[parallel] one-process steps at the global batch on {device}: median '
+          + ', '.join(f'{kind} {np.median(r["step_ms"]):.2f} ms' for kind, r in single.items())
+          + f' ({time.perf_counter() - t_phase:.1f} s)', flush=True)
+    n_classes = {kind: parallel_model(kind, 'cpu', args.seed).n_classes
+                 for kind in ('joint', 'dcn flow')}
+
+    # NCCL at world size 1: the joint step through DataParallel equals the plain step
+    multihost.initialize(f'127.0.0.1:{multihost.free_port()}', 1, 0, device=device)
+    try:
+        mesh = mesh_lib.make_mesh(device)
+        one = parallel_run(ptrain.DataParallel(mesh), 'joint', args.seed)
+    finally:
+        multihost.shutdown()
+    nccl = compare_steps(one['first'], single['joint']['first'])
+    max_grad = max(float((g - single['joint']['first'][2][part][k]).abs().max())
+                   for part, leaves in one['first'][2].items() for k, g in leaves.items())
+    print(f'[parallel] {mesh.backend}, 1 rank on {device}: the joint step through DataParallel against '
+          f'the plain step: loss parts within {nccl["max_loss_rel_diff"]:.3g}, gradients '
+          f'within {max_grad:.3g} (max |d|); all-reduce of {one["all_reduce"]["floats"]} floats '
+          f'{np.median(one["all_reduce"]["ms"]):.3f} ms', flush=True)
+    main_counts = read_counts()
+    torch.cuda.empty_cache()
+
+    # two ranks sharing cuda:0 over gloo, started by the port's launcher
+    t0 = time.perf_counter()
+    ranks = launch.run(parallel_rank, [str(device)] * PARALLEL_RANKS, args=(args.seed,
+                                                                          PARALLEL_KINDS),
+                       backend='gloo', timeout_s=PARALLEL_DEADLINE_S)
+    launch_s = time.perf_counter() - t0
+    results = {'launch_s': launch_s, 'world_1': {'backend': mesh.backend,
+        'max_loss_rel_diff': nccl['max_loss_rel_diff'], 'max_abs_grad_diff': max_grad,
+        'all_reduce_ms': one['all_reduce']['ms']}}
+    rank_counts = [{name: 0 for name in COUNTERS} for _ in ranks]
+    for kind in PARALLEL_KINDS:
+        report = check_parallel_kind(kind, [r[kind] for r in ranks], single[kind],
+                                     n_classes.get(kind))
+        for r, got in enumerate(ranks):
+            for name, n in got[kind]['counts'].items():
+                rank_counts[r][name] += n
+        results[kind] = report
+        worst = max(report['ranks'], key=lambda e: e['max_grad_norm_rel_diff'])
+        print(f'[parallel] {kind}: 2 ranks on {device} over gloo; first step against the '
+              f'one-process step at the global batch: loss parts within '
+              f'{worst["max_loss_rel_diff"]:.3g}, gradient norms within '
+              f'{worst["max_grad_norm_rel_diff"]:.3g} ({worst["worst_gradient"]}), '
+              f'{sum(e["flips"] for e in report["ranks"])} FAN-input values flipped'
+              + (f', entropy {report["ranks"][0]["entropy"]:.6f} against '
+                 f'{report["one_process_entropy"]:.6f}' if kind == 'dcn flow' else '')
+              + f'; median step {report["ranks"][0]["median_step_ms"]:.2f} / '
+              f'{report["ranks"][1]["median_step_ms"]:.2f} ms a rank against '
+              f'{report["one_process_median_step_ms"]:.2f} ms in one process; gloo all-reduce '
+              f'of {report["ranks"][0]["all_reduce_floats"]} floats '
+              f'{report["ranks"][0]["all_reduce_median_ms"]:.2f} ms; launches a rank '
+              f'{[e["launches"] for e in report["ranks"]]}; parameters bit-identical',
+              flush=True)
+
+    # two cards, where the machine has them
+    results['two_cards'] = parallel_two_cards(args, single, n_classes, rank_counts)
+
+    # development in bands on cuda:0
+    t0 = time.perf_counter()
+    stack = d90_stack(args.seed + 1300)
+    print(f'[parallel] the {RAW_CAMERA} stack {stack.shape[0]}x{stack.shape[1]}x4 made in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    zero_counts()
+    results['bands'] = parallel_bands(stack, device)
+    band_counts = read_counts()
+    expect_counts('[parallel] bands', band_counts, {})
+    counts = {name: main_counts[name] + band_counts[name] for name in COUNTERS}
+    results['launches_per_rank'] = rank_counts
+    results['phase_s'] = time.perf_counter() - t_phase
+    print(f'[parallel] phase {results["phase_s"]:.1f} s (the ranks\' launch '
+          f'{launch_s:.1f} s)', flush=True)
+    return counts, rank_counts, single, results
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2720,7 +3119,11 @@ def main():
     codec_eval_counts, codec_eval = codec_eval_phase(args, device, flush)
     print('[codec eval] ' + json.dumps(codec_eval), flush=True)
 
-    # 15. results: K1's numbers are its two launches of one m_quality request,
+    # 15. data parallelism and development in bands
+    parallel_counts, parallel_rank_counts, _, parallel_results = parallel_phase(args, device)
+    print('[parallel] ' + json.dumps(parallel_results), flush=True)
+
+    # 16. results: K1's numbers are its two launches of one m_quality request,
     # summed; K2's and K3's are at the DCN flow's shape (N = 409,600), K4's at
     # the DCN training step's
     print('[slice] ' + json.dumps({
@@ -2739,7 +3142,9 @@ def main():
                              + sum(c['jpeg8x8'] for c in nip_trainer_counts.values())
                              + dcn_flow_counts['jpeg8x8']
                              + sum(c['jpeg8x8'] for c in manip7_counts)
-                             + codec_eval_counts['jpeg8x8']),
+                             + codec_eval_counts['jpeg8x8'] + parallel_counts['jpeg8x8']
+                             + sum(c['jpeg8x8'] for c in parallel_rank_counts)),
+                'parallel_launches_per_rank': [c['jpeg8x8'] for c in parallel_rank_counts],
                 'max_abs_err': max(r['max_abs_err'] for r in (*k1, k1_dcn_flow, k1_manip7)),
                 'ms': sum(r['ms'] for r in k1),
                 'plain_ms': sum(r['plain_ms'] for r in k1),
@@ -2749,7 +3154,8 @@ def main():
                 'library_ms': None}]
     launches = {name: sum(c[name] for c in (serve_counts, fixed_counts, train_counts,
                                             dcn_flow_counts, dcn_trainer_counts,
-                                            codec_eval_counts))
+                                            codec_eval_counts, parallel_counts,
+                                            *parallel_rank_counts))
                 for name in ('codebook_fwd', 'codebook_bwd', 'codebook_bwd_train')}
     for name, replaces, shape in (('codebook_fwd', 51, 'dcn flow'),
                                   ('codebook_bwd', 137, 'dcn flow'),
@@ -2758,7 +3164,9 @@ def main():
         kernels.append({'name': name, 'route': 'cuda',
                         'source': 'neural_imaging_tpu_torch/csrc/codebook.cu',
                         'replaces': f'neural_imaging_tpu/ops/pallas/codebook.py:{replaces}',
-                        'launches': launches[name], 'max_abs_err': r['max_abs_err'],
+                        'launches': launches[name],
+                        'parallel_launches_per_rank': [c[name] for c in parallel_rank_counts],
+                        'max_abs_err': r['max_abs_err'],
                         'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                         'bound_by': r['bound_by'], 'library_ms': None})
     print(json.dumps({'kernels': kernels}))

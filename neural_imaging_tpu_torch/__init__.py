@@ -17,4 +17,8 @@ Conventions:
 - Hand-written Hopper kernels live in ``csrc/`` and are bound in
   ``ops/hopper/``. A CUDA tensor launches the kernel or raises; only a CPU
   tensor takes the kernel's plain PyTorch version.
+- Data parallelism (``parallel/``): one process a rank, each with one
+  device. Under a process group every rank restores a model (``load_model``,
+  ``restore``, a trainer's ``resume``) and only the primary, rank 0,
+  writes files (``save_model``, the trainers' logs and snapshots).
 """

@@ -9,9 +9,13 @@ plus ``--device`` (default ``cuda``; ``cpu`` must be asked for).
 Codec hyper-parameters come from ``--params`` (JSON) or, one scenario a
 row, from the CSV of ``--param_list`` (``cli/train_nip.get_scenarios``:
 rows whose 'active' is 0 are dropped, ``--group`` selects a 'run_group');
-empty cells are left to the codec's defaults. ``--fill`` (the results
-table, which needs pandas) and the parallel flags raise
-``NotImplementedError`` naming ROADMAP.md §1 item 5.
+empty cells are left to the codec's defaults. Data parallelism takes the
+JAX CLI's flags: ``--devices n`` starts n ranks on this host, one device
+each (the first n cards, or n CPU processes over gloo with ``--device
+cpu``), rank 0 the primary that writes the files; ``--coordinator
+host:port --nproc n --procid i`` makes this process rank i of n. ``--fill``
+(the results table, which needs pandas) raises ``NotImplementedError``
+naming ROADMAP.md §1 item 5.
 """
 import argparse
 import sys
@@ -19,10 +23,11 @@ import sys
 from neural_imaging_tpu_torch.cli.train_nip import get_scenarios, parse_json_arg, parse_split
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.models import compression
+from neural_imaging_tpu_torch.parallel import launch, multihost
+from neural_imaging_tpu_torch.parallel import train as ptrain
 from neural_imaging_tpu_torch.training.compression import train_dcn
 from neural_imaging_tpu_torch.utils.utils import setup_logging
 
-PARALLEL_FLAGS = ('devices', 'coordinator', 'nproc', 'procid')
 
 
 def build_parser():
@@ -48,10 +53,7 @@ def build_parser():
     parser.add_argument('--device-data', action='store_true',
                         help='copy the training set to the device once and sample and '
                              'augment patches there')
-    parser.add_argument('--devices', default=None, help='data-parallel devices (not ported)')
-    parser.add_argument('--coordinator', default=None, help='multi-host (not ported)')
-    parser.add_argument('--nproc', type=int, default=None, help='multi-host (not ported)')
-    parser.add_argument('--procid', type=int, default=None, help='multi-host (not ported)')
+    ptrain.add_cli_args(parser)
     parser.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     return parser
 
@@ -60,16 +62,23 @@ def refuse_unported(args):
     """Raise NotImplementedError for an option the port does not have yet."""
     if args.fill is not None:
         raise NotImplementedError('--fill (the results table, which needs pandas) is not '
-                                  'ported (ROADMAP.md §1 item 5)')
-    if any(getattr(args, flag) is not None for flag in PARALLEL_FLAGS):
-        raise NotImplementedError('the parallel trainer (--devices, --coordinator, --nproc, '
-                                  '--procid) is not ported (ROADMAP.md §1 item 5)')
+                                  'ported (ROADMAP.md §1 item 5, its tooling half)')
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     setup_logging()
+    if launch.launch_cli_ranks('neural_imaging_tpu_torch.cli.train_dcn', argv, args, args.batch):
+        return
+    parallel = ptrain.from_cli_args(args, batch_size=args.batch)
+    try:
+        _train(args, parallel)
+    finally:
+        multihost.shutdown()
+
+
+def _train(args, parallel):
 
     dcn_cls = getattr(compression, args.dcn, None)
     if not (isinstance(dcn_cls, type) and issubclass(dcn_cls, compression.DCN)):
@@ -93,7 +102,7 @@ def main(argv=None):
                         'patch_size': args.patch, 'learning_rate': args.lr,
                         'validation_schedule': args.val_schedule},
                   data, directory=args.out, overwrite=args.overwrite,
-                  device_data=args.device_data, resume=args.resume)
+                  device_data=args.device_data, resume=args.resume, parallel=parallel)
 
 
 if __name__ == '__main__':

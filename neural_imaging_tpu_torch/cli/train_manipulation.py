@@ -9,9 +9,11 @@ with the PyTorch port: the counterpart of the repository's
 
 It sweeps ``--cam``, the repetitions ``--start``..``--end`` and ``--ln`` /
 ``--lc`` (for a trainable NIP / codec) as the reference does, reusing one
-flow through ``reinitialize()``. Options the port does not have yet raise
-``NotImplementedError`` naming their item of ROADMAP.md §1: the parallel
-flags. ``--jpeg_mode libjpeg`` makes the channel libjpeg's codec (the
+flow through ``reinitialize()``. Data parallelism takes the JAX CLI's
+flags: ``--devices n`` starts n ranks on this host, one device each (the
+first n cards, or n CPU processes over gloo with ``--device cpu``), rank 0
+the primary that writes the files; ``--coordinator host:port --nproc n
+--procid i`` makes this process rank i of n. ``--jpeg_mode libjpeg`` makes the channel libjpeg's codec (the
 port's own, on the host), which the flow replaces by 'soft' rounding, as
 the reference's does. The NIP (INet, UNet, DNet or ClassicISP) starts from
 its snapshot ``<--nip-dir>/<camera>/<model code>``
@@ -27,13 +29,12 @@ import itertools
 import json
 
 from neural_imaging_tpu_torch.data.dataset import Dataset
+from neural_imaging_tpu_torch.parallel import launch, multihost
+from neural_imaging_tpu_torch.parallel import train as ptrain
 from neural_imaging_tpu_torch.training.manipulation import train_manipulation_nip
 from neural_imaging_tpu_torch.utils.utils import setup_logging
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
     ManipulationClassification)
-
-PARALLEL_FLAGS = ('devices', 'coordinator', 'nproc', 'procid')
-
 
 def parse_json_arg(text):
     """Parse a JSON CLI argument tolerating single quotes."""
@@ -110,26 +111,26 @@ def build_parser():
     parser.add_argument('--nan-check', action='store_true',
                         help='check gradients for NaNs on every step (waits for the device '
                              'each step; by default the check waits for validation)')
-    parser.add_argument('--devices', default=None, help='data-parallel devices (not ported)')
-    parser.add_argument('--coordinator', default=None, help='multi-host (not ported)')
-    parser.add_argument('--nproc', type=int, default=None, help='multi-host (not ported)')
-    parser.add_argument('--procid', type=int, default=None, help='multi-host (not ported)')
+    ptrain.add_cli_args(parser)
     parser.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     return parser
-
-
-def refuse_unported(args):
-    """Raise NotImplementedError for an option the port does not have yet."""
-    if any(getattr(args, flag) is not None for flag in PARALLEL_FLAGS):
-        raise NotImplementedError('the parallel trainer (--devices, --coordinator, --nproc, '
-                                  '--procid) is not ported (ROADMAP.md §1 item 5)')
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(args)
     setup_logging()
+    if launch.launch_cli_ranks('neural_imaging_tpu_torch.cli.train_manipulation', argv, args,
+                               args.batch):
+        return
+    parallel = ptrain.from_cli_args(args, batch_size=args.batch)
+    try:
+        _train(parser, args, parallel)
+    finally:
+        multihost.shutdown()
+
+
+def _train(parser, args, parallel):
 
     if args.dcn is not None:
         distribution = {'downsampling': args.ds, 'compression': 'dcn',
@@ -189,7 +190,7 @@ def main(argv=None):
             train_manipulation_nip(flow, training, data,
                                    directories={'root': args.dir, 'nip_snapshots': args.nip_dir},
                                    overwrite=args.overwrite, nan_check=args.nan_check,
-                                   device_data=args.device_data)
+                                   device_data=args.device_data, parallel=parallel)
 
 
 if __name__ == '__main__':

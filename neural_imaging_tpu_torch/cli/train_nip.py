@@ -11,8 +11,13 @@ from the CSV of ``--hp`` (read with the ``csv`` module: an 'active' column
 selects rows, a 'run_group' column sub-selects with ``--group``, and a cell
 that starts with '@' is evaluated). A ClassicISP takes the CFA and the sRGB
 matrix of ``--cam`` from ``--cameras-config`` where it lists that camera.
-``--fill`` (the results table, which needs pandas) and the parallel flags
-raise ``NotImplementedError`` naming their item of ROADMAP.md §1.
+
+Data parallelism takes the JAX CLI's flags: ``--devices n`` starts n ranks
+on this host, one device each (the first n cards, or n CPU processes over
+gloo with ``--device cpu``), rank 0 the primary that writes the files;
+``--coordinator host:port --nproc n --procid i`` makes this process rank i
+of n. ``--fill`` (the results table, which needs pandas) raises
+``NotImplementedError`` naming its item of ROADMAP.md §1.
 """
 import argparse
 import csv
@@ -23,11 +28,10 @@ import numpy as np
 
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.models import pipelines
+from neural_imaging_tpu_torch.parallel import launch, multihost
+from neural_imaging_tpu_torch.parallel import train as ptrain
 from neural_imaging_tpu_torch.training.pipeline import train_nip_model
 from neural_imaging_tpu_torch.utils.utils import match_option, setup_logging
-
-PARALLEL_FLAGS = ('devices', 'coordinator', 'nproc', 'procid')
-
 
 def parse_json_arg(text):
     """Parse a JSON CLI argument tolerating single quotes."""
@@ -124,10 +128,7 @@ def build_parser():
     parser.add_argument('--cameras-config', default='config/cameras.json')
     parser.add_argument('-f', '--fill', default=None,
                         help='summarize trained models (not ported)')
-    parser.add_argument('--devices', default=None, help='data-parallel devices (not ported)')
-    parser.add_argument('--coordinator', default=None, help='multi-host (not ported)')
-    parser.add_argument('--nproc', type=int, default=None, help='multi-host (not ported)')
-    parser.add_argument('--procid', type=int, default=None, help='multi-host (not ported)')
+    ptrain.add_cli_args(parser)
     parser.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     return parser
 
@@ -136,16 +137,23 @@ def refuse_unported(args):
     """Raise NotImplementedError for an option the port does not have yet."""
     if args.fill is not None:
         raise NotImplementedError('--fill (the results table, which needs pandas) is not '
-                                  'ported (ROADMAP.md §1 item 5)')
-    if any(getattr(args, flag) is not None for flag in PARALLEL_FLAGS):
-        raise NotImplementedError('the parallel trainer (--devices, --coordinator, --nproc, '
-                                  '--procid) is not ported (ROADMAP.md §1 item 5)')
+                                  'ported (ROADMAP.md §1 item 5, its tooling half)')
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     setup_logging()
+    if launch.launch_cli_ranks('neural_imaging_tpu_torch.cli.train_nip', argv, args, args.batch):
+        return
+    parallel = ptrain.from_cli_args(args, batch_size=args.batch)
+    try:
+        _train(args, parallel)
+    finally:
+        multihost.shutdown()
+
+
+def _train(args, parallel):
 
     nip_name = match_option(args.nip, pipelines.supported_models)
     scenarios = (get_scenarios(args.hp, run_group=args.group) if args.hp
@@ -176,7 +184,8 @@ def main(argv=None):
                         validation_schedule=args.val_schedule,
                         validation_loss_threshold=threshold, resume=args.resume,
                         patch_size=args.patch, batch_size=args.batch, data=data,
-                        out_directory_root=args.out, device_data=args.device_data)
+                        out_directory_root=args.out, device_data=args.device_data,
+                        parallel=parallel)
 
 
 if __name__ == '__main__':

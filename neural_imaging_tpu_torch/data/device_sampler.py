@@ -14,10 +14,16 @@ candidates, score those with variance ≥ ``FLAT_VARIANCE_THRESHOLD`` by 1 + u
 ``jax.lax.top_k`` breaks ties by the lower index and ``torch.topk`` promises
 no order, so the ranking is a stable sort by (−score, index): flat images,
 whose candidates tie at variance 0, keep the first candidates drawn.
+
+Data-parallel (``parallel``): every rank holds the whole training set and
+draws and ranks the global batch's candidates, as the JAX sampler's global
+selection does; each then gathers only its own rows of the selected batch.
+Draws differ between device types, so all ranks must sample on one type.
 """
 import numpy as np
 import torch
 
+from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
 from neural_imaging_tpu_torch.utils.device import resolve_device
 
 FLAT_VARIANCE_THRESHOLD = 0.01  # the 'flat' policy of loading.sample_patch
@@ -28,8 +34,13 @@ class DeviceSampler:
     → a quantized batch ('xy' → (raw, rgb); 'x' → raw; 'y' → rgb)."""
 
     def __init__(self, data, batch_size, rgb_patch_size, discard='flat', oversample=2,
-                 seed=0, device='cuda'):
+                 seed=0, device='cuda', parallel=None):
+        """``batch_size`` is the global batch; with ``parallel`` (a
+        ``DataParallel``) a call returns this rank's rows of it."""
         self.device = resolve_device(device)
+        self.parallel = parallel
+        if parallel is not None:
+            parallel.check_batch(batch_size)
         self.batch_size = batch_size
         self.rgb_patch_size = rgb_patch_size
         self.raw_patch_size = rgb_patch_size // 2
@@ -80,17 +91,21 @@ class DeviceSampler:
     def sample(self, idx, yy, xx, u):
         """The batch of given candidate draws (see :meth:`draw`): (raw, rgb),
         uint16 (N, r, r, 4) and uint8 (N, 2r, 2r, 3), either None when not
-        loaded."""
+        loaded; with ``parallel``, this rank's rows of it."""
         B, P, R = self.batch_size, self.rgb_patch_size, self.raw_patch_size
         rgb = None
+        rows = slice(0, B)
+        if self.parallel is not None:
+            start, size = mesh_lib.local_batch_slice(B, self.parallel.mesh)
+            rows = slice(start, start + size)
         if self.discard and len(idx) > B:
             rgb = self._gather(self._Y, idx, yy, xx, P)
             var = torch.var(rgb.to(torch.float32) / 255.0, dim=(1, 2, 3), unbiased=False)
             score = torch.where(var >= FLAT_VARIANCE_THRESHOLD, 1.0 + u, var)
-            keep = torch.sort(-score, stable=True).indices[:B]
+            keep = torch.sort(-score, stable=True).indices[:B][rows]
             idx, yy, xx, rgb = idx[keep], yy[keep], xx[keep], rgb[keep]
         else:
-            idx, yy, xx = idx[:B], yy[:B], xx[:B]
+            idx, yy, xx = idx[rows], yy[rows], xx[rows]
             if self._Y is not None:
                 rgb = self._gather(self._Y, idx, yy, xx, P)
         raw = (self._gather(self._X, idx, yy // 2, xx // 2, R).view(torch.uint16)

@@ -75,16 +75,26 @@ def prefetch(generator, device, size=2):
 
 class EpochPrefetcher:
     """Reusable per-epoch prefetcher over a Dataset's training batches,
-    quantized (uint16 RAW / uint8 RGB; the flow normalizes them)."""
+    quantized (uint16 RAW / uint8 RGB; the flow normalizes them). With
+    ``parallel`` (a ``DataParallel``), every rank samples the global batch
+    from its own copy of the dataset (the same draws on every rank) and puts
+    only its rows on its device."""
 
-    def __init__(self, data, batch_size, rgb_patch_size, device, discard='flat'):
+    def __init__(self, data, batch_size, rgb_patch_size, device, discard='flat',
+                 parallel=None):
         self.data = data
         self.batch_size = batch_size
         self.rgb_patch_size = rgb_patch_size
         self.device = torch.device(device)
         self.discard = discard
+        self.parallel = parallel
+        if parallel is not None:
+            parallel.check_batch(batch_size)
 
     def __iter__(self):
         gen = self.data.get_training_generator(self.batch_size, self.rgb_patch_size,
                                                self.discard, quantized=True)
+        if self.parallel is not None:
+            gen = (self.parallel.shard(*b) if isinstance(b, tuple) else self.parallel.shard(b)[0]
+                   for b in gen)
         return prefetch(gen, self.device)

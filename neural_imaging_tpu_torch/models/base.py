@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from neural_imaging_tpu_torch.parallel import multihost
 from neural_imaging_tpu_torch.utils import utils
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
@@ -165,6 +166,9 @@ class TorchModel:
     hyper-parameters as the JAX package does keep them in ``self._h``, a
     ``ParamSpec``."""
 
+    # the data-parallel context of the model's steps (``DataParallel.distribute``)
+    parallel = None
+
     def __init__(self, module, device='cuda'):
         self.device = resolve_device(device)
         self.module = None if module is None else module.to(self.device).eval()
@@ -235,7 +239,10 @@ class TorchModel:
         """Write ``<dirname>[/<scoped name>]/<class>.npz`` in the JAX package's
         format (and with ``save_args`` the ``<class>.json`` of the class and
         its hyper-parameters). ``epoch`` is accepted for the reference's
-        signature; the file holds the current weights."""
+        signature; the file holds the current weights. In a multi-process
+        run only the primary writes (every rank holds the same weights)."""
+        if not multihost.is_primary():
+            return
         if not dirname.endswith(self.scoped_name):
             dirname = os.path.join(dirname, self.scoped_name)
         os.makedirs(dirname, exist_ok=True)

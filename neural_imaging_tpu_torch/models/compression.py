@@ -20,7 +20,6 @@ distribution, not value by value.
 """
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from neural_imaging_tpu_torch.models.base import TorchModel, flax_default_init
@@ -28,6 +27,7 @@ from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops import ssim as ssim_ops
 from neural_imaging_tpu_torch.ops.hopper.codebook import quantize_with_entropy_fused
+from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 
 ROUNDING_MODES = ('identity', 'soft', 'soft-codebook', 'sin')
@@ -81,7 +81,7 @@ class TwitterEncoder(nn.Module):
     def forward(self, x):
         h = self.act(self.down1(2.0 * (x - 0.5)))
         # the reference fixes this nonlinearity to leaky ReLU 0.2 whatever the activation
-        r = F.leaky_relu(self.down2(h), 0.2)
+        r = ops.leaky_relu(self.down2(h), 0.2)
         return self.to_latent(_residual_blocks(self, self.act, r))
 
 
@@ -230,19 +230,34 @@ class DCN(TorchModel):
     def _step(self, x, learning_rate):
         """One Adam step on an NHWC float batch in [0, 1]; returns {loss
         (√(2L)), ssim (batch mean), entropy} as 0-d device tensors, from the
-        forward pass before the update."""
+        forward pass before the update.
+
+        Under ``parallel`` x is this rank's rows of the global batch and the
+        step is the global batch's: the entropy is that of the global latent
+        (``mesh.batch_reductions``), the rank differentiates its share of the
+        global loss (its L2 sum and the entropy term over the rank count), and
+        the shares' gradients, values and SSIMs are summed over the ranks."""
         for group in self.optimizer.param_groups:
             group['lr'] = learning_rate
         self.optimizer.zero_grad(set_to_none=True)
         x_nchw = x.permute(0, 3, 1, 2)
-        y, entropy = self._apply(x_nchw)
-        loss = self.loss(x_nchw, y, entropy)
-        loss.backward()
-        self.optimizer.step()
+        world = 1 if self.parallel is None else self.parallel.n_devices
+        with mesh_lib.batch_reductions(None if self.parallel is None else self.parallel.mesh):
+            y, entropy = self._apply(x_nchw)
+            # loss() is L2 + entropy_weight · H: a rank's share takes H / world
+            loss = self.loss(x_nchw, y, entropy if world == 1 else entropy / world)
+            loss.backward()
         with torch.no_grad():
             ssim = torch.mean(ssim_ops.ssim(x, y.permute(0, 2, 3, 1)))
-        return {'loss': torch.sqrt(2.0 * loss.detach()), 'ssim': ssim,
-                'entropy': entropy.detach()}
+        loss = loss.detach()
+        if self.parallel is not None:
+            params = [p for p in self.module.parameters() if p.grad is not None]
+            grads, (loss, ssim) = self.parallel.reduce([p.grad for p in params],
+                                                       [loss, ssim / world])
+            for p, g in zip(params, grads):
+                p.grad = g
+        self.optimizer.step()
+        return {'loss': torch.sqrt(2.0 * loss), 'ssim': ssim, 'entropy': entropy.detach()}
 
     def training_step(self, batch_x, learning_rate=None):
         """One Adam step on an NHWC batch (uint8, uint16 or float in [0, 1]).
@@ -260,9 +275,14 @@ class DCN(TorchModel):
         x^(1/γ), γ ~ U(0.25, 3) per image, each with its probability, drawn on
         the device."""
         g = self._scan_generator
+        n = x.shape[0]
+        world = 1 if self.parallel is None else self.parallel.n_devices
         u = torch.rand(3, generator=g, device=self.device)
+        # drawn for the global batch, of which x is this rank's rows
         gamma = GAMMA_RANGE[0] + (GAMMA_RANGE[1] - GAMMA_RANGE[0]) * torch.rand(
-            (x.shape[0], 1, 1, 1), generator=g, device=self.device)
+            (n * world, 1, 1, 1), generator=g, device=self.device)
+        if self.parallel is not None:
+            gamma = mesh_lib.local_rows(gamma, n, self.parallel.mesh)
         x = torch.where(u[0] < probs['flip_h'], x.flip(2), x)
         x = torch.where(u[1] < probs['flip_v'], x.flip(1), x)
         return torch.where(u[2] < probs['gamma'], torch.pow(x, 1.0 / gamma).clamp(0, 1), x)

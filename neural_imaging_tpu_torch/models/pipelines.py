@@ -32,6 +32,7 @@ from neural_imaging_tpu_torch.models.base import (REPO_ROOT, TorchModel, _parse_
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops.kernels import (EXAMPLE_SRGB, bilin_kernel, gamma_kernels,
                                                   upsampling_kernel)
+from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 from neural_imaging_tpu_torch.utils.utils import format_patch_shape
 
@@ -298,17 +299,26 @@ class ClassicISPCore(nn.Module):
         upk = ops.hwio_to_oihw(upsampling_kernel(cfa_pattern).reshape(1, 1, 4, 12))
         self.upsampling.copy_(upk)
 
-    def forward(self, x, srgb_mat=None):
+    def linear(self, x, srgb_mat=None):
+        """The stages before the brightness normalization: the sRGB image."""
         bayer = ops.depth_to_space(ops.small_conv2d(x, self.upsampling), 2)
         rgb = self.demosaicing(bayer)
         m = self.srgb if srgb_mat is None else srgb_mat
-        rgb = torch.einsum('nchw,kc->nkhw', rgb, m.to(rgb))
+        return torch.einsum('nchw,kc->nkhw', rgb, m.to(rgb))
+
+    @staticmethod
+    def tone(rgb):
+        """The stages after it: the stop-gradient clip and gamma 1/2.2."""
+        y = (torch.clamp(rgb, 1.0 / 255, 1.0) - rgb).detach() + rgb
+        return torch.pow(y, 1 / 2.2)
+
+    def forward(self, x, srgb_mat=None):
+        rgb = self.linear(x, srgb_mat)
         if self.brightness == 'percentile':
             rgb = _percentile_normalize_nchw(rgb)
         elif self.brightness == 'shift':
-            rgb = rgb * (0.25 / torch.clamp(torch.mean(rgb), min=1e-9))
-        y = (torch.clamp(rgb, 1.0 / 255, 1.0) - rgb).detach() + rgb
-        return torch.pow(y, 1 / 2.2)
+            rgb = rgb * (0.25 / torch.clamp(ops.batch_mean(rgb), min=1e-9))
+        return self.tone(rgb)
 
 
 # ====================================================================================
@@ -357,11 +367,24 @@ class NIPModel(TorchModel):
                           if params else None)
 
     def _step(self, batch_x, batch_y, learning_rate):
-        """One Adam step on float NHWC batches; the loss, a 0-d device tensor."""
+        """One Adam step on float NHWC batches; the loss, a 0-d device tensor.
+        Under ``parallel`` the batches are this rank's rows of the global
+        batch: the rank differentiates its share of the global mean (its mean
+        over the rank count), the shares' gradients and values are summed
+        over the ranks, and the global loss is returned."""
         self.module.zero_grad(set_to_none=True)
-        developed = self._develop(batch_x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        loss = self.loss(developed, batch_y)
-        loss.backward()
+        mesh = self.parallel.mesh if self.parallel is not None else None
+        with mesh_lib.batch_reductions(mesh):
+            developed = self._develop(batch_x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            loss = self.loss(developed, batch_y)
+            if self.parallel is not None:
+                loss = loss / self.parallel.n_devices
+            loss.backward()
+        if self.parallel is not None:
+            params = [p for p in self.module.parameters() if p.grad is not None]
+            grads, (loss,) = self.parallel.reduce([p.grad for p in params], [loss.detach()])
+            for p, g in zip(params, grads):
+                p.grad = g
         for group in self.optimizer.param_groups:
             group['lr'] = float(learning_rate)
         self.optimizer.step()

@@ -27,7 +27,10 @@ Around them, in plain PyTorch as in the reference: the per-codeword counts
 histogram of the quantized latent is (counts / N) @ W_cc, with W_cc the
 weights of the codewords against each other), and the two VJPs of the
 reference's ``jax.custom_vjp``s as ``torch.autograd.Function``s.
-:func:`quantize_with_entropy_fused` is the entry point.
+:func:`quantize_with_entropy_fused` is the entry point. Inside a
+data-parallel step the entropy is the global latent's: the counts are
+summed over the ranks, and K3 and K4 run on a rank's values with the
+global divisor (``_forward``, ``_per_global_n``).
 """
 import ctypes
 import functools
@@ -35,6 +38,7 @@ import functools
 import torch
 
 from neural_imaging_tpu_torch.ops import quantization as quant
+from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
 
 LIBRARY = 'codebook'
 THREADS = 256                 # threads per block, as csrc/codebook.cu launches them
@@ -338,14 +342,43 @@ def _entropy_bits(p):
 
 
 def _forward(z, codebook, v, gamma):
-    """The shared forward: STE value, entropy, histogram, counts."""
+    """The shared forward: STE value, entropy, histogram, this rank's counts,
+    the global counts, the global N and the mesh they were summed over.
+
+    Inside a data-parallel step (``mesh.batch_reductions``) z is this rank's
+    share of the global latent (an equal share on every rank) and the
+    histogram is the global one: the counts are summed over the ranks and
+    divided by the global N. Outside one, the global counts are the counts."""
     z_flat = z.reshape(-1).to(torch.float32).contiguous()
     soft, hard_idx = codebook_fwd(z_flat, codebook, v, gamma)
     counts = torch.bincount(hard_idx, minlength=codebook.numel()).to(torch.float32)
+    n_global, counts_global = z_flat.numel(), counts
+    mesh = mesh_lib.active()
+    if mesh is not None:
+        n_global = z_flat.numel() * mesh.world_size
+        counts_global = mesh_lib.all_reduce_sum(counts.clone(), mesh)
     hard = codebook[hard_idx]
     q = ((hard - soft) + soft).reshape(z.shape)
-    _, histogram = _histogram(counts, z_flat.numel(), _codeword_weight_matrix(codebook, v, gamma))
-    return q, _entropy_bits(histogram), histogram, counts
+    _, histogram = _histogram(counts_global, n_global,
+                              _codeword_weight_matrix(codebook, v, gamma))
+    return q, _entropy_bits(histogram), histogram, counts, counts_global, n_global, mesh
+
+
+def _global_cotangents(mesh, g_h, g_hist):
+    """The cotangents of the global entropy and histogram: each rank's loss
+    holds its share of them, so they are summed over the ranks (a no-op
+    outside a data-parallel step)."""
+    if mesh is None:
+        return g_h, g_hist
+    return mesh_lib.reduce_sum(mesh, [g_h, g_hist])
+
+
+def _per_global_n(per_codeword, n_local, n_global):
+    """The per-codeword term K3 and K4 take: they divide it by this rank's
+    N, so a data-parallel step scales it by N_local / N_global."""
+    if n_global != n_local:
+        per_codeword = per_codeword * (n_local / n_global)
+    return per_codeword.contiguous()
 
 
 class _QuantizeWithEntropy(torch.autograd.Function):
@@ -356,20 +389,21 @@ class _QuantizeWithEntropy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z, codebook, v, gamma):
-        q, h, histogram, _ = _forward(z, codebook, v, gamma)
+        q, h, histogram, _, _, n_global, mesh = _forward(z, codebook, v, gamma)
         ctx.save_for_backward(z, codebook, histogram)
-        ctx.v, ctx.gamma = v, gamma
+        ctx.v, ctx.gamma, ctx.n_global, ctx.mesh = v, gamma, n_global, mesh
         return q, h, histogram
 
     @staticmethod
     def backward(ctx, g_q, g_h, g_hist):
         z, codebook, histogram = ctx.saved_tensors
         v, gamma = ctx.v, ctx.gamma
+        g_h, g_hist = _global_cotangents(ctx.mesh, g_h, g_hist)
         g_hist_total = g_h * (-(torch.log(histogram) + 1.0) / quant.LN2) + g_hist
         w_cc = _codeword_weight_matrix(codebook, v, gamma)
         dlogw_cc = _codeword_dlogw(codebook, v, gamma)
         dw_cc = w_cc * (dlogw_cc - torch.sum(w_cc * dlogw_cc, dim=-1, keepdim=True))
-        per_codeword = (dw_cc @ g_hist_total).contiguous()
+        per_codeword = _per_global_n(dw_cc @ g_hist_total, z.numel(), ctx.n_global)
         dz = codebook_bwd(z.reshape(-1).to(torch.float32).contiguous(),
                           g_q.reshape(-1).to(torch.float32).contiguous(), codebook,
                           per_codeword, v, gamma)
@@ -384,18 +418,18 @@ class _QuantizeWithEntropyTrainable(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z, codebook, v, gamma):
-        q, h, histogram, counts = _forward(z, codebook, v, gamma)
-        ctx.save_for_backward(z, codebook, counts)
-        ctx.v, ctx.gamma = v, gamma
+        q, h, histogram, counts, counts_global, n_global, mesh = _forward(z, codebook, v, gamma)
+        ctx.save_for_backward(z, codebook, counts, counts_global)
+        ctx.v, ctx.gamma, ctx.n_global, ctx.mesh = v, gamma, n_global, mesh
         return q, h, histogram
 
     @staticmethod
     def backward(ctx, g_q, g_h, g_hist):
-        z, codebook, counts = ctx.saved_tensors
-        v, gamma = ctx.v, ctx.gamma
-        n = z.numel()
+        z, codebook, counts, counts_global = ctx.saved_tensors
+        v, gamma, n = ctx.v, ctx.gamma, ctx.n_global
+        g_h, g_hist = _global_cotangents(ctx.mesh, g_h, g_hist)
         w_cc = _codeword_weight_matrix(codebook, v, gamma)
-        hist_raw, p = _histogram(counts, n, w_cc)
+        hist_raw, p = _histogram(counts_global, n, w_cc)
         hist = torch.clamp(hist_raw, min=1e-9)
         total = torch.sum(hist)
         # H = -Σ p log p / ln 2, p = hist / total, hist = clip(raw)
@@ -403,11 +437,13 @@ class _QuantizeWithEntropyTrainable(torch.autograd.Function):
         ghist = (gp / total - torch.sum(gp * hist) / (total * total)) * (hist_raw > 1e-9)
         dlogw_cc = _codeword_dlogw(codebook, v, gamma)
         dw_cc = w_cc * (dlogw_cc - torch.sum(w_cc * dlogw_cc, dim=-1, keepdim=True))
-        per_codeword = (dw_cc @ ghist).contiguous()
+        per_codeword = _per_global_n(dw_cc @ ghist, z.numel(), n)
         dz, dcb_stream = codebook_bwd_train(
             z.reshape(-1).to(torch.float32).contiguous(),
             g_q.reshape(-1).to(torch.float32).contiguous(), codebook, per_codeword, v, gamma)
-        # explicit entropy path through the codeword argument of w(q, cb)
+        # explicit entropy path through the codeword argument of w(q, cb);
+        # this rank's counts over the global N, so that the sum of the ranks'
+        # gradients counts it once
         wg = w_cc @ ghist
         t = w_cc * dlogw_cc * (wg[:, None] - ghist[None, :])
         dcb = dcb_stream + (counts / n) @ t

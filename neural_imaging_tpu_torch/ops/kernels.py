@@ -4,7 +4,6 @@ like the reference's. Copy of the filter functions of
 ``neural_imaging_tpu/ops/kernels.py`` that this port uses.
 """
 import numpy as np
-from scipy import signal
 
 from neural_imaging_tpu_torch.data.bayer import CFA_OFFSETS, PLANE_RGB, STACK_PLANES
 
@@ -63,7 +62,10 @@ def bilin_kernel(kernel=3):
 
 def gkern(kernlen=5, std=0.83):
     """Normalized 2-D Gaussian kernel."""
-    g1 = signal.windows.gaussian(kernlen, std=std)
+    # scipy.signal.windows.gaussian(kernlen, std), in its arithmetic (scipy.signal
+    # takes seconds to import)
+    n = np.arange(0, kernlen) - (kernlen - 1.0) / 2.0
+    g1 = np.exp(-n ** 2 / (2 * std * std))
     g2 = np.outer(g1, g1)
     return g2 / g2.sum()
 

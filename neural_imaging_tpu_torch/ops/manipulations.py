@@ -26,7 +26,6 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
-from scipy import signal
 from torch.autograd.function import once_differentiable
 
 from neural_imaging_tpu_torch.models.jpeg import jpeg_forward_nchw, jpeg_qtable_traced, qtables
@@ -471,6 +470,7 @@ def _gaussian_pooled_filter(kernel, std, device):
     """(3, 3, k+1, k+1) OIHW float32 filter of :func:`gaussian_pooled` on
     ``device``: the blur convolved with a 2x2 box (scipy's ``convolve2d``,
     as the reference forms it), on the channel diagonal."""
+    from scipy import signal  # a slow import: only where this kernel is made
     k2 = signal.convolve2d(gkern(kernel, std), np.ones((2, 2)) / 4.0, 'full')
     gfilter = np.zeros((kernel + 1, kernel + 1, 3, 3), dtype=np.float32)
     for r in range(3):

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from neural_imaging_tpu_torch.ops import ssim as ssim_ops
+from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
 
 
 # the reference's matrix-unit precisions of float32 operands
@@ -302,10 +303,28 @@ def msssim_loss(a, b):
 LOSSES = {'L2': mse, 'L1': mae, 'SSIM': ssim_loss, 'MS-SSIM': msssim_loss}
 
 
-def leaky_relu(x):
+class _LeakyReLU(torch.autograd.Function):
+    """``F.leaky_relu`` with jax's derivative at 0: 1, its x ≥ 0 branch
+    (torch's own backward takes the slope there, which moves the gradients
+    wherever a pre-activation is exactly 0, as behind a zero bias on a zero
+    input)."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return F.leaky_relu(x, negative_slope=slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, g * ctx.slope), None
+
+
+def leaky_relu(x, slope=0.2):
     """Leaky ReLU with the reference's slope of 0.2 (torch defaults to 0.01),
-    rounded to x's dtype as jax rounds it."""
-    return F.leaky_relu(x, negative_slope=const(0.2, x.dtype))
+    rounded to x's dtype as jax rounds it, and jax's derivative at 0."""
+    return _LeakyReLU.apply(x, const(slope, x.dtype))
 
 
 ACTIVATIONS = {
@@ -352,14 +371,36 @@ def _percentile_of_sorted(values, percentile):
     return values[low] * float(low_weight) + values[high] * float(high_weight)
 
 
+def batch_mean(x):
+    """``torch.mean(x)``; inside a data-parallel step, the mean over the
+    global batch (x being this rank's equal share of it)."""
+    mesh = mesh_lib.active()
+    if mesh is None:
+        return torch.mean(x)
+    return mesh_lib.global_sum(torch.sum(x), mesh) / (x.numel() * mesh.world_size)
+
+
 def percentile_normalize(x, percentile=0.5):
     """Global brightness normalization of ``x`` between its bottom and top
     ``percentile``: x minus its bottom percentile, divided by the top
     percentile of that (at least 1e-9), in the reference's order. One sort
     of all of x serves both percentiles: subtracting a constant keeps the
     order and gives each sorted value minus it, as jax's second sort would.
-    (``torch.quantile`` refuses tensors of more than 2^24 values.)"""
-    ordered = torch.sort(x.reshape(-1), stable=True).values
-    bottom = _percentile_of_sorted(ordered, percentile)
-    top = _percentile_of_sorted(ordered - bottom, 100 - percentile)
+    (``torch.quantile`` refuses tensors of more than 2^24 values.)
+
+    Inside a data-parallel step (``mesh.batch_reductions``) x is this rank's
+    rows and the percentiles are those of the global batch: its values are
+    gathered in rank order, the global NHWC order, so that a tie still sends
+    the gradient to its first value there."""
+    mesh = mesh_lib.active()
+    values = x.reshape(-1) if mesh is None else mesh_lib.gather_global(x, mesh)
+    bottom, top = percentile_bounds(values, percentile)
     return (x - bottom) / torch.clamp(top, min=1e-9)
+
+
+def percentile_bounds(values, percentile=0.5):
+    """The bottom ``percentile`` of ``values`` and the top percentile of them
+    minus it, as :func:`percentile_normalize` takes them (one stable sort)."""
+    ordered = torch.sort(values.reshape(-1), stable=True).values
+    bottom = _percentile_of_sorted(ordered, percentile)
+    return bottom, _percentile_of_sorted(ordered - bottom, 100 - percentile)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from neural_imaging_tpu_torch.ops import ops
+from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
 
 LN2 = float(np.log(2.0))
 
@@ -143,7 +144,12 @@ def entropy(values, codebook, v=50.0, gamma=25.0):
     codebook = torch.as_tensor(codebook, dtype=values.dtype,
                                device=values.device).reshape(-1)
     w = codebook_weights(values.reshape(-1), codebook, v, gamma)
-    histogram = torch.clamp(torch.mean(w, dim=0), min=1e-9)
+    mesh = mesh_lib.active()
+    if mesh is None:
+        mean = torch.mean(w, dim=0)
+    else:  # a data-parallel step's global histogram
+        mean = mesh_lib.global_sum(torch.sum(w, dim=0), mesh) / (w.shape[0] * mesh.world_size)
+    histogram = torch.clamp(mean, min=1e-9)
     histogram = histogram / torch.sum(histogram)
     h = -torch.sum(histogram * torch.log(histogram)) / LN2
     return h, histogram

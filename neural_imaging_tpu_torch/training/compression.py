@@ -18,8 +18,14 @@ stops early when the validation SSIM converges or deteriorates. Per-epoch
 scalars go to ``scalars.jsonl``.
 
 Losses stay on the device between validation points, where one copy brings
-them to the host. Not ported: ``visualize_distribution`` (matplotlib) and
-the ``parallel`` trainer.
+them to the host. Not ported: ``visualize_distribution`` (matplotlib).
+
+``parallel`` (a ``DataParallel``) trains over its ranks: every rank draws
+the global batch with its augmentations from one generator (the caller's
+``rng`` must be the same on every rank; without one the ranks agree on a
+seed) and keeps its rows, the entropy is the global latent's, and the
+summed gradients keep the ranks identical. Every rank validates the same
+data and takes rank 0's metrics; only the primary writes files.
 """
 import json
 import os
@@ -31,6 +37,7 @@ import torch
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.png import write_png
 from neural_imaging_tpu_torch.models.compression import AUGMENTATION_PROBS, GAMMA_RANGE
+from neural_imaging_tpu_torch.parallel import multihost
 from neural_imaging_tpu_torch.utils import jsonlog, metrics, stats
 from neural_imaging_tpu_torch.utils.image import resize_area
 from neural_imaging_tpu_torch.utils.utils import logger
@@ -110,9 +117,10 @@ def _host_batch(data, batch_id, training, rng):
     return np.ascontiguousarray(batch_x)
 
 
-def _validate(dcn, data, training, v_batches, caches, out_dir, epoch):
+def _validate(dcn, data, training, v_batches, caches, out_dir, epoch, write=True):
     """Compress → decompress the validation set; append its mean L2 norm,
-    SSIM and entropy to the history and write the thumbnail sheet."""
+    SSIM and entropy to the history and write the thumbnail sheet (with
+    ``write``)."""
     codebook = dcn.get_codebook()
     for batch_id in range(v_batches):
         batch_x = data.next_validation_batch(batch_id, training['batch_size'])
@@ -127,6 +135,8 @@ def _validate(dcn, data, training, v_batches, caches, out_dir, epoch):
     for key in ('loss', 'ssim', 'entropy'):
         dcn.performance[key]['validation'].append(float(np.mean(caches[key])))
 
+    if not write:
+        return
     # input/output pairs of the last batch, highest variance first
     indices = np.argsort(np.var(batch_x, axis=(1, 2, 3)))[::-1]
     pairs = np.concatenate((batch_x[indices[::2]], batch_y[indices[::2]]), axis=0)
@@ -146,21 +156,26 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
     generator of the host-fed augmentations. ``resume`` continues a run from
     its npz, ``adam.pt`` (fresh Adam moments without it, as a run the JAX
     package wrote), metric history and epoch counter. ``device_data``
-    trains from the training set on the codec's device."""
+    trains from the training set on the codec's device. ``parallel``: a
+    ``DataParallel`` whose ranks share each global batch."""
     spec = default_training_spec()
     spec.update(training or {})
     training = spec
-    rng = rng or np.random.default_rng()
+    if rng is None:
+        # the ranks of a parallel run draw alike: rank 0's seed
+        rng = np.random.default_rng(multihost.agree(
+            int(np.random.SeedSequence().generate_state(1)[0])))
+    primary = multihost.is_primary()
     if parallel is not None:
-        raise NotImplementedError('the parallel trainer is not ported (ROADMAP.md §1 item 5); '
-                                  'train on one device')
+        parallel.check_batch(training['batch_size'])
     if device_data and training['augmentation_probs'].get('resize', 0) > 0:
         raise ValueError('the resize augmentation is host-only; disable it or drop '
                          '--device-data')
 
     out_dir = os.path.join(directory, dcn.model_code, dcn.scoped_name)
     start_epoch = 0
-    if os.path.isdir(out_dir) and resume:
+    exists = multihost.agree(os.path.isdir(out_dir))
+    if exists and resume:
         progress_file = os.path.join(out_dir, 'progress.json')
         if not os.path.isfile(progress_file):
             raise FileNotFoundError(f'Cannot resume: {progress_file} not found')
@@ -175,14 +190,17 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
         previous = jsonlog.load_json(progress_file)
         dcn.performance = previous['codec']['performance']
         start_epoch = int(previous['training_spec'].get('current_epoch', 0))
-    elif os.path.isdir(out_dir) and not overwrite:
+    elif exists and not overwrite:
         logger.warning('Directory %s exists, skipping... (use overwrite=True)', out_dir)
         return out_dir
 
+    if parallel is not None:
+        parallel.distribute(dcn)
+        logger.info('Training %s', parallel.describe())
     sampler = None
     if device_data:
         sampler = DeviceSampler(data, training['batch_size'], training['patch_size'],
-                                discard='flat', device=dcn.device)
+                                discard='flat', device=dcn.device, parallel=parallel)
         logger.info('Training from device-resident data (%d images on %s)', sampler.n_images,
                     dcn.device)
 
@@ -197,7 +215,8 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
         n_reductions = (start_epoch - 1) // training['learning_rate_reduction_schedule']
         learning_rate *= training['learning_rate_reduction_factor'] ** n_reductions
 
-    os.makedirs(out_dir, exist_ok=True)
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
     logger.info('Output directory: %s', out_dir)
     scalars_file = os.path.join(out_dir, 'scalars.jsonl')
     pending = []     # one {loss, ssim, entropy, scaling} (on the device), lr and epoch an epoch
@@ -210,6 +229,8 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
         for p, (loss, ssim, entropy, scaling) in zip(pending, host):
             for key, value in (('loss', loss), ('ssim', ssim), ('entropy', entropy)):
                 perf[key]['training'].append(float(value))
+            if not primary:
+                continue
             with open(scalars_file, 'a') as f:
                 f.write(json.dumps({'step': p['epoch'], 'loss': float(loss),
                                     'ssim': float(ssim), 'entropy': float(entropy),
@@ -219,6 +240,8 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
         pending.clear()
 
     def save_state(epoch, quiet=True):
+        if not primary:
+            return
         save_progress(dcn, data, training, out_dir)
         dcn.save_model(out_dir, epoch, quiet=quiet)
         torch.save(dcn.optimizer.state_dict(), os.path.join(out_dir, OPTIMIZER_FILE))
@@ -233,8 +256,10 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
                 sampler, n_batches, learning_rate, training['augmentation_probs']).items()}
         else:
             for batch_id in range(n_batches):
-                values = dcn.training_step(_host_batch(data, batch_id, training, rng),
-                                           learning_rate)
+                batch = _host_batch(data, batch_id, training, rng)
+                if parallel is not None:
+                    (batch,) = parallel.shard(batch)
+                values = dcn.training_step(batch, learning_rate)
                 for key, value in values.items():
                     train_caches[key].append(value)
             means = {k: torch.stack(list(v)).mean() for k, v in train_caches.items()}
@@ -245,7 +270,8 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
         if epoch % training['validation_schedule'] == 0:
             flush_pending()          # waits for the epochs queued before it
             logger.debug('epoch %d: validating', epoch)
-            _validate(dcn, data, training, v_batches, val_caches, out_dir, epoch)
+            _validate(dcn, data, training, v_batches, val_caches, out_dir, epoch, primary)
+            dcn.performance = perf = multihost.agree(dcn.performance)
             save_state(epoch)
             logger.info('epoch %d: loss %.4f, entropy %.3f, lr %.1e, validation ssim %.4f',
                         epoch, perf['loss']['training'][-1], perf['entropy']['training'][-1],

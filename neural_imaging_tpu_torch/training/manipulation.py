@@ -20,7 +20,12 @@ Losses stay on the device between validation points, where one copy brings
 them to the host. Progress is one log line per validation point, and a
 debug line where each validation starts, once the epochs before it have
 run on the device. The reference's figures need matplotlib and
-are not written; its ``parallel`` trainer is not ported.
+are not written.
+
+``parallel`` (a ``DataParallel``) trains over its ranks, each taking its
+rows of every global batch (the same draws on every rank) and the same
+summed gradients. Every rank validates the same data and takes rank 0's
+metrics; only the primary writes files.
 """
 import os
 import shutil
@@ -31,6 +36,7 @@ import torch
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
 from neural_imaging_tpu_torch.models.compression import DCN
+from neural_imaging_tpu_torch.parallel import multihost
 from neural_imaging_tpu_torch.training import validation
 from neural_imaging_tpu_torch.training.compression import save_progress as save_codec_progress
 from neural_imaging_tpu_torch.utils import utils
@@ -64,10 +70,9 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
 
     ``nan_check=True`` fails on the step whose gradient is not finite; by
     default the check waits for the next validation point. ``device_data``
-    trains from the training set on the flow's device."""
-    if parallel is not None:
-        raise NotImplementedError('the parallel trainer is not ported (ROADMAP.md §1 item 5); '
-                                  'train on one device')
+    trains from the training set on the flow's device. ``parallel``: a
+    ``DataParallel`` whose ranks share each global batch."""
+    primary = multihost.is_primary()
     dirs = {'root': './data/m/', 'nip_snapshots': './data/models/nip/'}
     if directories is not None:
         dirs.update(directories)
@@ -83,6 +88,8 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
     missing = required.difference(training.keys())
     if missing:
         raise RuntimeError(f'Missing keys in the training dictionary! {missing}')
+    if parallel is not None:
+        parallel.check_batch(training['batch_size'])
     if data is None:
         raise ValueError('Training data seems not to be loaded!')
 
@@ -115,7 +122,7 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
     logger.info('(progress) -> %s', save_dir)
     logger.info('(model) ----> %s', model_directory)
 
-    if os.path.exists(save_dir) and not overwrite:
+    if multihost.agree(os.path.exists(save_dir)) and not overwrite:
         logger.debug('Directory exists, skipping...')
         return model_directory
 
@@ -134,6 +141,9 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
                                    training['camera_name'], flow.nip.model_code)
         logger.debug('Loading camera model from %s', nip_dirname)
         flow.nip.load_model(nip_dirname)
+    if parallel is not None:
+        parallel.distribute(flow)
+        logger.info('Training %s', parallel.describe())
 
     flow.nan_check = nan_check
     models = {'nip': flow.nip, 'fan': flow.fan}
@@ -170,10 +180,11 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
     training_summary['Validation schedule'] = training['validation_schedule']
     training_summary['Augmentation'] = str(training['augment'])
 
-    print('')
-    for k, v in training_summary.items():
-        print(f'{k:30s}: {v}')
-    print('', flush=True)
+    if primary:
+        print('')
+        for k, v in training_summary.items():
+            print(f'{k:30s}: {v}')
+        print('', flush=True)
     logger.info('Validation figures need matplotlib and are not written')
 
     def validate(epoch, final=False):
@@ -198,8 +209,14 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
                       else validation.validate_jpeg(flow.codec, data))
             for metric, value in values.items():
                 flow.codec.log_metric(metric, 'validation', value)
+        # every rank takes rank 0's metrics, so that all decide alike
+        for model in (flow.fan, flow.nip, flow.codec):
+            if model is not None:
+                model.performance = multihost.agree(model.performance)
 
-        validation.save_training_progress(training_summary, flow, save_dir, quiet=not final)
+        if primary:
+            validation.save_training_progress(training_summary, flow, save_dir,
+                                              quiet=not final)
         if final:
             logger.info('Saving models...')
         flow.fan.save_model(os.path.join(model_directory, flow.fan.scoped_name), epoch,
@@ -211,7 +228,7 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
         if codec_point:
             codec_dir = os.path.join(model_directory, flow.codec.scoped_name)
             flow.codec.save_model(codec_dir, epoch, quiet=not final)
-            if learned_codec and final:
+            if learned_codec and final and primary:
                 # the snapshot restores as a codec: its log from the source, or a new one
                 source = os.path.join(flow._distribution['compression_params']['dirname'],
                                       flow.codec.scoped_name, 'progress.json')
@@ -226,11 +243,11 @@ def train_manipulation_nip(flow, training, data, directories=None, overwrite=Fal
                      if flow.is_trainable('nip') else ''))
 
     prefetcher = EpochPrefetcher(data, training['batch_size'], 2 * training['patch_size'],
-                                 flow.device, discard='flat')
+                                 flow.device, discard='flat', parallel=parallel)
     sampler = None
     if device_data:
         sampler = DeviceSampler(data, training['batch_size'], 2 * training['patch_size'],
-                                discard='flat', device=flow.device)
+                                discard='flat', device=flow.device, parallel=parallel)
         logger.info('Training from device-resident data (%d images on %s)',
                     sampler.n_images, flow.device)
 

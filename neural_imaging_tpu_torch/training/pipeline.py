@@ -18,7 +18,13 @@ run the JAX package wrote has no such file and resumes with fresh moments,
 as the reference does without orbax. Progress is one log line per
 validation point, and a debug line where each validation starts, once the
 epochs before it have run on the device. The reference's figures need
-matplotlib and are not written; its ``parallel`` trainer is not ported.
+matplotlib and are not written.
+
+``parallel`` (a ``DataParallel``) trains over its ranks, each taking its
+rows of every global batch (the same draws on every rank) and the same
+summed gradients, so the ranks stay identical. Every rank validates the
+same data and takes rank 0's metrics, so their control flow (learning-rate
+back-off, early stop) stays in lockstep; only the primary writes files.
 """
 import os
 from collections import OrderedDict
@@ -28,6 +34,7 @@ import torch
 
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
+from neural_imaging_tpu_torch.parallel import multihost
 from neural_imaging_tpu_torch.utils import jsonlog, metrics
 from neural_imaging_tpu_torch.utils.jsonlog import save_progress
 from neural_imaging_tpu_torch.utils.utils import logger
@@ -89,10 +96,11 @@ def train_nip_model(model, camera_name, n_epochs=10000, lr_schedule=None,
     ``lr_schedule``: {epoch: learning rate} (or one rate); ``None`` is 1e-4.
     ``validation_loss_threshold``: the early stop's relative change of the
     validation loss (None never stops early). ``device_data``: train from
-    the training set on the model's device."""
+    the training set on the model's device. ``parallel``: a ``DataParallel``
+    whose ranks share each global batch of ``batch_size``."""
     if parallel is not None:
-        raise NotImplementedError('the parallel trainer is not ported (ROADMAP.md §1 item 5); '
-                                  'train on one device')
+        parallel.check_batch(batch_size)
+    primary = multihost.is_primary()
     if data is None:
         raise ValueError('Training data seems not to be loaded!')
     if model.count_parameters() == 0:
@@ -101,7 +109,7 @@ def train_nip_model(model, camera_name, n_epochs=10000, lr_schedule=None,
 
     out_directory = os.path.join(out_directory_root, camera_name, model.model_code,
                                  model.scoped_name)
-    if os.path.exists(out_directory) and not resume:
+    if multihost.agree(os.path.exists(out_directory)) and not resume:
         logger.warning('directory %s exists, skipping...', out_directory)
         return out_directory
 
@@ -123,6 +131,9 @@ def train_nip_model(model, camera_name, n_epochs=10000, lr_schedule=None,
         summary_data = jsonlog.load_json(summary_file)
         model.performance = summary_data['performance']
         start_epoch = summary_data['summary']['Epoch']
+
+    if parallel is not None:
+        parallel.distribute(model)
 
     if lr_schedule is None:
         lr_schedule = {0: 1e-4}
@@ -146,10 +157,13 @@ def train_nip_model(model, camera_name, n_epochs=10000, lr_schedule=None,
     training_summary['Discarding policy'] = discard
     training_summary['Output directory'] = out_directory
 
-    print('\n## Training summary')
-    for k, v in training_summary.items():
-        print(f'{k:30s}: {v}')
-    print('', flush=True)
+    if primary:
+        print('\n## Training summary')
+        for k, v in training_summary.items():
+            print(f'{k:30s}: {v}')
+        print('', flush=True)
+    if parallel is not None:
+        logger.info('Training %s', parallel.describe())
     logger.info('Validation figures need matplotlib and are not written')
 
     # on resume, start from the schedule entry in effect at start_epoch
@@ -166,15 +180,18 @@ def train_nip_model(model, camera_name, n_epochs=10000, lr_schedule=None,
     def save_checkpoint(epoch, quiet=True):
         training_summary['Saved checkpoint'] = epoch
         model.save_model(out_directory, epoch, quiet=quiet)
-        torch.save(model.optimizer.state_dict(), os.path.join(out_directory, OPTIMIZER_FILE))
+        if primary:
+            torch.save(model.optimizer.state_dict(), os.path.join(out_directory,
+                                                                  OPTIMIZER_FILE))
 
     if device_data:
         sampler = DeviceSampler(data, batch_size, 2 * patch_size, discard=discard,
-                                device=model.device)
+                                device=model.device, parallel=parallel)
         logger.info('Training from device-resident data (%d images on %s)', sampler.n_images,
                     model.device)
     else:
-        prefetcher = EpochPrefetcher(data, batch_size, 2 * patch_size, model.device, discard)
+        prefetcher = EpochPrefetcher(data, batch_size, 2 * patch_size, model.device, discard,
+                                     parallel=parallel)
 
     epoch = start_epoch
     for epoch in range(start_epoch, n_epochs):
@@ -192,12 +209,14 @@ def train_nip_model(model, camera_name, n_epochs=10000, lr_schedule=None,
             flush_pending()              # waits for the epochs queued before it
             logger.debug('epoch %d: validating', epoch)
             ssims, psnrs, v_losses, _ = validate(model, data, model.loss_metric)
+            ssims, psnrs, v_losses = multihost.agree((ssims, psnrs, v_losses))
             model.log_metric('ssim', 'validation', ssims)
             model.log_metric('psnr', 'validation', psnrs)
             model.log_metric('loss', 'validation', v_losses)
 
             training_summary['Epoch'] = epoch
-            save_progress(model, training_summary, out_directory)
+            if primary:
+                save_progress(model, training_summary, out_directory)
 
             val_losses = model.performance['loss']['validation']
             if not save_best or (len(val_losses) > 2 and val_losses[-1] <= min(val_losses)):
@@ -227,5 +246,6 @@ def train_nip_model(model, camera_name, n_epochs=10000, lr_schedule=None,
     val_losses = model.performance['loss']['validation']
     if not save_best or (val_losses and val_losses[-1] <= min(val_losses)):
         save_checkpoint(epoch, quiet=False)
-    save_progress(model, training_summary, out_directory)
+    if primary:
+        save_progress(model, training_summary, out_directory)
     return out_directory

@@ -47,6 +47,7 @@ from neural_imaging_tpu_torch.models import forensics, jpeg as jpeg_models, pipe
 from neural_imaging_tpu_torch.models.compression import DCN
 from neural_imaging_tpu_torch.ops import manipulations as manips
 from neural_imaging_tpu_torch.ops import ops
+from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
 from neural_imaging_tpu_torch.utils.device import resolve_device
 
 # the reference's class order of the manipulations
@@ -149,6 +150,9 @@ def compare_steps(step, step_ref, max_loss_diff=MAX_STEP_LOSS_DIFF,
 
 
 class ManipulationClassification:
+
+    # the data-parallel context of the steps (``DataParallel.distribute``)
+    parallel = None
 
     def __init__(self, nip_model='INet', manipulations=None, distribution=None,
                  fan_args=None, trainable=None, raw_patch_size=128, loss_metric='L2',
@@ -454,7 +458,13 @@ class ManipulationClassification:
         dtype); None without an awgn branch."""
         if 'awgn' not in self._operations:
             return None
-        return torch.randn(shape, generator=self._generator, device=self.device).to(dtype)
+        mesh = mesh_lib.active()
+        if mesh is None:
+            return torch.randn(shape, generator=self._generator, device=self.device).to(dtype)
+        # a data-parallel step: drawn for the global batch, this rank's rows kept
+        noise = torch.randn((shape[0] * mesh.world_size, *shape[1:]), generator=self._generator,
+                            device=self.device)
+        return mesh_lib.local_rows(noise, shape[0], mesh).to(dtype)
 
     def _downsample(self, batch):
         ds = self._distribution['downsampling']
@@ -518,11 +528,17 @@ class ManipulationClassification:
         return torch.arange(self.n_classes, device=self.device).repeat_interleave(batch_size)
 
     def _losses(self, batch_x, batch_y, q_luma, q_chroma, lambda_nip, lambda_dcn,
-                strength_scalars=None, strength_indices=None, noise=None):
+                strength_scalars=None, strength_indices=None, noise=None, world=1):
         """(loss, {'ce', 'nip', 'dcn'}) of NHWC float batches: RAW ``batch_x``
         and the target RGB ``batch_y`` (or None), and awgn's NHWC ``noise``
         (or None). The loss is the cross-entropy plus λ_nip times the NIP's
-        loss if the NIP trains and λ_dcn times the channel's if it trains."""
+        loss if the NIP trains and λ_dcn times the channel's if it trains.
+
+        With ``world`` > 1 the batches are this rank's rows of a data-parallel
+        step's global batch and each term is the rank's share of the global
+        one, so that the shares sum to it over the ranks: a batch mean over
+        ``world``, a learned codec's L2 sum as it is and its entropy term
+        (the global latent's) over ``world``."""
         batch_Y, batch_c, batch_C, entropy, probs = self._forward(
             batch_x.permute(0, 3, 1, 2), q_luma, q_chroma, strength_scalars, strength_indices,
             None if noise is None else noise.permute(0, 3, 1, 2))
@@ -531,8 +547,18 @@ class ManipulationClassification:
         zero = torch.zeros((), device=probs.device)
         loss_nip = (self.nip.loss(batch_y, batch_Y.permute(0, 2, 3, 1))
                     if batch_y is not None else zero)
-        loss_dcn = (self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32),
-                                    entropy) if self.codec is not None else zero)
+        if isinstance(self.codec, DCN):
+            loss_dcn = self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32),
+                                       entropy if world == 1 else entropy / world)
+        elif self.codec is not None:
+            loss_dcn = self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32),
+                                       entropy)
+        else:
+            loss_dcn = zero
+        if world > 1:
+            loss_ce, loss_nip = loss_ce / world, loss_nip / world
+            if not isinstance(self.codec, DCN):
+                loss_dcn = loss_dcn / world
         loss = loss_ce
         if 'nip' in self._trainable:
             loss = loss + lambda_nip * loss_nip
@@ -607,19 +633,32 @@ class ManipulationClassification:
         gradient}}). ``q_tables`` (luma, chroma) default to the channel's
         fixed quality; the strengths to the fixed ones; awgn's noise (NHWC,
         the developed RGB batch's shape) to a draw from the flow's
-        generator."""
+        generator.
+
+        Under ``parallel`` the batches (and ``noise``) are this rank's rows of
+        the global batch and the results are the global step's: the rank
+        differentiates its share of the global loss (``_losses``), and one
+        all-reduce sums the shares' gradients and values over the ranks."""
         x = self._batch(batch_x)
         y = None if batch_y is None else self._batch(batch_y)
         if noise is not None:
             noise = torch.as_tensor(noise, device=self.device)
-        q_luma, q_chroma = q_tables if q_tables is not None else self._channel_qtables()
-        loss, parts = self._losses(x, y, q_luma, q_chroma, lambda_nip, lambda_dcn,
-                                   strength_scalars, strength_indices, noise)
+        mesh = self.parallel.mesh if self.parallel is not None else None
+        world = 1 if self.parallel is None else self.parallel.n_devices
+        with mesh_lib.batch_reductions(mesh):
+            q_luma, q_chroma = q_tables if q_tables is not None else self._channel_qtables()
+            loss, parts = self._losses(x, y, q_luma, q_chroma, lambda_nip, lambda_dcn,
+                                       strength_scalars, strength_indices, noise, world)
+            grads = torch.autograd.grad(loss, self._train_params, allow_unused=True)
         names = [(part, k) for part, ps in self._train_partition(self._collect_params()).items()
                  for k in ps]
-        grads = torch.autograd.grad(loss, self._train_params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self._train_params, grads)]
+        if self.parallel is not None:
+            keys = sorted(parts)
+            grads, values = self.parallel.reduce(
+                grads, [loss.detach()] + [parts[k].detach() for k in keys])
+            loss, parts = values[0], dict(zip(keys, values[1:]))
         by_part = {}
         for (part, k), g in zip(names, grads):
             by_part.setdefault(part, {})[k] = g
@@ -627,7 +666,12 @@ class ManipulationClassification:
 
     def _step(self, batch_x, batch_y, lambda_nip, lambda_dcn, augment, learning_rate):
         """One joint step; returns (loss, parts, finite), ``finite`` a 0-d bool
-        tensor on the device saying whether every gradient was finite."""
+        tensor on the device saying whether every gradient was finite (under
+        ``parallel``, of the summed gradients: a non-finite gradient of any
+        rank makes the sum non-finite on every rank, so all ranks raise
+        together). The draws are the global batch's: the channel's quality and
+        the strengths are one draw for all rows, awgn's noise is drawn for the
+        global batch (``_awgn_noise``)."""
         q_tables = self._channel_qtables_in_graph()
         scalars, indices = self._sample_strengths_in_graph() if augment else (None, None)
         loss, parts, grads = self.loss_and_gradients(batch_x, batch_y, lambda_nip, lambda_dcn,

@@ -37,6 +37,8 @@ from neural_imaging_tpu_torch.compression import codec
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.models import base, compression
+from neural_imaging_tpu_torch.parallel.mesh import Mesh
+from neural_imaging_tpu_torch.parallel.train import DataParallel
 from neural_imaging_tpu_torch.training import compression as training
 from neural_imaging_tpu_torch.utils import jsonlog
 
@@ -217,15 +219,17 @@ def test_device_resident_augmentations_draw_at_their_rates(data_dir):
 
 def test_resize_augmentation_and_parallel_are_refused(data_dir, tmp_path):
     """The resize is host-only (as in the reference): refused with
-    device-resident data; the parallel trainer is not ported."""
+    device-resident data; the parallel trainer (ported) refuses a batch that
+    does not divide over its ranks."""
     data = Dataset(data_dir, load='y', **SPLIT)
     dcn = compression.TwitterDCN(patch_size=PATCH, n_features=4, device='cpu')
     probs = {'resize': 0.5, 'flip_h': 0.5, 'flip_v': 0.5, 'gamma': 0.5}
     with pytest.raises(ValueError, match='host-only'):
         training.train_dcn(dcn, {**SPEC, 'augmentation_probs': probs}, data,
                            directory=str(tmp_path), device_data=True)
-    with pytest.raises(NotImplementedError, match='item 5'):
-        training.train_dcn(dcn, SPEC, data, directory=str(tmp_path), parallel=object())
+    parallel = DataParallel(Mesh('cpu', world_size=SPEC['batch_size'] + 1))
+    with pytest.raises(ValueError, match='must divide across'):
+        training.train_dcn(dcn, SPEC, data, directory=str(tmp_path), parallel=parallel)
     assert not os.listdir(tmp_path)
 
 
@@ -253,12 +257,36 @@ def test_cli_trains_a_codec(data_dir, tmp_path):
     assert jcodec.restore(str(out)).model_code == 'TwitterDCN-8C/soft-codebook_Q-5bpf_S+_H+250.00'
 
 
-@pytest.mark.parametrize('extra, item', [(['--fill', '-'], 'item 5'),
-                                         (['--devices', 'auto'], 'item 5')],
-                         ids=['fill', 'devices'])
-def test_cli_refuses_what_is_not_ported(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize('extra, error, item', [
+    (['--fill', '-'], NotImplementedError, 'item 5, its tooling half'),
+    (['--devices', str(torch.cuda.device_count() + 1), '--device', 'cuda'], ValueError,
+     f'asks for {torch.cuda.device_count() + 1} CUDA devices')], ids=['fill', 'devices'])
+def test_cli_refuses_what_is_not_ported(tmp_path, extra, error, item):
+    """--fill is not ported; --devices (ported) refuses more cards than the
+    machine has."""
+    with pytest.raises(error, match=item):
         cli.main(['--out', str(tmp_path), '--device', 'cpu', *extra])
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_devices_trains_over_ranks_on_the_cpu(data_dir, tmp_path):
+    """``--devices 2 --device cpu`` starts two CPU ranks over gloo: with
+    device-resident data (whose draws are seeded) the run follows the
+    one-process run within rtol 1e-3, and its files are written once."""
+    args = ['--data', data_dir, '--split', '6:4:2', '--patch', str(PATCH), '--batch',
+            str(BATCH), '--epochs', '2', '--val-schedule', '1', '--params',
+            "{'n_features': 4}", '--device', 'cpu', '--device-data']
+    cli.main([*args, '--out', str(tmp_path / 'single')])
+    cli.main([*args, '--out', str(tmp_path / 'ranks'), '--devices', '2'])
+    run = os.path.join('TwitterDCN-4C', 'soft-codebook_Q-5bpf_S+_H+250.00', 'twitterdcn')
+    a, b = (jsonlog.load_json(tmp_path / root / run / 'progress.json')['codec']['performance']
+            for root in ('ranks', 'single'))
+    for key in ('loss', 'ssim', 'entropy'):
+        for scope in ('training', 'validation'):
+            assert len(a[key][scope]) == len(b[key][scope]) == 2
+            np.testing.assert_allclose(a[key][scope], b[key][scope], rtol=1e-3)
+    assert sorted(os.listdir(tmp_path / 'ranks' / run)) == \
+        sorted(os.listdir(tmp_path / 'single' / run))
 
 
 @pytest.fixture(scope='module')

@@ -50,7 +50,8 @@ def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package()
                  'cli.train_prepare_training_set', 'cli.develop_images',
                  'compression.baseline_jpeg', 'compression.jpeg_helpers',
                  'compression.ratedistortion', 'utils.image', 'cli.test_jpeg', 'cli.test_dcn',
-                 'cli.test_dcn_rate_dist'):
+                 'cli.test_dcn_rate_dist', 'parallel.mesh', 'parallel.multihost',
+                 'parallel.train', 'parallel.launch', 'parallel.spatial'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',

@@ -32,6 +32,8 @@ from neural_imaging_tpu_torch.cli import train_manipulation as manipulation_cli
 from neural_imaging_tpu_torch.cli import train_nip as cli
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.models import base, pipelines
+from neural_imaging_tpu_torch.parallel.mesh import Mesh
+from neural_imaging_tpu_torch.parallel.train import DataParallel
 from neural_imaging_tpu_torch.training import pipeline
 from neural_imaging_tpu_torch.training.pipeline import OPTIMIZER_FILE, train_nip_model
 from neural_imaging_tpu_torch.utils import jsonlog
@@ -213,14 +215,17 @@ def test_lr_backoff_save_best_and_early_stop_match_reference(data_dir, tmp_path,
     assert a['performance']['loss']['validation'] == b['performance']['loss']['validation']
 
 
-@pytest.mark.parametrize('kwargs, error', [({'parallel': object()}, NotImplementedError),
-                                           ({'data': None}, ValueError),
-                                           ({'batch_size': 5}, ValueError)])
+@pytest.mark.parametrize('kwargs, error', [
+    ({'parallel': DataParallel(Mesh('cpu', world_size=BATCH + 1))}, ValueError),
+    ({'data': None}, ValueError),
+    ({'batch_size': 5}, ValueError)])
 def test_trainer_refuses(data_dir, tmp_path, kwargs, error):
+    """A batch that does not divide over the parallel trainer's ranks, no
+    data, a batch larger than the data."""
     spec = dict(data=Dataset(data_dir, **SPLIT), patch_size=PATCH, batch_size=BATCH,
                 out_directory_root=str(tmp_path))
     spec.update(kwargs)
-    with pytest.raises(error, match='item 5' if error is NotImplementedError else ''):
+    with pytest.raises(error, match='must divide across' if 'parallel' in kwargs else None):
         train_nip_model(pipelines.UNet(patch_size=PATCH, device='cpu', **UNET), 'Cam', **spec)
 
 
@@ -292,12 +297,19 @@ def test_cli_dry_prints_the_scenarios(tmp_path, capsys):
     assert not os.path.exists(tmp_path / 'data')
 
 
-@pytest.mark.parametrize('extra', [['--fill', '-'], ['--devices', 'auto'],
-                                   ['--coordinator', 'localhost:1234'], ['--nproc', '2'],
-                                   ['--procid', '0']],
-                         ids=['fill', 'devices', 'coordinator', 'nproc', 'procid'])
-def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match='item 5'):
+@pytest.mark.parametrize('extra, error, item', [
+    (['--fill', '-'], NotImplementedError, 'item 5, its tooling half'),
+    (['--devices', str(torch.cuda.device_count() + 1), '--device', 'cuda'], ValueError,
+     f'asks for {torch.cuda.device_count() + 1} CUDA devices'),
+    (['--coordinator', 'localhost:1234'], ValueError, 'missing --nproc, --procid'),
+    (['--nproc', '2'], ValueError, 'missing --coordinator, --procid'),
+    (['--procid', '0'], ValueError, 'missing --coordinator, --nproc')],
+    ids=['fill', 'devices', 'coordinator', 'nproc', 'procid'])
+def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, extra, error, item):
+    """--fill is not ported; of the parallel flags (ported), more cards than
+    the machine has and a multi-process run without all three of its flags
+    are refused. Nothing is written."""
+    with pytest.raises(error, match=item):
         cli.main(cli_args(data_dir, str(tmp_path), *extra))
     assert not os.path.exists(tmp_path / 'SyntheticCam')
 

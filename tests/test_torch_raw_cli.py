@@ -179,10 +179,22 @@ def test_develop_images_takes_a_model_dir_and_develops_the_whole_stack(raw_dir, 
 
 
 @pytest.mark.parametrize('devices', ['auto', '2'])
-def test_develop_images_refuses_spatial_sharding(devices, raw_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match='item 5'):
+def test_develop_images_refuses_spatial_sharding(devices, raw_dir, tmp_path, monkeypatch):
+    """Spatial sharding (ported): ``--devices`` develops each image in row
+    bands (2 here; 'auto' on the CPU is one band) and matches the root
+    script's ``--devices`` run over the virtual devices (all 8 for 'auto')
+    within ±1; more cards than the machine has are refused, and a
+    non-neural pipeline ignores the flag."""
+    monkeypatch.chdir(ROOT)
+    args = ['--dir', raw_dir, '--pipeline', 'INet', '--cam', 'QualityRef', '--devices', devices]
+    run_reference('develop_images.py', [*args, '--out', str(tmp_path / 'ref')], monkeypatch)
+    written = develop_images.main([*args, '--out', str(tmp_path / 'port'), '--device', 'cpu'])
+    assert len(assert_same_outputs(str(tmp_path / 'port'), str(tmp_path / 'ref'))) == \
+        len(written) == 7
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f'asks for {n} CUDA devices'):
         develop_images.main(['--dir', raw_dir, '--out', str(tmp_path / 'o'), '--pipeline',
-                             'UNet', '--devices', devices, '--device', 'cpu'])
+                             'UNet', '--devices', str(n), '--device', 'cuda'])
     assert not (tmp_path / 'o').exists()
     develop_images.main(['--dir', raw_dir, '--out', str(tmp_path / 'n'), '--pipeline',
                          'manual', '--devices', 'none', '--device', 'cpu'])

@@ -55,6 +55,8 @@ from neural_imaging_tpu.models import pipelines as jpipelines
 from neural_imaging_tpu.training import manipulation as jmanipulation
 from neural_imaging_tpu.training import validation as jvalidation
 from neural_imaging_tpu.workflows import ManipulationClassification as JaxFlow
+from neural_imaging_tpu_torch.parallel.mesh import Mesh
+from neural_imaging_tpu_torch.parallel.train import DataParallel
 from neural_imaging_tpu_torch.cli import train_manipulation as cli
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
@@ -465,13 +467,17 @@ def test_cli_builds_what_the_library_builds(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize('extra, item', [
-    (['--devices', 'auto'], 'item 5'),
-    (['--coordinator', 'localhost:1234'], 'item 5'),
-    (['--nproc', '2'], 'item 5'),
-    (['--procid', '0'], 'item 5'),
+    (['--devices', str(torch.cuda.device_count() + 1), '--device', 'cuda'],
+     f'asks for {torch.cuda.device_count() + 1} CUDA devices'),
+    (['--coordinator', 'localhost:1234'], 'missing --nproc, --procid'),
+    (['--nproc', '2'], 'missing --coordinator, --procid'),
+    (['--procid', '0'], 'missing --coordinator, --nproc'),
 ], ids=['devices', 'coordinator', 'nproc', 'procid'])
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The parallel flags (ported): more cards than the machine has, and a
+    multi-process run without all three of its flags, are refused before
+    anything is written."""
+    with pytest.raises(ValueError, match=item):
         cli.main(cli_args(data_dir, str(tmp_path), *extra))
     assert not os.path.exists(tmp_path / 'SyntheticCam')
 
@@ -521,9 +527,12 @@ def test_cli_takes_the_bf16_flags(data_dir, tmp_path, flag, key):
 
 
 def test_trainer_refuses_the_parallel_trainer():
+    """The parallel trainer (ported) refuses a batch that does not divide
+    over its ranks, before it reads any data."""
     flow = ManipulationClassification('INet', raw_patch_size=PATCH, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 5'):
-        train_manipulation_nip(flow, training_spec('fixed'), None, parallel=object())
+    parallel = DataParallel(Mesh('cpu', world_size=training_spec('fixed')['batch_size'] + 1))
+    with pytest.raises(ValueError, match='must divide across'):
+        train_manipulation_nip(flow, training_spec('fixed'), None, parallel=parallel)
 
 
 def test_device_resident_trainer_on_the_cpu(data_dir, tmp_path, caplog):
