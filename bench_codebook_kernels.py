@@ -56,23 +56,22 @@ def load_baseline(root):
 
 
 def cases(seed, device):
-    """(label, kernel, N, inputs, bytes, instructions) at the DCN paths' shapes."""
+    """(label, kernel, N, inputs, work) at the DCN paths' shapes; ``work`` is
+    one launch's (instructions, bytes)."""
     rng = np.random.default_rng(seed)
     cb = torch.from_numpy(quant.default_codebook(5)).to(device)
-    n_codes = cb.numel()
     out = []
     for n in (chip_smoke.DCN_IMAGE[0] * chip_smoke.DCN_IMAGE[1] // 2,
               chip_smoke.DCN_BATCH * chip_smoke.DCN_PATCH ** 2 // 2):
         z = torch.from_numpy((rng.standard_normal(n) * 4).astype(np.float32)).to(device)
-        out.append((f'codebook_fwd N={n}', 'codebook_fwd', n, (z, cb), 12 * n + 4 * n_codes,
-                    n * (n_codes * chip_smoke.K2_PER_CODE + chip_smoke.K2_PER_VALUE)))
+        out.append((f'codebook_fwd N={n}', 'codebook_fwd', n, (z, cb),
+                    codebook.codebook_fwd_work(z.shape, cb.shape)))
     g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
-    pc = torch.from_numpy(rng.standard_normal(n_codes).astype(np.float32)).to(device)
-    out.append((f'codebook_bwd N={n}', 'codebook_bwd', n, (z, g, cb, pc), 12 * n + 8 * n_codes,
-                n * (n_codes * chip_smoke.K3_PER_CODE + chip_smoke.K3_PER_VALUE)))
+    pc = torch.from_numpy(rng.standard_normal(cb.numel()).astype(np.float32)).to(device)
+    out.append((f'codebook_bwd N={n}', 'codebook_bwd', n, (z, g, cb, pc),
+                codebook.codebook_bwd_work(z.shape, g.shape, cb.shape)))
     out.append((f'codebook_bwd_train N={n}', 'codebook_bwd_train', n, (z, g, cb + 0.05, pc),
-                12 * n + 12 * n_codes,
-                n * (n_codes * chip_smoke.K4_PER_CODE + chip_smoke.K4_PER_VALUE)))
+                codebook.codebook_bwd_train_work(z.shape, g.shape, cb.shape)))
     return out
 
 
@@ -116,8 +115,8 @@ def main():
     versions = {'baseline': load_baseline(args.baseline), 'this': codebook}
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
     results = []
-    for label, kernel, n, inputs, bytes_moved, instructions in cases(args.seed, device):
-        bound_ms, bound_by = chip_smoke.bound(bytes_moved, instructions)
+    for label, kernel, n, inputs, work in cases(args.seed, device):
+        bound_ms, bound_by = chip_smoke.bound(work)
         calls = {name: (lambda m=module: getattr(m, f'{kernel}_cuda')(*inputs))
                  for name, module in versions.items()}
         record = {'case': label, 'n': n, 'bound_ms': bound_ms, 'bound_by': bound_by}

@@ -128,7 +128,17 @@ NVIDIA GPU:
    said so, with one); each QualityRef NIP develops the D90's 1424x2144
    stack in 2 and 4 bands against the whole stack, with each band's peak
    memory;
-16. print one JSON line of the kernels, then the last line
+16. the tooling and results layer: ``[tooling]`` counts the FLOPs and bytes
+   of one m_quality float32 step and one bench.py bfloat16 step
+   (``profiling.step_cost``: K1 by its registered operator's formula) and
+   gives MFU and the HBM share at the training phases' median steps
+   against ``profiling.chip_peaks``, ranks the float32 step's traffic
+   (``op_traffic``), exports UNet_5, the m_quality FAN and 32c with
+   ``deploy_model`` and runs the reloaded programs against the models (the
+   exported 32c launches K2 through its operator), reads
+   ``device_memory_stats``, and runs ``test_nip`` of the QualityRef UNet_5
+   and INet on the card against the CPU;
+17. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -161,6 +171,7 @@ from torch.profiler import ProfilerActivity, profile
 from neural_imaging_tpu_torch.cli import develop_images as develop_cli
 from neural_imaging_tpu_torch.cli import test_dcn as test_dcn_cli
 from neural_imaging_tpu_torch.cli import test_jpeg as test_jpeg_cli
+from neural_imaging_tpu_torch.cli import test_nip as test_nip_cli
 from neural_imaging_tpu_torch.cli import train_prepare_training_set as prepare_cli
 from neural_imaging_tpu_torch.compression import baseline_jpeg, codec, entropy, jpeg_helpers
 from neural_imaging_tpu_torch.compression import ratedistortion as rd
@@ -182,7 +193,7 @@ from neural_imaging_tpu_torch.training import compression as codec_training
 from neural_imaging_tpu_torch.training import validation
 from neural_imaging_tpu_torch.training.manipulation import train_manipulation_nip
 from neural_imaging_tpu_torch.training.pipeline import train_nip_model
-from neural_imaging_tpu_torch.utils import metrics, native
+from neural_imaging_tpu_torch.utils import debugging, metrics, native, profiling
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.utils import logger
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
@@ -318,49 +329,17 @@ TEST_DCN_K2 = {'batch': 9, 'jpeg-match-ssim': 4, 'jpeg-match-bpp': 4, 'rate-dist
 MAX_DJPEG_PSNR_DIFF = 1e-3
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
-# kernel's work is the larger of bytes / memory rate and FLOPs / peak rate.
-HBM_BYTES_PER_S = 3.35e12
+# kernel's work is the larger of bytes / memory rate and operations / peak
+# rate. The work of each launch comes from the kernel's own module
+# (``jpeg8x8.jpeg_core_work``, ``codebook.codebook_*_work``), which
+# ``profiling.step_cost`` counts too: K1's FLOPs, and K2-K4's issued
+# instructions (most of them inside log1pf, the exp and the divisions; see
+# ``ops/hopper/codebook.py``). Each SM issues 128 lanes of instructions a
+# clock (4 schedulers x 32 lanes, whatever the pipe), so the card issues 132
+# SMs x 128 x 1.98 GHz = 33.45 T instructions/s (the 67 TFLOP/s f32 rate, an
+# FMA being 2 FLOP).
+HBM_BYTES_PER_S = profiling.CHIP_PEAKS['h100 80gb hbm3'][1]
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
-# K1 per pixel: 4 passes of 8-term dot products (8 FMA = 16 FLOP each) plus
-# divide, round and multiply
-K1_FLOP_PER_PIXEL = 4 * 16 + 3
-# K2-K4 are bound by issued instructions, most of them inside log1pf, the
-# exp and the divisions. Their costs in SASS instructions on sm_90a, as
-# `sass_costs.py` counts them in the compiled code (common path, nvcc 12.9):
-# the accurate log1pf 24, expf 7 and an IEEE division 10; the exp as
-# ex2.approx of x log2 e 2; a division by the constant v through its
-# reciprocal (two FMAs that round to the IEEE quotient) 3. Any other add,
-# multiply, FMA, compare or select is 1. Each SM issues 128 lanes of
-# instructions a clock (4 schedulers x 32 lanes, whatever the pipe), so the
-# card issues 132 SMs x 128 x 1.98 GHz = 33.45 T instructions/s (the 67
-# TFLOP/s f32 rate, an FMA being 2 FLOP).
-#
-# The bound counts what any implementation of each function must do, not
-# what a design does. The hard index has to agree with the plain version
-# bit for bit, so each log-weight needs the accurate log1pf of the
-# correctly rounded (gamma d)^2 / v, which the reciprocal of v gives in 3.
-# K2's soft value is held to an absolute tolerance (check_forward), which
-# the approximate exp meets; K3's and K4's dz and dcb are held entry by
-# entry to 32 eps of their terms' scale (check_backward), which for a
-# codeword far from every value lies in the subnormal range, where only the
-# accurate expf and IEEE divisions meet it. Per value and codeword: one
-# log-weight lw = coef log1p((gamma d)^2 / v), d = x - c (sub, 2 mul, the
-# division by v, log1p, mul); its max and first argmax (compare, 2 selects);
-# one w~ = exp(lw - max) (sub, exp), the log-weights being kept in registers
-# between the max and the sums; and the accumulations. K3 and K4 also need
-# dlw = dcoef gamma d / (v + t) (add, mul, division).
-LOG1P, EXP, DIV = 24, 7, 10
-EXP_APPROX, DIV_BY_V = 2, 3
-LOGW = 4 + DIV_BY_V + LOG1P
-DLOGW = 2 + DIV
-K2_PER_CODE = LOGW + 3 + 1 + EXP_APPROX + 2     # s += w~, acc += w~ c
-# s, A (FMA), B (mul, FMA), C (FMA)
-K3_PER_CODE = LOGW + 3 + 1 + EXP + DLOGW + 5
-# dcb_j += (gn w~ / s)(1 - dlw (c_j - soft)): mul, sub, 2 FMA
-K4_PER_CODE = K3_PER_CODE + 4
-# per value: soft = acc / s (K2); r = 1 / s, gn = g + pc[best] / N and dz =
-# gn (B - C A r) r (K3: a division and 5); soft = C r and gn r for dcb (K4: 2 more)
-K2_PER_VALUE, K3_PER_VALUE, K4_PER_VALUE = DIV, DIV + 5, DIV + 7
 F32_INSTR_PER_S = 132 * 128 * 1.98e9
 
 
@@ -505,10 +484,9 @@ def check_k1(name, planes, q, reps, flush):
                            device_only=False)
         launch_ms = kernel_ms(lambda: jpeg8x8.jpeg_core_cuda(planes, q), reps, flush)
     p, h, w = planes.shape
-    pixels = p * h * w
-    bytes_moved = 4 * (3 * pixels + q.numel() + 64)      # planes in, y and c out, tables
+    flops, bytes_moved = jpeg8x8.jpeg_core_work(planes.shape, q.shape)
     bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = K1_FLOP_PER_PIXEL * pixels / F32_FLOP_PER_S * 1e3
+    bound_ops_ms = flops / F32_FLOP_PER_S * 1e3
     record = {'shape': name, 'P': p, 'H': h, 'W': w, 'ms': ms, 'plain_ms': plain_ms,
               'launch_ms': launch_ms, 'bound_ms': max(bound_bytes_ms, bound_ops_ms),
               'bound_by': 'bytes' if bound_bytes_ms >= bound_ops_ms else 'operations',
@@ -520,16 +498,18 @@ def check_k1(name, planes, q, reps, flush):
     return record
 
 
-def bound(bytes_moved, instructions):
+def bound(work):
+    """(least ms, 'bytes' or 'operations') of a K2-K4 launch's (instructions, bytes)."""
+    instructions, bytes_moved = work
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = instructions / F32_INSTR_PER_S * 1e3
     return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
 
 
-def timed_record(shape, n, kernel, plain, bytes_moved, instructions, reps, flush, **report):
+def timed_record(shape, n, kernel, plain, work, reps, flush, **report):
     """A kernel's record at one shape: its time and its plain version's, its
-    bound, and the agreement ``report``."""
-    bound_ms, bound_by = bound(bytes_moved, instructions)
+    bound (from its ``work``), and the agreement ``report``."""
+    bound_ms, bound_by = bound(work)
     return {'shape': shape, 'n': n, 'ms': time_ms(kernel, reps, flush),
             'plain_ms': time_ms(plain, reps, flush, device_only=False),
             'launch_ms': kernel_ms(kernel, reps, flush), 'bound_ms': bound_ms,
@@ -546,8 +526,8 @@ def check_codebook(name, n, reps, flush, gen, device, backward=False):
     k2 = codebook.check_forward(soft, hard, *codebook.codebook_fwd_plain(z, cb), cb)
     records = {'codebook_fwd': timed_record(
         name, n, lambda: codebook.codebook_fwd_cuda(z, cb),
-        lambda: codebook.codebook_fwd_plain(z, cb), 12 * n + 4 * n_codes,
-        n * (n_codes * K2_PER_CODE + K2_PER_VALUE), reps, flush,
+        lambda: codebook.codebook_fwd_plain(z, cb), codebook.codebook_fwd_work(z.shape, cb.shape),
+        reps, flush,
         max_abs_err=k2['max_abs_err'], index_flip_share=k2['index_flips'] / n)}
     if backward:
         g = torch.randn(n, generator=gen).to(device)
@@ -557,8 +537,8 @@ def check_codebook(name, n, reps, flush, gen, device, backward=False):
                                      codebook.codebook_bwd_plain(z, g, cb, pc), dz_scale)
         records['codebook_bwd'] = timed_record(
             name, n, lambda: codebook.codebook_bwd_cuda(z, g, cb, pc),
-            lambda: codebook.codebook_bwd_plain(z, g, cb, pc), 12 * n + 8 * n_codes,
-            n * (n_codes * K3_PER_CODE + K3_PER_VALUE), reps, flush, **k3)
+            lambda: codebook.codebook_bwd_plain(z, g, cb, pc),
+            codebook.codebook_bwd_work(z.shape, g.shape, cb.shape), reps, flush, **k3)
         cb_off = cb + 0.05        # non-integer codewords: a nontrivial dcb
         dz, dcb = codebook.codebook_bwd_train_cuda(z, g, cb_off, pc)
         dz_ref, dcb_ref = codebook.codebook_bwd_train_plain(z, g, cb_off, pc)
@@ -567,8 +547,8 @@ def check_codebook(name, n, reps, flush, gen, device, backward=False):
               codebook.check_backward(dcb, dcb_ref, dcb_scale, 'dcb')]
         records['codebook_bwd_train'] = timed_record(
             name, n, lambda: codebook.codebook_bwd_train_cuda(z, g, cb_off, pc),
-            lambda: codebook.codebook_bwd_train_plain(z, g, cb_off, pc), 12 * n + 12 * n_codes,
-            n * (n_codes * K4_PER_CODE + K4_PER_VALUE), reps, flush,
+            lambda: codebook.codebook_bwd_train_plain(z, g, cb_off, pc),
+            codebook.codebook_bwd_train_work(z.shape, g.shape, cb.shape), reps, flush,
             **{key: max(r[key] for r in k4) for key in k4[0]})
     for kernel, r in records.items():
         agreement = (f'index flips {r["index_flip_share"]:.3g}' if 'index_flip_share' in r
@@ -2963,6 +2943,157 @@ def parallel_phase(args, device):
     return counts, rank_counts, single, results
 
 
+# -- the tooling layer ----------------------------------------------------------------------
+
+# the exports: UNet_5 on 20 raw 64-px patches, the m_quality FAN on 20 of
+# its 128-px channel outputs, 32c on a 512x512 image (N = 131,072)
+TOOLING_TEST_NIP = ('UNet', 'INet')   # test_nip of these QualityRef snapshots, card and CPU
+TOOLING_IMAGES = 4
+MAX_EXPORT_DIFF = 1e-5      # an exported program against the model's own forward on the card
+MAX_TEST_NIP_PSNR_DIFF = 1e-3
+DISPATCH_CALLS = 200
+
+
+def dispatch_us(device, calls=DISPATCH_CALLS):
+    """Host microseconds a call of K1's launcher and of its registered
+    operator on one 8x8 block, median of ``calls`` calls each taken in turns
+    (the device's work queued, not waited for)."""
+    planes = torch.zeros((1, 8, 8), device=device)
+    q = torch.ones((1, 8, 8), device=device)
+    times = {'launcher': [], 'operator': []}
+    for _ in range(calls):
+        for name, fn in (('launcher', jpeg8x8.jpeg_core_cuda), ('operator', jpeg8x8.jpeg8x8_op)):
+            t0 = time.perf_counter()
+            fn(planes, q)
+            times[name].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {name: 1e6 * float(np.median(t)) for name, t in times.items()}
+
+
+def tooling_phase(args, device, medians_ms):
+    """The tooling and results layer on the card: ``profiling.step_cost`` and
+    ``utilization`` of the m_quality float32 step and bench.py's bfloat16
+    step (one step each on flows made for it, at the median step times
+    ``medians_ms`` of the training phases), ``op_traffic``'s top 5 of the
+    float32 step, ``deploy_model`` → ``torch.export.load`` of UNet_5, the
+    m_quality FAN and 32c against their own forward (the exported 32c
+    launching K2 through its operator), ``device_memory_stats``, and
+    ``test_nip`` of the QualityRef UNet_5 and INet on the card against the
+    CPU. Returns (launch counts, results)."""
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    f32 = ManipulationClassification.restore(RUN_DIR, RAW_PATCH, trainable={'nip'},
+                                             rng_seed=args.seed, device=device)
+    f32.nan_check = False
+    bf16 = bench_flow(device, args.seed)
+    (bx, by), = training_batches(args.seed + 900, 1, args.batch)
+    results = {'card': smi, 'dispatch_us': dispatch_us(device)}
+    print(f'[tooling] host time a K1 call on one 8x8 block: the launcher '
+          f'{results["dispatch_us"]["launcher"]:.1f} us, its registered operator '
+          f'{results["dispatch_us"]["operator"]:.1f} us', flush=True)
+    torch.cuda.synchronize()
+    zero_counts()
+    for label, flow in (('f32', f32), ('bf16', bf16)):
+        t0 = time.perf_counter()
+        cost = profiling.step_cost(lambda: flow.training_step(bx, by, TRAIN_LAMBDA_NIP,
+                                                              learning_rate=TRAIN_LR))
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+        util = profiling.utilization(cost['flops'], cost['bytes_accessed'],
+                                     medians_ms[label] / 1e3, device)
+        k1_share = cost['flops_by_kernel'].get('jpeg8x8', 0) / cost['flops']
+        results[label] = {**cost, **util, 'median_ms': medians_ms[label], 'k1_flop_share': k1_share,
+                          'counted_s': counted_s}
+        print(f'[tooling] {label} step (batch {args.batch}, raw {RAW_PATCH}): '
+              f'{cost["flops"]:.6g} FLOP, K1 {100 * k1_share:.3f}% of them; '
+              f'{cost["bytes_accessed"]:.6g} bytes; at the median step {medians_ms[label]:.2f} ms: '
+              f'MFU {100 * util["mfu"]:.3f}% of {profiling.chip_peaks(device)[0]:.4g} FLOP/s, '
+              f'HBM {100 * util["hbm_util"]:.2f}% of {profiling.chip_peaks(device)[1]:.4g} B/s; '
+              f'counted in {counted_s:.2f} s; {smi}', flush=True)
+    f32.assert_finite()
+    bf16.assert_finite()
+    top = profiling.op_traffic(lambda: f32.training_step(bx, by, TRAIN_LAMBDA_NIP,
+                                                         learning_rate=TRAIN_LR), top=5)
+    torch.cuda.synchronize()
+    results['f32_top_traffic'] = top
+    print(f'[tooling] f32 step traffic: {top[0]["total_bytes"]:.6g} bytes in '
+          f'{top[0]["n_instructions"]} calls; top 5:', flush=True)
+    for r in top:
+        print(f'[tooling]   {r["bytes"]:>12,d} B  {r["name"]:<28} {r["op_name"]}', flush=True)
+    step_counts = read_counts()
+    expect_counts('tooling: step cost and traffic', step_counts, {'jpeg8x8': 4})
+
+    exports = {}
+    unet = base.restore(str(base.REPO_ROOT / NIP_SNAPSHOTS['UNet']), pipelines, device=device)
+    dcn = codec.restore(DCN_PRESET, device=device)
+    gen = torch.Generator().manual_seed(args.seed + 901)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, model, shape in (
+                ('UNet_5', unet, (NIP_DEVELOP_BATCH, NIP_RAW_PATCH, NIP_RAW_PATCH, 4)),
+                ('fan', f32.fan, (args.batch, 2 * RAW_PATCH // f32.downsampling_factor,
+                                  2 * RAW_PATCH // f32.downsampling_factor, 3)),
+                (DCN_PRESET, dcn, (1, 512, 512, 3))):
+            t0 = time.perf_counter()
+            directory = model.deploy_model(os.path.join(tmp, name), batch_size=shape[0],
+                                           patch_size=shape[1])
+            export_s = time.perf_counter() - t0
+            program = torch.export.load(os.path.join(directory, 'model.pt2'))
+            kernel_ops = sorted({str(n.target) for n in program.graph.nodes
+                                 if 'neural_imaging_tpu_torch' in str(n.target)})
+            x = torch.rand(shape, generator=gen).to(device)
+            torch.cuda.synchronize()
+            before = read_counts()
+            with torch.no_grad():
+                got = program.module()(x)
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+            with torch.no_grad():
+                want = model.serve(x)
+            got, want = ((t,) if torch.is_tensor(t) else tuple(t) for t in (got, want))
+            diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            if not diff <= MAX_EXPORT_DIFF or not all(bool(torch.isfinite(a).all()) for a in got):
+                raise AssertionError(f'exported {name} differs from the model by {diff}')
+            expected = {'codebook_fwd': 1} if name == DCN_PRESET else {}
+            if launched != expected:
+                raise AssertionError(f'exported {name} launched {launched}, expected {expected}')
+            exports[name] = {'input_shape': list(shape), 'export_s': export_s,
+                             'max_abs_diff': diff, 'kernel_ops': kernel_ops, 'launched': launched,
+                             'manifest': json.loads(Path(directory, 'manifest.json').read_text())}
+            print(f'[tooling] deploy {name} {list(shape)}: exported and saved in {export_s:.2f} s; '
+                  f'the reloaded program against the model max |d| {diff:.3g}; kernel operators '
+                  f'{kernel_ops}, launched {launched}', flush=True)
+    results['exports'] = exports
+    stats = debugging.device_memory_stats()
+    card = stats[str(torch.device('cuda', 0))]
+    live = debugging.live_device_arrays()
+    results['memory'] = {'allocated_peak_bytes': card['allocated_bytes.all.peak'],
+                         'reserved_current_bytes': card['reserved_bytes.all.current'],
+                         'live_tensors': live}
+    print(f'[tooling] device_memory_stats: {len(stats)} card(s); peak allocated '
+          f'{card["allocated_bytes.all.peak"] / 2 ** 20:.1f} MiB, reserved '
+          f'{card["reserved_bytes.all.current"] / 2 ** 20:.1f} MiB; live CUDA tensors {live}',
+          flush=True)
+
+    test_nip = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = fixtures.make_dataset(os.path.join(tmp, 'data'), n_images=TOOLING_IMAGES)
+        for nip in TOOLING_TEST_NIP:
+            scores = {dev: test_nip_cli.main(['--model-dir', str(base.REPO_ROOT / NIP_SNAPSHOTS[nip]),
+                                              '--data', data_dir, '--images', str(TOOLING_IMAGES),
+                                              '--device', dev])
+                      for dev in ('cuda', 'cpu')}
+            diff = max(abs(a[0] - b[0]) for a, b in zip(scores['cuda'], scores['cpu']))
+            if len(scores['cuda']) != TOOLING_IMAGES or not diff <= MAX_TEST_NIP_PSNR_DIFF:
+                raise AssertionError(f'test_nip {nip}: card and CPU PSNR differ by {diff} dB')
+            test_nip[nip] = {'psnr_ssim': scores['cuda'], 'cpu_max_psnr_diff_db': diff}
+            print(f'[tooling] test_nip {nip}: PSNR/SSIM {scores["cuda"]}; vs the CPU max |dPSNR| '
+                  f'{diff:.3g} dB (bound {MAX_TEST_NIP_PSNR_DIFF:g})', flush=True)
+    results['test_nip'] = test_nip
+    counts = read_counts()
+    expect_counts('tooling', counts, {'jpeg8x8': 4, 'codebook_fwd': 2})
+    return counts, results
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -3123,7 +3254,12 @@ def main():
     parallel_counts, parallel_rank_counts, _, parallel_results = parallel_phase(args, device)
     print('[parallel] ' + json.dumps(parallel_results), flush=True)
 
-    # 16. results: K1's numbers are its two launches of one m_quality request,
+    # 16. the tooling layer at the training phases' median steps
+    tooling_counts, tooling = tooling_phase(args, device, {
+        'f32': train_main['median_ms'], 'bf16': bf16_train['median_ms']['bf16']})
+    print('[tooling] ' + json.dumps(tooling), flush=True)
+
+    # 17. results: K1's numbers are its two launches of one m_quality request,
     # summed; K2's and K3's are at the DCN flow's shape (N = 409,600), K4's at
     # the DCN training step's
     print('[slice] ' + json.dumps({
@@ -3143,7 +3279,8 @@ def main():
                              + dcn_flow_counts['jpeg8x8']
                              + sum(c['jpeg8x8'] for c in manip7_counts)
                              + codec_eval_counts['jpeg8x8'] + parallel_counts['jpeg8x8']
-                             + sum(c['jpeg8x8'] for c in parallel_rank_counts)),
+                             + sum(c['jpeg8x8'] for c in parallel_rank_counts)
+                             + tooling_counts['jpeg8x8']),
                 'parallel_launches_per_rank': [c['jpeg8x8'] for c in parallel_rank_counts],
                 'max_abs_err': max(r['max_abs_err'] for r in (*k1, k1_dcn_flow, k1_manip7)),
                 'ms': sum(r['ms'] for r in k1),
@@ -3155,7 +3292,7 @@ def main():
     launches = {name: sum(c[name] for c in (serve_counts, fixed_counts, train_counts,
                                             dcn_flow_counts, dcn_trainer_counts,
                                             codec_eval_counts, parallel_counts,
-                                            *parallel_rank_counts))
+                                            tooling_counts, *parallel_rank_counts))
                 for name in ('codebook_fwd', 'codebook_bwd', 'codebook_bwd_train')}
     for name, replaces, shape in (('codebook_fwd', 51, 'dcn flow'),
                                   ('codebook_bwd', 137, 'dcn flow'),

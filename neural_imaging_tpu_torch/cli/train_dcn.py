@@ -14,10 +14,13 @@ JAX CLI's flags: ``--devices n`` starts n ranks on this host, one device
 each (the first n cards, or n CPU processes over gloo with ``--device
 cpu``), rank 0 the primary that writes the files; ``--coordinator
 host:port --nproc n --procid i`` makes this process rank i of n. ``--fill``
-(the results table, which needs pandas) raises ``NotImplementedError``
-naming ROADMAP.md §1 item 5.
+adds a row a scenario (its parameters, the model code and the last
+validation SSIM and loss and training entropy of its ``progress.json``) to a
+results table: ``-`` prints it after the last scenario, a ``*.csv`` path
+writes it (pandas' bytes); anything else is refused before training.
 """
 import argparse
+import os
 import sys
 
 from neural_imaging_tpu_torch.cli.train_nip import get_scenarios, parse_json_arg, parse_split
@@ -26,6 +29,8 @@ from neural_imaging_tpu_torch.models import compression
 from neural_imaging_tpu_torch.parallel import launch, multihost
 from neural_imaging_tpu_torch.parallel import train as ptrain
 from neural_imaging_tpu_torch.training.compression import train_dcn
+from neural_imaging_tpu_torch.utils import jsonlog
+from neural_imaging_tpu_torch.utils.table import Table
 from neural_imaging_tpu_torch.utils.utils import setup_logging
 
 
@@ -48,7 +53,9 @@ def build_parser():
     parser.add_argument('--resume', action='store_true',
                         help='continue a previous run: npz weights, the Adam state '
                              '(adam.pt) and the epoch counter')
-    parser.add_argument('--fill', default=None, help='results table (not ported)')
+    parser.add_argument('--fill', default=None,
+                        help="results table output: '-' prints the scenario table with "
+                             "ssim/loss/entropy columns, '<path>.csv' saves it")
     parser.add_argument('--dry', action='store_true', help='print the scenarios and exit')
     parser.add_argument('--device-data', action='store_true',
                         help='copy the training set to the device once and sample and '
@@ -58,16 +65,10 @@ def build_parser():
     return parser
 
 
-def refuse_unported(args):
-    """Raise NotImplementedError for an option the port does not have yet."""
-    if args.fill is not None:
-        raise NotImplementedError('--fill (the results table, which needs pandas) is not '
-                                  'ported (ROADMAP.md §1 item 5, its tooling half)')
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    if args.fill is not None and args.fill != '-' and not args.fill.endswith('.csv'):
+        raise SystemExit(f"--fill must be '-' or a .csv path, got {args.fill}")
     setup_logging()
     if launch.launch_cli_ranks('neural_imaging_tpu_torch.cli.train_dcn', argv, args, args.batch):
         return
@@ -89,6 +90,7 @@ def _train(args, parallel):
                  else [parse_json_arg(args.params)])
     n_images, v_images, val_n_patches = parse_split(args.split)
     data = None
+    results_rows = []
     for params in scenarios:
         params = {k: v for k, v in params.items() if v == v}  # drop NaN cells
         print(f'\n# Scenario: {args.dcn} {params}')
@@ -103,6 +105,31 @@ def _train(args, parallel):
                         'validation_schedule': args.val_schedule},
                   data, directory=args.out, overwrite=args.overwrite,
                   device_data=args.device_data, resume=args.resume, parallel=parallel)
+        if args.fill is not None:
+            results_rows.append(result_row(args.out, params, dcn))
+
+    if args.fill is not None and results_rows and multihost.is_primary():
+        table = Table(results_rows)
+        if args.fill == '-':
+            print('\n# Training Results')
+            print(table.to_string(index=True))
+        else:
+            print(f'Saving the results table to {args.fill}')
+            table.to_csv(args.fill)
+
+
+def result_row(directory, params, dcn):
+    """A scenario's row of the results table: its parameters, the model code
+    and, where the run wrote its ``progress.json``, the last validation SSIM
+    and loss and the last training entropy."""
+    row = {**params, 'model_code': dcn.model_code}
+    progress = os.path.join(directory, dcn.model_code, dcn.scoped_name, 'progress.json')
+    if os.path.isfile(progress):
+        perf = jsonlog.load_json(progress)['codec']['performance']
+        row['ssim'] = (perf['ssim']['validation'] or [float('nan')])[-1]
+        row['loss'] = (perf['loss']['validation'] or [float('nan')])[-1]
+        row['entropy'] = (perf['entropy']['training'] or [float('nan')])[-1]
+    return row
 
 
 if __name__ == '__main__':

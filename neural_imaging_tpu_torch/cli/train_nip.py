@@ -16,8 +16,9 @@ Data parallelism takes the JAX CLI's flags: ``--devices n`` starts n ranks
 on this host, one device each (the first n cards, or n CPU processes over
 gloo with ``--device cpu``), rank 0 the primary that writes the files;
 ``--coordinator host:port --nproc n --procid i`` makes this process rank i
-of n. ``--fill`` (the results table, which needs pandas) raises
-``NotImplementedError`` naming its item of ROADMAP.md §1.
+of n. ``--fill`` summarizes the trained models under ``--out``
+(``results_data.nip_stats``) instead of training: ``-`` prints the table,
+a ``*.csv`` path writes it (pandas' bytes), anything else is refused.
 """
 import argparse
 import csv
@@ -31,6 +32,7 @@ from neural_imaging_tpu_torch.models import pipelines
 from neural_imaging_tpu_torch.parallel import launch, multihost
 from neural_imaging_tpu_torch.parallel import train as ptrain
 from neural_imaging_tpu_torch.training.pipeline import train_nip_model
+from neural_imaging_tpu_torch.utils import results_data
 from neural_imaging_tpu_torch.utils.utils import match_option, setup_logging
 
 def parse_json_arg(text):
@@ -127,23 +129,31 @@ def build_parser():
                              'there')
     parser.add_argument('--cameras-config', default='config/cameras.json')
     parser.add_argument('-f', '--fill', default=None,
-                        help='summarize trained models (not ported)')
+                        help="summarize trained models: '-' to print, or a CSV path")
     ptrain.add_cli_args(parser)
     parser.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     return parser
 
 
-def refuse_unported(args):
-    """Raise NotImplementedError for an option the port does not have yet."""
-    if args.fill is not None:
-        raise NotImplementedError('--fill (the results table, which needs pandas) is not '
-                                  'ported (ROADMAP.md §1 item 5, its tooling half)')
+def fill(args):
+    """The summary of the trained models under ``--out``: printed for '-',
+    written for a '*.csv' path; returns it."""
+    table = results_data.nip_stats(args.out)
+    if args.fill == '-':
+        print(table.to_string(index=False))
+    elif args.fill.endswith('.csv'):
+        table.to_csv(args.fill)
+        print(f'Saved results to {args.fill}')
+    else:
+        raise ValueError(f'Invalid value for the results file: {args.fill}')
+    return table
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     setup_logging()
+    if args.fill is not None:
+        return fill(args)
     if launch.launch_cli_ranks('neural_imaging_tpu_torch.cli.train_nip', argv, args, args.batch):
         return
     parallel = ptrain.from_cli_args(args, batch_size=args.batch)

@@ -5,9 +5,9 @@ of ``neural_imaging_tpu/compression/ratedistortion.py``.
 
 The columns (image_id, filename, codec, quality, ssim, psnr, msssim_db,
 bytes, bpp) and the fit families (logistic in log-bpp for SSIM, log-quadratic
-for PSNR and MS-SSIM dB) are the reference's. A :class:`Table` stands in for
-its pandas DataFrame and writes and reads the same CSV: each package reads
-the other's cache. The JPEG leg runs libjpeg's codec (the port's own,
+for PSNR and MS-SSIM dB) are the reference's. A :class:`Table`
+(``utils/table.py``) stands in for its pandas DataFrame and writes and reads
+the same CSV: each package reads the other's cache. The JPEG leg runs libjpeg's codec (the port's own,
 ``compression/baseline_jpeg.py``) on the host; the DCN leg restores each
 codec on the caller's device and compresses through K2
 (``codec.simulate_compression``); MS-SSIM runs on that device too. The
@@ -15,7 +15,6 @@ JPEG 2000, BPG, WebP and AVIF legs need OpenCV/OpenJPEG, bpgenc, libwebp or
 libavif and raise ``NotImplementedError``; the plots need matplotlib and are
 not ported (ROADMAP.md §1 item 3).
 """
-import csv
 import math
 import os
 from pathlib import Path
@@ -27,7 +26,7 @@ from scipy.optimize import curve_fit
 from neural_imaging_tpu_torch.compression import codec as codec_mod, jpeg_helpers
 from neural_imaging_tpu_torch.data.png import read_png, write_png
 from neural_imaging_tpu_torch.ops import ssim as ssim_ops
-from neural_imaging_tpu_torch.utils import metrics
+from neural_imaging_tpu_torch.utils import metrics, table
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.utils import logger
 
@@ -35,98 +34,11 @@ RD_COLUMNS = ['image_id', 'filename', 'codec', 'quality', 'ssim', 'psnr',
               'msssim_db', 'bytes', 'bpp']
 
 
-class Table:
-    """Rows of named columns: what the R/D layer uses of a pandas DataFrame.
-    ``table[column]`` is a numpy array; the CSV is pandas' ``to_csv(index=
-    False)`` / ``read_csv`` format (integers as integers, floats by their
-    shortest repr, NaN as an empty field)."""
+class Table(table.Table):
+    """The shared table (``utils/table.py``) with the R/D columns by default."""
 
     def __init__(self, rows=(), columns=RD_COLUMNS):
-        self.columns = list(columns)
-        self.rows = [{c: row.get(c, math.nan) for c in self.columns} for row in rows]
-
-    def __len__(self):
-        return len(self.rows)
-
-    def __contains__(self, column):
-        return column in self.columns
-
-    @property
-    def empty(self):
-        return not self.rows
-
-    def __getitem__(self, column):
-        if column not in self.columns:
-            raise KeyError(column)
-        return np.array([row[column] for row in self.rows])
-
-    def unique(self, column):
-        """The column's distinct values in their order of appearance."""
-        return list(dict.fromkeys(row[column] for row in self.rows))
-
-    def where(self, mask):
-        return Table([row for row, keep in zip(self.rows, mask) if keep], self.columns)
-
-    def dropna(self, subset):
-        return Table([row for row in self.rows if not any(_is_nan(row[c]) for c in subset)],
-                     self.columns)
-
-    def groupby(self, column):
-        """[(key, Table)] by ascending key, rows with a NaN key dropped (pandas' groupby)."""
-        groups = {}
-        for row in self.rows:
-            if not _is_nan(row[column]):
-                groups.setdefault(row[column], []).append(row)
-        return [(key, Table(groups[key], self.columns)) for key in sorted(groups)]
-
-    def to_csv(self, path):
-        with open(path, 'w', newline='') as f:
-            writer = csv.writer(f, lineterminator='\n')
-            writer.writerow(self.columns)
-            for row in self.rows:
-                writer.writerow([_format(row[c]) for c in self.columns])
-
-    @classmethod
-    def read_csv(cls, path):
-        with open(path, newline='') as f:
-            reader = csv.reader(f)
-            columns = next(reader)
-            cells = list(reader)
-        values = [_parse_column([r[i] for r in cells]) for i in range(len(columns))]
-        return cls([dict(zip(columns, row)) for row in zip(*values)] if cells else (), columns)
-
-    def to_string(self):
-        """The rows as aligned text, as pandas' ``to_string(index=False)`` lays them out."""
-        cells = [self.columns] + [[_format(row[c]) or 'NaN' for c in self.columns]
-                                  for row in self.rows]
-        widths = [max(len(r[i]) for r in cells) for i in range(len(self.columns))]
-        return '\n'.join(' '.join(v.rjust(w) for v, w in zip(r, widths)) for r in cells)
-
-
-def _is_nan(value):
-    return isinstance(value, (float, np.floating)) and math.isnan(value)
-
-
-def _format(value):
-    if isinstance(value, (int, np.integer)):
-        return str(int(value))
-    if isinstance(value, (float, np.floating)):
-        return '' if math.isnan(value) else repr(float(value))
-    return str(value)
-
-
-def _parse_column(cells):
-    """A CSV column's values typed as pandas infers them: all integers → int,
-    all numbers or empty → float (empty = NaN), else the strings."""
-    try:
-        if all(c != '' for c in cells):
-            return [int(c) for c in cells]
-    except ValueError:
-        pass
-    try:
-        return [math.nan if c == '' else float(c) for c in cells]
-    except ValueError:
-        return cells
+        super().__init__(rows, columns)
 
 
 def _sweep_files(directory, files=None):

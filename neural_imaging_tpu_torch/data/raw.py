@@ -407,3 +407,9 @@ def process_auto(filename, device='cuda'):
     """The reference's development without rawpy: ``process`` with no
     brightness correction, as uint8 numpy (h, w, 3)."""
     return to_uint8(process(filename, brightness=None, device=device))
+
+
+# Re-export the Bayer helpers under the reference's module-level names.
+stack_bayer = bayer.stack_bayer
+simulate_bayer = bayer.simulate_bayer
+merge_bayer = bayer.merge_bayer

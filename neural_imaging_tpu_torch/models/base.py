@@ -10,6 +10,11 @@ how weights trained by the JAX package are carried into the port, and
 that the JAX package loads.
 :func:`restore` builds a model from a training directory or a preset name,
 as the JAX package's ``models.base.restore`` does.
+
+:class:`TorchModel` has the JAX shell's helpers: the parameter breakdown,
+weight migration under a name mapping, a table of the module tree and the
+export for serving (``deploy_model``: ``torch.export`` of the model's
+forward, where the JAX package lowers its ``_apply`` to StableHLO).
 """
 import ast
 import json
@@ -25,6 +30,7 @@ from neural_imaging_tpu_torch.parallel import multihost
 from neural_imaging_tpu_torch.utils import utils
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
+from neural_imaging_tpu_torch.utils.table import Table
 from neural_imaging_tpu_torch.utils.utils import logger
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -159,6 +165,20 @@ def transposed_kernels(module):
                      if isinstance(m, nn.ConvTranspose2d))
 
 
+class _Serving(nn.Module):
+    """A model's serving function as a module: ``model.serve`` on an NHWC
+    batch, with the model's core as a submodule so that an export lifts its
+    weights."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.core = model.module
+        self._serve = model.serve
+
+    def forward(self, x):
+        return self._serve(x)
+
+
 class TorchModel:
     """Shell around an ``nn.Module`` core: device placement, naming, the
     history of metrics (``performance``) and checkpoints in the JAX
@@ -231,6 +251,16 @@ class TorchModel:
     def count_parameters(self):
         return sum(p.numel() for p in self.module.parameters())
 
+    def count_parameters_breakdown(self):
+        """Table (name, shape, parameters, total) of the parameters under
+        their flax names and shapes, in the JAX package's order; ``total`` is
+        the percentage of all parameters, rounded to 0.1."""
+        total = max(self.count_parameters(), 1)
+        rows = [{'name': name, 'shape': tuple(v.shape), 'parameters': int(np.prod(v.shape)),
+                 'total': round(100 * np.prod(v.shape) / total, 1)}
+                for name, v in self.checkpoint().items()]
+        return Table(rows, ['name', 'shape', 'parameters', 'total'])
+
     def checkpoint(self):
         """{flax path: float32 array} of the weights, as ``save_model`` writes them."""
         return flax_params(self.module.named_parameters(), transposed_kernels(self.module))
@@ -266,3 +296,109 @@ class TorchModel:
         self.module.load_state_dict(convert_params(load_flax_npz(filename),
                                                    transposed_kernels(self.module)), strict=True)
         self.reset_performance_stats()
+
+    def migrate_model(self, dirname, mapping=None, verbose=False):
+        """Load weights from a checkpoint with other parameter names: the npz
+        of ``<dirname>[/<scoped name>]`` in the JAX package's format, each
+        parameter (by flax name) from ``mapping[name]`` or its own name;
+        a parameter with no source keeps its value (with a warning), a
+        shape that differs raises ValueError. Resets the metric history and
+        the optimizer."""
+        if not dirname.endswith(self.scoped_name):
+            dirname = os.path.join(dirname, self.scoped_name)
+        filename = os.path.join(dirname, f'{self.class_name.lower()}.npz')
+        old = load_flax_npz(filename)
+        if verbose:
+            logger.info('# Variables found in the checkpoint: %s', filename)
+            for i, (name, arr) in enumerate(old.items()):
+                logger.info('%3d.  %-60s -> %s', i, name, arr.shape)
+        flat = self.checkpoint()
+        for new_name, value in flat.items():
+            source = (mapping or {}).get(new_name, new_name if new_name in old else None)
+            if source is None or source not in old:
+                logger.warning('mapping for %s not found', new_name)
+                continue
+            if old[source].shape != value.shape:
+                raise ValueError(f'{new_name}: shape mismatch {old[source].shape} vs {value.shape}')
+            flat[new_name] = old[source]
+            if verbose:
+                logger.info('%s <- %s %s', new_name, source, old[source].shape)
+        self.module.load_state_dict(convert_params(flat, transposed_kernels(self.module)),
+                                    strict=True)
+        if hasattr(self, 'init_optimizer'):
+            self.init_optimizer()
+        self.reset_performance_stats()
+
+    # -- serving ---------------------------------------------------------------------
+
+    def serve(self, x):
+        """What the JAX model's ``_apply`` returns for an NHWC float32 batch:
+        the core's output, NHWC. Models whose ``_apply`` returns more
+        override it."""
+        return self.module(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def _dummy_input(self, batch_size, patch_size):
+        p = patch_size or self.patch_size or 64
+        channels = getattr(self, 'in_channels', 3)
+        return torch.zeros((batch_size, p, p, channels), dtype=torch.float32,
+                           device=self.device)
+
+    def show_model(self, patch_size=None, batch_size=1):
+        """Table (module, type, output shape, parameters) of the module tree,
+        from forward hooks on one call of :meth:`serve` with a zero batch of
+        ``patch_size`` (default: the model's, else 64) in the model's input
+        channels, in the order the modules return, the core last with what
+        ``serve`` returns; parameters count each module's own and its
+        children's.
+        flax's ``tabulate``, which the JAX package returns, has no counterpart
+        in PyTorch."""
+        rows, hooks = [], []
+
+        def record(name):
+            def hook(module, args, output):
+                shapes = [tuple(t.shape) for t in
+                          (output if isinstance(output, (tuple, list)) else (output,))
+                          if torch.is_tensor(t)]
+                rows.append({'module': name or type(module).__name__,
+                             'type': type(module).__name__,
+                             'output shape': shapes[0] if len(shapes) == 1 else tuple(shapes),
+                             'parameters': sum(p.numel() for p in module.parameters())})
+            return hook
+
+        for name, module in self.module.named_modules():
+            if name:
+                hooks.append(module.register_forward_hook(record(name)))
+        try:
+            with torch.no_grad():
+                out = self.serve(self._dummy_input(batch_size, patch_size))
+        finally:
+            for h in hooks:
+                h.remove()
+        record('')(self.module, (), out)          # the core, with what ``serve`` returns
+        return Table(rows, ['module', 'type', 'output shape', 'parameters'])
+
+    def deploy_model(self, dirname, batch_size=1, patch_size=None):
+        """Export the serving function for deployment: ``torch.export`` of
+        :meth:`serve` on a zero batch (batch_size, p, p, channels) float32 on
+        the model's device, saved as ``<dirname>/model.pt2``
+        (``torch.export.load`` reads it), the weights and hyper-parameters
+        (``save_model(save_args=True)``) and ``manifest.json``. On a card the
+        program calls the hand-written kernels through their registered
+        operators (``ops/hopper/registry.py``); on the CPU their plain
+        versions are traced into it. Returns ``dirname``."""
+        os.makedirs(dirname, exist_ok=True)
+        dummy = self._dummy_input(batch_size, patch_size)
+        with torch.no_grad():
+            program = torch.export.export(_Serving(self), (dummy,), strict=False)
+        torch.export.save(program, os.path.join(dirname, 'model.pt2'))
+        self.save_model(dirname, save_args=True, quiet=True)
+        manifest = {
+            'model': self.class_name,
+            'input_shape': list(dummy.shape),
+            'input_dtype': 'float32',
+            'args': self.get_hyperparameters(),
+            'format': 'torch.export + npz weights',
+        }
+        with open(os.path.join(dirname, 'manifest.json'), 'w') as f:
+            json.dump(manifest, f, indent=4)
+        return dirname

@@ -221,6 +221,18 @@ class DCN(TorchModel):
         with torch.no_grad():
             return self.module.decoder(self._nchw(batch_z)).permute(0, 2, 3, 1)
 
+    def checkpoint(self):
+        """The weights in the JAX package's order: the encoder's and the
+        decoder's, then ``latent_scale`` and ``codebook``."""
+        flat = super().checkpoint()
+        return {**{k: v for k, v in flat.items() if '/' in k},
+                **{k: v for k, v in flat.items() if '/' not in k}}
+
+    def serve(self, x):
+        """The JAX model's ``_apply``: (decoded NHWC batch, latent entropy)."""
+        y, entropy = self._apply(x.permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1), entropy
+
     def process(self, batch_x, return_entropy=False):
         with torch.no_grad():
             y, entropy = self._apply(self._nchw(batch_x))

@@ -13,6 +13,13 @@ float32) and are cast to bfloat16 for each use; each conv and matrix product
 sums in float32 and rounds its result to bfloat16, and only then is the
 bfloat16 bias added (one more rounding); activations and max-pools run in
 bfloat16, and the softmax takes the logits in float32.
+
+Dropout (flax's ``nn.Dropout``) follows each dense layer's activation in
+training only, in the FAN's own :meth:`FAN.training_step`: each value is
+kept with probability 1 − rate and scaled by 1 / (1 − rate), or zeroed. The
+masks come from the FAN's ``torch.Generator`` or from the caller (flax's and
+torch's random streams differ). The joint manipulation-classification step
+runs the FAN without dropout, as the reference's does.
 """
 import numpy as np
 import torch
@@ -84,7 +91,7 @@ class FANCore(nn.Module):
 
     def __init__(self, n_classes=7, n_filters=32, n_fscale=2.0, n_convolutions=4,
                  kernel=5, use_gap=False, n_dense=2, activation='leaky_relu',
-                 patch_size=None, seed=0, dtype=torch.float32, stem='separate'):
+                 patch_size=None, seed=0, dtype=torch.float32, stem='separate', dropout=0.0):
         super().__init__()
         if not use_gap and patch_size is None:
             raise ValueError('FAN without GAP needs patch_size to size its first dense layer')
@@ -95,6 +102,7 @@ class FANCore(nn.Module):
         self.use_gap = use_gap
         self.n_convolutions = n_convolutions
         self.n_dense = n_dense
+        self.dropout = dropout
         self.compute_dtype = dtype
         self.stem = stem
         self.constrained = ConstrainedConv(dtype=dtype)
@@ -146,7 +154,18 @@ class FANCore(nn.Module):
         h = (h.to(torch.float32) + self.conv0.bias[:, None, None]).to(self.compute_dtype)
         return ops.max_pool(self.act(h), 2)
 
-    def forward(self, x):
+    def dropout_shapes(self, batch):
+        """The shapes of the dropout masks of a batch: one per dense layer."""
+        return [(batch, getattr(self, f'dense{i}').out_features) for i in range(self.n_dense)]
+
+    def _dropout(self, h, mask):
+        keep = 1.0 - self.dropout
+        return torch.where(mask, h / ops.scalar(keep, h.dtype, h.device), torch.zeros_like(h))
+
+    def forward(self, x, dropout_masks=None):
+        """Class probabilities of an NCHW batch; with ``dropout_masks`` (one
+        boolean mask a dense layer, ``dropout_shapes``) dropout is applied
+        after each dense layer."""
         if self.stem == 'fused':
             h, start = self._fused_stem(x), 1
         else:
@@ -161,6 +180,8 @@ class FANCore(nn.Module):
             h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)   # flax's flatten order
         for i in range(self.n_dense):
             h = self.act(self._dense(getattr(self, f'dense{i}'), h))
+            if dropout_masks is not None and self.dropout > 0:
+                h = self._dropout(h, dropout_masks[i])
         return torch.softmax(self._dense(self.head, h).to(torch.float32), dim=-1)
 
 
@@ -170,14 +191,16 @@ def sparse_categorical_crossentropy(labels, probabilities):
     return -torch.log(p.gather(-1, labels.long()[:, None])[:, 0]).mean()
 
 
+# the seed of the FAN's dropout masks, as the reference seeds its dropout key
+DROPOUT_SEED = 17
+
+
 class FAN(TorchModel):
     """Forensic analysis network (float32 or bfloat16, separate or fused stem).
 
-    ``dropout`` is accepted, as checkpoints record it, but never applied: the
-    reference applies it only in the FAN's own ``training_step``, which is
-    not ported, while the joint manipulation-classification step runs the
-    FAN deterministically (its ``_fan_apply`` calls the FAN with
-    ``train=False``)."""
+    ``dropout`` applies only in :meth:`training_step`, as in the reference,
+    whose joint manipulation-classification step calls the FAN with
+    ``train=False``."""
 
     def __init__(self, n_classes, patch_size=None, n_filters=32, n_fscale=2,
                  n_convolutions=4, kernel=5, dropout=0.0, use_gap=True, n_dense=0,
@@ -207,8 +230,16 @@ class FAN(TorchModel):
                                  n_fscale=n_fscale, n_convolutions=n_convolutions,
                                  kernel=kernel, use_gap=use_gap, n_dense=n_dense,
                                  activation=activation, patch_size=patch_size, seed=seed,
-                                 dtype=DTYPES[dtype], stem=stem),
+                                 dtype=DTYPES[dtype], stem=stem, dropout=dropout),
                          device)
+        self._dropout_generator = None
+        self.init_optimizer()
+
+    def init_optimizer(self):
+        """(Re)start Adam (optax's ``scale_by_adam`` defaults) of
+        :meth:`training_step`; the learning rate is set at each step."""
+        self.optimizer = torch.optim.Adam(self.module.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                                          eps=1e-8)
 
     def loss(self, target_labels, class_probabilities):
         """Cross-entropy of the probabilities against integer labels."""
@@ -223,6 +254,41 @@ class FAN(TorchModel):
         x = x if x.dtype == torch.bfloat16 else x.to(torch.float32)
         with torch.no_grad():
             return self.module(x.permute(0, 3, 1, 2))
+
+    def serve(self, x):
+        """The JAX model's ``_apply``: class probabilities of an NHWC batch."""
+        return self.module(x.permute(0, 3, 1, 2))
+
+    def training_step(self, batch_x, target_labels, learning_rate=None, dropout_mask=None):
+        """One Adam step of the FAN alone on an NHWC image batch and its
+        integer labels, with dropout (``dropout`` > 0) after each dense layer:
+        the masks ``dropout_mask`` (one boolean (batch, features) array a
+        dense layer) or, without them, fresh ones from the FAN's generator
+        (seeded ``DROPOUT_SEED``). Returns the cross-entropy, a 0-d tensor on
+        the device, from the forward pass before the update."""
+        x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device).permute(0, 3, 1, 2)
+        labels = torch.as_tensor(np.asarray(target_labels), device=self.device)
+        masks = None
+        if self._h.dropout > 0:
+            if dropout_mask is not None:
+                masks = [torch.as_tensor(np.array(m, dtype=bool), device=self.device)
+                         for m in dropout_mask]
+            else:
+                if self._dropout_generator is None:
+                    self._dropout_generator = torch.Generator(self.device).manual_seed(
+                        DROPOUT_SEED)
+                keep = 1.0 - self._h.dropout
+                masks = [torch.rand(shape, generator=self._dropout_generator,
+                                    device=self.device) < keep
+                         for shape in self.module.dropout_shapes(x.shape[0])]
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(labels, self.module(x, dropout_masks=masks))
+        loss.backward()
+        for group in self.optimizer.param_groups:
+            group['lr'] = 1e-4 if learning_rate is None else float(learning_rate)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        return loss.detach()
 
     def process_and_decide(self, batch_x, with_confidence=False):
         """Predicted class of each image (numpy), and with ``with_confidence``

@@ -19,11 +19,17 @@ plain PyTorch, for the tests.
 
 All three are CUDA C++ (``csrc/codebook.cu``, built for sm_90a by
 ``_build``). Each has a plain PyTorch version with the same arithmetic, a
-codeword loop over (N,) tensors (``*_plain``), and a dispatcher that takes
-the plain version for a CPU tensor and the kernel for a CUDA tensor.
+codeword loop over (N,) tensors (``*_plain``), a registered operator
+(``torch.ops.neural_imaging_tpu_torch.codebook_fwd``, ``codebook_bwd``,
+``codebook_bwd_train``: ``registry``) that launches it, a work function
+(``*_work``: one launch's instructions and bytes, which bound it) and a
+dispatcher that takes the plain version for a CPU tensor and the operator
+for a CUDA tensor.
 
 Around them, in plain PyTorch as in the reference: the per-codeword counts
-(``torch.bincount`` of the hard indices), the O(L²) entropy epilogue (the
+(a fixed-size ``index_add_`` of the hard indices, ``bincount``'s counts
+with a size that does not depend on the data, as ``torch.export`` needs),
+the O(L²) entropy epilogue (the
 histogram of the quantized latent is (counts / N) @ W_cc, with W_cc the
 weights of the codewords against each other), and the two VJPs of the
 reference's ``jax.custom_vjp``s as ``torch.autograd.Function``s.
@@ -38,6 +44,7 @@ import functools
 import torch
 
 from neural_imaging_tpu_torch.ops import quantization as quant
+from neural_imaging_tpu_torch.ops.hopper import registry
 from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
 
 LIBRARY = 'codebook'
@@ -62,6 +69,61 @@ def _library():
 
 
 TRAIN_BLOCKS_PER_SM = 2       # K4's grid cap, kTrainBlocksPerSM: few rows of dcb sums
+
+# The kernels' work, by which they are bounded. K2-K4 are bound by issued
+# instructions, most of them inside log1pf, the exp and the divisions. Their
+# costs in SASS instructions on sm_90a, as `sass_costs.py` counts them in the
+# compiled code (common path, nvcc 12.9): the accurate log1pf 24, expf 7 and
+# an IEEE division 10; the exp as ex2.approx of x log2 e 2; a division by the
+# constant v through its reciprocal (two FMAs that round to the IEEE
+# quotient) 3. Any other add, multiply, FMA, compare or select is 1.
+#
+# The count is what any implementation of each function must do, not what a
+# design does. The hard index has to agree with the plain version bit for
+# bit, so each log-weight needs the accurate log1pf of the correctly rounded
+# (gamma d)^2 / v, which the reciprocal of v gives in 3. K2's soft value is
+# held to an absolute tolerance (check_forward), which the approximate exp
+# meets; K3's and K4's dz and dcb are held entry by entry to 32 eps of their
+# terms' scale (check_backward), which for a codeword far from every value
+# lies in the subnormal range, where only the accurate expf and IEEE
+# divisions meet it. Per value and codeword: one log-weight lw = coef
+# log1p((gamma d)^2 / v), d = x - c (sub, 2 mul, the division by v, log1p,
+# mul); its max and first argmax (compare, 2 selects); one w~ = exp(lw - max)
+# (sub, exp), the log-weights being kept in registers between the max and the
+# sums; and the accumulations. K3 and K4 also need dlw = dcoef gamma d / (v +
+# t) (add, mul, division).
+LOG1P, EXP, DIV = 24, 7, 10
+EXP_APPROX, DIV_BY_V = 2, 3
+LOGW = 4 + DIV_BY_V + LOG1P
+DLOGW = 2 + DIV
+K2_PER_CODE = LOGW + 3 + 1 + EXP_APPROX + 2     # s += w~, acc += w~ c
+# s, A (FMA), B (mul, FMA), C (FMA)
+K3_PER_CODE = LOGW + 3 + 1 + EXP + DLOGW + 5
+# dcb_j += (gn w~ / s)(1 - dlw (c_j - soft)): mul, sub, 2 FMA
+K4_PER_CODE = K3_PER_CODE + 4
+# per value: soft = acc / s (K2); r = 1 / s, gn = g + pc[best] / N and dz =
+# gn (B - C A r) r (K3: a division and 5); soft = C r and gn r for dcb (K4: 2 more)
+K2_PER_VALUE, K3_PER_VALUE, K4_PER_VALUE = DIV, DIV + 5, DIV + 7
+
+
+def codebook_fwd_work(z_shape, codebook_shape, *_):
+    """(instructions, bytes) of one K2 launch: N values read, soft and hard
+    written, the codebook read (4 bytes each)."""
+    n, n_codes = z_shape[0], codebook_shape[0]
+    return n * (n_codes * K2_PER_CODE + K2_PER_VALUE), 12 * n + 4 * n_codes
+
+
+def codebook_bwd_work(z_shape, g_shape, codebook_shape, *_):
+    """(instructions, bytes) of one K3 launch: z and g read, dz written, the
+    codebook and the per-codeword term read."""
+    n, n_codes = z_shape[0], codebook_shape[0]
+    return n * (n_codes * K3_PER_CODE + K3_PER_VALUE), 12 * n + 8 * n_codes
+
+
+def codebook_bwd_train_work(z_shape, g_shape, codebook_shape, *_):
+    """(instructions, bytes) of one K4 launch: K3's, and dcb written."""
+    n, n_codes = z_shape[0], codebook_shape[0]
+    return n * (n_codes * K4_PER_CODE + K4_PER_VALUE), 12 * n + 12 * n_codes
 
 
 def _grid_blocks(n):
@@ -213,11 +275,24 @@ def codebook_fwd_plain(z, codebook, v=50.0, gamma=25.0):
     return acc / s, best
 
 
+def _fwd_launch(z: torch.Tensor, codebook: torch.Tensor, v: float,
+                gamma: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return codebook_fwd_cuda(z, codebook, v, gamma)
+
+
+def _fwd_fake(z, codebook, v, gamma):
+    _check(z, codebook)
+    return torch.empty_like(z), torch.empty(z.shape, dtype=torch.int32, device=z.device)
+
+
+codebook_fwd_op = registry.register('codebook_fwd', _fwd_launch, _fwd_fake, codebook_fwd_work)
+
+
 def codebook_fwd(z, codebook, v=50.0, gamma=25.0):
-    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
+    """K2 on a CUDA tensor (its operator), its plain version on a CPU tensor."""
     if z.device.type == 'cpu':
         return codebook_fwd_plain(z, codebook, v, gamma)
-    return codebook_fwd_cuda(z, codebook, v, gamma)
+    return codebook_fwd_op(z, codebook, float(v), float(gamma))
 
 
 # -- K3 ---------------------------------------------------------------------------
@@ -259,11 +334,24 @@ def codebook_bwd_plain(z, g, codebook, per_codeword, v=50.0, gamma=25.0):
     return _dz_plain(z, g, codebook, per_codeword, v, gamma)[0]
 
 
+def _bwd_launch(z: torch.Tensor, g: torch.Tensor, codebook: torch.Tensor,
+                per_codeword: torch.Tensor, v: float, gamma: float) -> torch.Tensor:
+    return codebook_bwd_cuda(z, g, codebook, per_codeword, v, gamma)
+
+
+def _bwd_fake(z, g, codebook, per_codeword, v, gamma):
+    _check(z, codebook, g, per_codeword)
+    return torch.empty_like(z)
+
+
+codebook_bwd_op = registry.register('codebook_bwd', _bwd_launch, _bwd_fake, codebook_bwd_work)
+
+
 def codebook_bwd(z, g, codebook, per_codeword, v=50.0, gamma=25.0):
-    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
+    """K3 on a CUDA tensor (its operator), its plain version on a CPU tensor."""
     if z.device.type == 'cpu':
         return codebook_bwd_plain(z, g, codebook, per_codeword, v, gamma)
-    return codebook_bwd_cuda(z, g, codebook, per_codeword, v, gamma)
+    return codebook_bwd_op(z, g, codebook, per_codeword, float(v), float(gamma))
 
 
 # -- K4 ---------------------------------------------------------------------------
@@ -306,11 +394,26 @@ def codebook_bwd_train_plain(z, g, codebook, per_codeword, v=50.0, gamma=25.0):
     return dz, torch.stack(dcb)
 
 
+def _bwd_train_launch(z: torch.Tensor, g: torch.Tensor, codebook: torch.Tensor,
+                      per_codeword: torch.Tensor, v: float,
+                      gamma: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return codebook_bwd_train_cuda(z, g, codebook, per_codeword, v, gamma)
+
+
+def _bwd_train_fake(z, g, codebook, per_codeword, v, gamma):
+    _check(z, codebook, g, per_codeword)
+    return torch.empty_like(z), torch.empty_like(codebook)
+
+
+codebook_bwd_train_op = registry.register('codebook_bwd_train', _bwd_train_launch,
+                                          _bwd_train_fake, codebook_bwd_train_work)
+
+
 def codebook_bwd_train(z, g, codebook, per_codeword, v=50.0, gamma=25.0):
-    """K4 on a CUDA tensor, its plain version on a CPU tensor."""
+    """K4 on a CUDA tensor (its operator), its plain version on a CPU tensor."""
     if z.device.type == 'cpu':
         return codebook_bwd_train_plain(z, g, codebook, per_codeword, v, gamma)
-    return codebook_bwd_train_cuda(z, g, codebook, per_codeword, v, gamma)
+    return codebook_bwd_train_op(z, g, codebook, per_codeword, float(v), float(gamma))
 
 
 # -- O(L²) epilogues and the VJPs ---------------------------------------------------
@@ -351,7 +454,9 @@ def _forward(z, codebook, v, gamma):
     divided by the global N. Outside one, the global counts are the counts."""
     z_flat = z.reshape(-1).to(torch.float32).contiguous()
     soft, hard_idx = codebook_fwd(z_flat, codebook, v, gamma)
-    counts = torch.bincount(hard_idx, minlength=codebook.numel()).to(torch.float32)
+    counts = torch.zeros(codebook.numel(), dtype=torch.int64, device=z_flat.device).index_add_(
+        0, hard_idx.long(), torch.ones(hard_idx.shape, dtype=torch.int64,
+                                       device=z_flat.device)).to(torch.float32)
     n_global, counts_global = z_flat.numel(), counts
     mesh = mesh_lib.active()
     if mesh is not None:

@@ -10,9 +10,12 @@ multiply back → inverse DCT.
   dct2d → round → idct2d). The CPU takes it; the GPU checks compare the
   kernel with it.
 - :func:`jpeg_core` dispatches on the tensor's device (CPU → plain, CUDA →
-  kernel, nothing else) and is differentiable: its backward mirrors the
-  reference's XLA VJP ``_bwd`` (the soft-rounding derivative 1 − cos 2πu),
-  in plain PyTorch, as the reference's backward is not a kernel either.
+  kernel, through the registered operator
+  ``torch.ops.neural_imaging_tpu_torch.jpeg8x8``, nothing else) and is
+  differentiable: its backward mirrors the reference's XLA VJP ``_bwd`` (the
+  soft-rounding derivative 1 − cos 2πu), in plain PyTorch, as the
+  reference's backward is not a kernel either.
+- :func:`jpeg_core_work` is one launch's work, which bounds the kernel.
 """
 import ctypes
 import functools
@@ -21,8 +24,12 @@ import math
 import torch
 
 from neural_imaging_tpu_torch.ops import dct as dct_ops
+from neural_imaging_tpu_torch.ops.hopper import registry
 
 LIBRARY = 'jpeg8x8'
+# per pixel: 4 passes of 8-term dot products (8 FMA = 16 FLOP each) plus the
+# divide, round and multiply
+K1_FLOP_PER_PIXEL = 4 * 16 + 3
 
 
 @functools.lru_cache()
@@ -77,6 +84,27 @@ def jpeg_core_cuda(planes, q_tables):
 jpeg_core_cuda.launches = 0
 
 
+def jpeg_core_work(planes_shape, q_tables_shape=None):
+    """(FLOPs, bytes) of one launch on planes of shape (P, H, W): the
+    transform's arithmetic, and the planes read once, y and c written once,
+    the P q-tables and the DCT matrix read once (float32)."""
+    p, h, w = planes_shape
+    pixels = p * h * w
+    return K1_FLOP_PER_PIXEL * pixels, 4 * (3 * pixels + 64 * p + 64)
+
+
+def _launch(planes: torch.Tensor, q_tables: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return jpeg_core_cuda(planes, q_tables)
+
+
+def _fake(planes, q_tables):
+    _check(planes, q_tables)
+    return torch.empty_like(planes), torch.empty_like(planes)
+
+
+jpeg8x8_op = registry.register(LIBRARY, _launch, _fake, jpeg_core_work)
+
+
 def jpeg_core_plain(planes, q_tables):
     """K1's math in plain PyTorch; same arguments and results as
     :func:`jpeg_core_cuda`, on any device."""
@@ -108,7 +136,7 @@ class _JpegCore(torch.autograd.Function):
         ctx.save_for_backward(planes, q_tables)
         if planes.device.type == 'cpu':
             return jpeg_core_plain(planes, q_tables)
-        return jpeg_core_cuda(planes, q_tables)
+        return jpeg8x8_op(planes, q_tables)
 
     @staticmethod
     def backward(ctx, g_y, g_c):

@@ -31,7 +31,7 @@ def default_backend(device):
     return 'gloo' if torch.device(device).type == 'cpu' else 'nccl'
 
 
-def initialize(coordinator_address=None, num_processes=None, process_id=None, device='cpu',
+def initialize(coordinator_address=None, num_processes=None, process_id=None, device='cuda',
                backend=None, timeout_s=DEFAULT_TIMEOUT_S):
     """Join the process group of ``num_processes`` ranks at
     ``coordinator_address`` ('host:port', served by rank 0) as rank

@@ -27,7 +27,6 @@ seed) and keeps its rows, the entropy is the global latent's, and the
 summed gradients keep the ranks identical. Every rank validates the same
 data and takes rank 0's metrics; only the primary writes files.
 """
-import json
 import os
 from collections import deque
 
@@ -40,6 +39,7 @@ from neural_imaging_tpu_torch.models.compression import AUGMENTATION_PROBS, GAMM
 from neural_imaging_tpu_torch.parallel import multihost
 from neural_imaging_tpu_torch.utils import jsonlog, metrics, stats
 from neural_imaging_tpu_torch.utils.image import resize_area
+from neural_imaging_tpu_torch.utils.profiling import ScalarLog
 from neural_imaging_tpu_torch.utils.utils import logger
 
 # the Adam state a validation point writes beside the npz, for resume
@@ -218,7 +218,7 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
     if primary:
         os.makedirs(out_dir, exist_ok=True)
     logger.info('Output directory: %s', out_dir)
-    scalars_file = os.path.join(out_dir, 'scalars.jsonl')
+    scalars = ScalarLog(os.path.join(out_dir, 'scalars.jsonl')) if primary else None
     pending = []     # one {loss, ssim, entropy, scaling} (on the device), lr and epoch an epoch
 
     def flush_pending():
@@ -229,14 +229,9 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
         for p, (loss, ssim, entropy, scaling) in zip(pending, host):
             for key, value in (('loss', loss), ('ssim', ssim), ('entropy', entropy)):
                 perf[key]['training'].append(float(value))
-            if not primary:
-                continue
-            with open(scalars_file, 'a') as f:
-                f.write(json.dumps({'step': p['epoch'], 'loss': float(loss),
-                                    'ssim': float(ssim), 'entropy': float(entropy),
-                                    'lr': p['lr'],
-                                    'scaling': 0.0 if np.isnan(scaling) else float(scaling)})
-                        + '\n')
+            if scalars is not None:
+                scalars.log(p['epoch'], loss=loss, ssim=ssim, entropy=entropy, lr=p['lr'],
+                            scaling=0.0 if np.isnan(scaling) else scaling)
         pending.clear()
 
     def save_state(epoch, quiet=True):
@@ -291,5 +286,7 @@ def train_dcn(dcn, training, data, directory='./data/models/dcn/playground/',
                     break
 
     flush_pending()
+    if scalars is not None:
+        scalars.close()
     save_state(training.get('current_epoch', 0), quiet=False)
     return out_dir

@@ -37,6 +37,7 @@ codec in bfloat16 through the plane form at 'default' precision.
 """
 import json
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -48,6 +49,7 @@ from neural_imaging_tpu_torch.models.compression import DCN
 from neural_imaging_tpu_torch.ops import manipulations as manips
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
+from neural_imaging_tpu_torch.utils import runtime
 from neural_imaging_tpu_torch.utils.device import resolve_device
 
 # the reference's class order of the manipulations
@@ -725,14 +727,24 @@ class ManipulationClassification:
             self._finite_flags.append(finite)
         return torch.stack(losses), torch.stack(nip_losses)
 
-    def assert_finite(self):
+    def assert_finite(self, timeout_s=None):
         """The deferred NaN check of the steps run with ``nan_check`` False:
-        one device→host copy for all of them."""
+        one device→host copy for all of them.
+
+        ``timeout_s`` bounds that copy (``runtime.fetch_with_timeout``): past
+        it the check is skipped with a warning instead of blocking on a
+        stalled device."""
         if not self._finite_flags:
             return
-        flags = torch.stack(self._finite_flags)
+        flags = torch.stack(self._finite_flags).all()
         self._finite_flags = []
-        if not bool(flags.all()):
+        if timeout_s is not None:
+            flags = runtime.fetch_with_timeout(flags, timeout_s)
+            if flags is None:
+                warnings.warn('assert_finite: device→host transfer timed out; '
+                              'NaN check skipped (downlink stalled)')
+                return
+        if not bool(flags):
             raise RuntimeError('∇ NaNs encountered in a joint training step')
 
     # -- public API -------------------------------------------------------------------

@@ -2,7 +2,8 @@
 """
 How many instructions the math functions of the codebook kernels (K2-K4,
 ``neural_imaging_tpu_torch/csrc/codebook.cu``) cost on sm_90a, counted in the
-compiled code. ``chip_smoke.py`` builds the kernels' bounds from these counts.
+compiled code. ``neural_imaging_tpu_torch/ops/hopper/codebook.py`` builds the kernels'
+work (``codebook_*_work``), on which ``chip_smoke.py`` bounds them, from these counts.
 
 Each probe kernel below writes ``f(a) + b`` for one function ``f``: the
 accurate ``log1pf``, ``expf`` and the IEEE division, and the forms that K2

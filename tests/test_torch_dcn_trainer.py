@@ -258,12 +258,13 @@ def test_cli_trains_a_codec(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize('extra, error, item', [
-    (['--fill', '-'], NotImplementedError, 'item 5, its tooling half'),
+    (['--fill', 'results.txt'], SystemExit, "--fill must be '-' or a .csv path"),
     (['--devices', str(torch.cuda.device_count() + 1), '--device', 'cuda'], ValueError,
      f'asks for {torch.cuda.device_count() + 1} CUDA devices')], ids=['fill', 'devices'])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, error, item):
-    """--fill is not ported; --devices (ported) refuses more cards than the
-    machine has."""
+    """--fill with a file that is not a CSV is refused before training, as
+    the reference refuses it; --devices refuses more cards than the machine
+    has."""
     with pytest.raises(error, match=item):
         cli.main(['--out', str(tmp_path), '--device', 'cpu', *extra])
     assert not os.listdir(tmp_path)

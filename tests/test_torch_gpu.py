@@ -564,3 +564,52 @@ def test_dcn_leg_on_the_card_matches_the_cpu(cuda, tmp_path):
     np.testing.assert_allclose(card['ssim'].astype(float), cpu['ssim'].astype(float),
                                rtol=0, atol=1e-5)
     assert np.abs(card['bytes'] - cpu['bytes']).max() <= 0.01 * cpu['bytes'].max()
+
+
+@pytest.mark.parametrize('kernel', ['jpeg8x8', 'codebook_fwd', 'codebook_bwd',
+                                    'codebook_bwd_train'])
+def test_registered_operators_launch_the_kernels(cuda, kernel):
+    """Each kernel's operator launches it once (its counter) and gives the
+    launcher's results; FlopCounterMode and the byte counter see it with
+    its work."""
+    from neural_imaging_tpu_torch.ops.hopper import registry
+    from neural_imaging_tpu_torch.utils import profiling
+    if kernel == 'jpeg8x8':
+        args, launcher = inputs(3, 3, 16, 24, 50, cuda), jpeg8x8.jpeg_core_cuda
+    else:
+        z, g, cb, pc = codebook_inputs(4, 777, 5, cuda)
+        launcher = getattr(codebook, f'{kernel}_cuda')
+        args = (z, cb) if kernel == 'codebook_fwd' else (z, g, cb, pc)
+    op, work = registry.OPS[kernel]
+    full = (*args, 50.0, 25.0) if kernel != 'jpeg8x8' else args
+    before = launcher.launches
+    got = op(*full)
+    want = launcher(*full)
+    torch.cuda.synchronize()
+    assert launcher.launches == before + 2
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+    cost = profiling.step_cost(lambda: op(*full))
+    shapes = [a.shape for a in args]
+    assert cost['flops_by_kernel'] == {kernel: work(*shapes)[0]}
+    assert cost['bytes_accessed'] == work(*shapes)[1]
+
+
+def test_exported_dcn_launches_k2_on_the_card(cuda, tmp_path):
+    """deploy_model of the 32c codec on the card: the program holds K2's
+    operator, reloads, launches K2 once a call and gives the model's output."""
+    from neural_imaging_tpu_torch.compression import codec
+    dcn = codec.restore('32c', device=cuda)
+    dcn.deploy_model(str(tmp_path / 'dcn'), batch_size=1, patch_size=128)
+    program = torch.export.load(str(tmp_path / 'dcn' / 'model.pt2'))
+    assert any('codebook_fwd' in str(n.target) for n in program.graph.nodes)
+    x = torch.rand((1, 128, 128, 3), generator=torch.Generator().manual_seed(5)).to(cuda)
+    before = codebook.codebook_fwd_cuda.launches
+    with torch.no_grad():
+        y, entropy = program.module()(x)
+    torch.cuda.synchronize()
+    assert codebook.codebook_fwd_cuda.launches == before + 1
+    with torch.no_grad():
+        y_ref, entropy_ref = dcn.serve(x)
+    assert float((y - y_ref).abs().max()) <= 1e-5 and float(abs(entropy - entropy_ref)) <= 1e-5

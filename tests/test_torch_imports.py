@@ -12,8 +12,9 @@ import pytest
 import torch
 
 import neural_imaging_tpu_torch
-from neural_imaging_tpu_torch.cli import (test_dcn, test_dcn_rate_dist, test_fan, test_jpeg,
-                                          train_dcn, train_manipulation, train_nip)
+from neural_imaging_tpu_torch.cli import (diff_nip, test_dcn, test_dcn_rate_dist, test_fan,
+                                          test_jpeg, test_nip, train_dcn, train_manipulation,
+                                          train_nip)
 from neural_imaging_tpu_torch.compression import codec, ratedistortion
 from neural_imaging_tpu_torch.data import fixtures
 from neural_imaging_tpu_torch.data.dataset import Dataset
@@ -51,7 +52,10 @@ def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package()
                  'compression.baseline_jpeg', 'compression.jpeg_helpers',
                  'compression.ratedistortion', 'utils.image', 'cli.test_jpeg', 'cli.test_dcn',
                  'cli.test_dcn_rate_dist', 'parallel.mesh', 'parallel.multihost',
-                 'parallel.train', 'parallel.launch', 'parallel.spatial'):
+                 'parallel.train', 'parallel.launch', 'parallel.spatial', 'ops.hopper.registry',
+                 'utils.profiling', 'utils.debugging', 'utils.runtime', 'utils.stats',
+                 'utils.table', 'cli.test_nip', 'cli.diff_nip', 'cli.summarize_nip',
+                 'cli.results'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',
@@ -116,7 +120,7 @@ def test_cpu_is_taken_only_when_asked():
 
 @pytest.mark.parametrize('entry', ['sampler', 'cli', 'nip_cli', 'dcn_cli', 'dcn_channel_cli',
                                    'test_fan_cli', 'test_jpeg_cli', 'test_dcn_cli',
-                                   'test_dcn_rate_dist_cli'])
+                                   'test_dcn_rate_dist_cli', 'test_nip_cli', 'diff_nip_cli'])
 def test_trainer_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_path,
                                                                     monkeypatch):
     data_dir = fixtures.make_dataset(str(tmp_path / 'data'), n_images=2, height=64, width=96)
@@ -145,6 +149,12 @@ def test_trainer_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_p
                            str(tmp_path / 'out')])
         elif entry == 'test_dcn_rate_dist_cli':
             test_dcn_rate_dist.main(['--data', data_dir, '--out', str(tmp_path / 'out')])
+        elif entry == 'test_nip_cli':
+            test_nip.main(['--nip', 'INet', '--data', data_dir, '--images', '1', '--patch', '16',
+                           '--out', str(tmp_path / 'out')])
+        elif entry == 'diff_nip_cli':
+            diff_nip.main(['--a', 'INet', '--data', data_dir, '--patch', '16', '--out',
+                           str(tmp_path / 'out')])
         else:
             test_fan.main(['--run-dir', os.path.join(ROOT, 'data/m_quality/QualityRef/INet/'
                                                      'fixed-nip/fixed-codec/000'),

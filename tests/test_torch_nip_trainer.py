@@ -298,7 +298,7 @@ def test_cli_dry_prints_the_scenarios(tmp_path, capsys):
 
 
 @pytest.mark.parametrize('extra, error, item', [
-    (['--fill', '-'], NotImplementedError, 'item 5, its tooling half'),
+    (['--fill', 'summary.txt'], ValueError, 'Invalid value for the results file'),
     (['--devices', str(torch.cuda.device_count() + 1), '--device', 'cuda'], ValueError,
      f'asks for {torch.cuda.device_count() + 1} CUDA devices'),
     (['--coordinator', 'localhost:1234'], ValueError, 'missing --nproc, --procid'),
@@ -306,9 +306,10 @@ def test_cli_dry_prints_the_scenarios(tmp_path, capsys):
     (['--procid', '0'], ValueError, 'missing --coordinator, --nproc')],
     ids=['fill', 'devices', 'coordinator', 'nproc', 'procid'])
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, extra, error, item):
-    """--fill is not ported; of the parallel flags (ported), more cards than
-    the machine has and a multi-process run without all three of its flags
-    are refused. Nothing is written."""
+    """--fill with a file that is not a CSV is refused, as the reference
+    refuses it; of the parallel flags, more cards than the machine has and a
+    multi-process run without all three of its flags are refused. Nothing is
+    written."""
     with pytest.raises(error, match=item):
         cli.main(cli_args(data_dir, str(tmp_path), *extra))
     assert not os.path.exists(tmp_path / 'SyntheticCam')

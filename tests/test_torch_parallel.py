@@ -417,7 +417,7 @@ def test_pad_batch_to_devices(as_tensor):
 
 
 def test_multihost_single_process_no_ops():
-    assert multihost.initialize() is False
+    assert multihost.initialize(device='cpu') is False
     assert multihost.is_primary() and multihost.process_count() == 1
     assert multihost.process_index() == 0
     assert multihost.local_batch_slice(8) == (0, 8)
@@ -426,7 +426,7 @@ def test_multihost_single_process_no_ops():
     assert multihost.agree(marker) is marker
     assert multihost.global_mesh('cpu').world_size == 1
     with pytest.raises(ValueError, match='missing --nproc, --procid'):
-        multihost.initialize('127.0.0.1:1234')
+        multihost.initialize('127.0.0.1:1234', device='cpu')
 
 
 def test_primary_only():
