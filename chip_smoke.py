@@ -112,7 +112,17 @@ NVIDIA GPU:
    recomputation and the CPU's 32c, the cache, each codec's fits; the CLIs
    ``test_jpeg`` at its defaults (K1 once a quality, 18) and ``test_dcn`` in
    its four modes on 32c; ``validate_jpeg`` with the libjpeg codec;
-15. data parallelism and development in bands: ``[parallel]`` takes the
+15. the last rate-distortion legs and the image readers: ``[codec legs]``
+   prints which codec libraries load (libopenjp2, libwebp, libavif, libx265,
+   libde265, the bpgenc/bpgdec binaries) and runs each leg whose library
+   loads at the reference's full quality range on [codec eval]'s images
+   (JPEG 2000 PSNR 25-45 dB on 2 of them, BPG q 15-45, WebP and AVIF 10-95):
+   the rows, one re-encoded to the same bytes, its MS-SSIM on the card
+   against the CPU, the cache, the fits; HEVC intra at QP 28; a 12 MP PNG
+   with rows of all five filters read by the compiled unfilter and the plain
+   one; 8-, 24- and 32-bit BMPs read back exactly; ``test_dcn_rate_dist``
+   with every leg and the shipped DCNs on the 2 images, K2 once a DCN row;
+16. data parallelism and development in bands: ``[parallel]`` takes the
    four steps (the m_quality joint step at batch 20 raw 128; the
    m_quality_dcn lc-0.1000 flow at batch 10; the 32c DCN with a trainable
    codebook at 16 x 128²; UNet_5 at batch 20 raw 64) in one process at the
@@ -128,7 +138,7 @@ NVIDIA GPU:
    said so, with one); each QualityRef NIP develops the D90's 1424x2144
    stack in 2 and 4 bands against the whole stack, with each band's peak
    memory;
-16. the tooling and results layer: ``[tooling]`` counts the FLOPs and bytes
+17. the tooling and results layer: ``[tooling]`` counts the FLOPs and bytes
    of one m_quality float32 step and one bench.py bfloat16 step
    (``profiling.step_cost``: K1 by its registered operator's formula) and
    gives MFU and the HBM share at the training phases' median steps
@@ -138,7 +148,7 @@ NVIDIA GPU:
    exported 32c launches K2 through its operator), reads
    ``device_memory_stats``, and runs ``test_nip`` of the QualityRef UNet_5
    and INet on the card against the CPU;
-17. print one JSON line of the kernels, then the last line
+18. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -156,10 +166,12 @@ import logging
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -170,13 +182,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from neural_imaging_tpu_torch.cli import develop_images as develop_cli
 from neural_imaging_tpu_torch.cli import test_dcn as test_dcn_cli
+from neural_imaging_tpu_torch.cli import test_dcn_rate_dist as rate_dist_cli
 from neural_imaging_tpu_torch.cli import test_jpeg as test_jpeg_cli
 from neural_imaging_tpu_torch.cli import test_nip as test_nip_cli
 from neural_imaging_tpu_torch.cli import train_prepare_training_set as prepare_cli
-from neural_imaging_tpu_torch.compression import baseline_jpeg, codec, entropy, jpeg_helpers
+from neural_imaging_tpu_torch.compression import (avif, baseline_jpeg, bpg_helpers, codec, entropy,
+                                                  hevc, jp2_helpers, jpeg_helpers, webp)
 from neural_imaging_tpu_torch.compression import ratedistortion as rd
-from neural_imaging_tpu_torch.data import (bayer, camera_raw, dng, fixtures, ljpeg, menon, nikon,
-                                           png, raw, sony)
+from neural_imaging_tpu_torch.data import (bayer, bmp, camera_raw, dng, fixtures, ljpeg, menon,
+                                           nikon, png, raw, sony)
 from neural_imaging_tpu_torch.data.dataset import Dataset
 from neural_imaging_tpu_torch.data.device_sampler import DeviceSampler
 from neural_imaging_tpu_torch.data.prefetch import EpochPrefetcher
@@ -327,6 +341,20 @@ TEST_DCN_K2 = {'batch': 9, 'jpeg-match-ssim': 4, 'jpeg-match-bpp': 4, 'rate-dist
 # test_jpeg's dJPEG PSNR on the card against the CPU's (K1 against its plain
 # version: a few coefficients on rounding ties)
 MAX_DJPEG_PSNR_DIFF = 1e-3
+
+# the last rate-distortion legs, on the host codecs of the system's libraries:
+# (leg, codec, sweep, the library it needs, the reference's qualities). Each runs
+# on [codec eval]'s images at its full quality range, JPEG 2000 on the first 2
+# of them (its PSNR bisection encodes a row ~8 times); the evaluation CLI then
+# runs on those 2 with the shipped DCNs, K2 once a DCN row
+CODEC_LEGS = (('JPEG 2000', 'jpeg2000', rd.get_jpeg2k_df, 'libopenjp2', tuple(range(25, 46))),
+              ('BPG', 'bpg', rd.get_bpg_df, 'bpgenc/bpgdec', range(15, 48, 3)),
+              ('WebP', 'webp', rd.get_webp_df, 'libwebp', range(10, 96, 5)),
+              ('AVIF', 'avif', rd.get_avif_df, 'libavif', range(10, 96, 5)))
+JP2_IMAGES = 2
+HEVC_QP = 28
+# the PNG reader: a 12 MP RGB image whose rows cycle through the five filters
+UNFILTER_SHAPE = (3000, 4000)
 
 # H100 SXM data sheet (dense, at the 700 W limit): the least time for a
 # kernel's work is the larger of bytes / memory rate and operations / peak
@@ -2565,6 +2593,266 @@ def codec_eval_phase(args, device, flush):
     return totals, results
 
 
+# -- the last rate-distortion legs and the image readers ----------------------------------
+
+def png_write_filtered(path, image, kinds):
+    """Write an (h, w, c) uint8 image as an 8-bit PNG whose row y is filtered
+    with ``kinds[y]`` (0-4: None, Sub, Up, Average, Paeth), the encoder's side
+    of the filters in numpy."""
+    h, _, bpp = image.shape
+    x = image.reshape(h, -1).astype(np.int16)
+    left, up, upleft = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    left[:, bpp:], up[1:], upleft[1:, bpp:] = x[:, :-bpp], x[:-1], x[:-1, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    kinds = np.asarray(kinds)
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])[kinds, np.arange(h)]
+    data = np.concatenate([kinds[:, None], (x - pred) % 256], axis=1).astype(np.uint8)
+    header = struct.pack('>IIBBBBB', image.shape[1], h, 8, {3: 2, 4: 6}[bpp], 0, 0, 0)
+    with open(path, 'wb') as f:
+        f.write(png.SIGNATURE + png._chunk(b'IHDR', header)
+                + png._chunk(b'IDAT', zlib.compress(data.tobytes(), 1)) + png._chunk(b'IEND', b''))
+
+
+def unfilter_check(tmp, seed):
+    """A 12 MP RGB PNG with rows of all five filters read by ``read_png`` (the
+    compiled unfilter) and its IDAT undone by the plain Python version: the
+    same pixels, and the image itself. Returns its times."""
+    h, w = UNFILTER_SHAPE
+    rng = np.random.default_rng(seed)
+    smooth = np.cumsum(rng.integers(-4, 5, (h, w, 3)), axis=1) + np.arange(h)[:, None, None] // 12
+    image = (smooth + rng.integers(0, 4, (h, w, 3))).astype(np.uint8)
+    path = os.path.join(tmp, 'filters.png')
+    t0 = time.perf_counter()
+    png_write_filtered(path, image, np.arange(h) % 5)
+    write_s = time.perf_counter() - t0
+    built_before = png.library_path().exists()
+    t0 = time.perf_counter()
+    png.library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pixels = png.read_png(path)
+    read_s = time.perf_counter() - t0
+    with open(path, 'rb') as f:
+        chunks = dict(png._chunks(f.read()))
+    raw = zlib.decompress(chunks[b'IDAT'])
+    t0 = time.perf_counter()
+    native_rows = png.unfilter(raw, h, 3 * w, 3)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_rows = png._unfilter(raw, h, 3 * w, 3)
+    plain_s = time.perf_counter() - t0
+    if not (np.array_equal(native_rows, plain_rows) and np.array_equal(pixels, image)):
+        raise AssertionError('the compiled PNG unfilter differs from the plain version')
+    record = {'shape': [h, w, 3], 'library': png.library_path().name,
+              'built_before': built_before, 'build_s': build_s, 'write_s': write_s,
+              'read_png_s': read_s, 'unfilter_native_s': native_s, 'unfilter_plain_s': plain_s}
+    print(f'[codec legs] PNG {w}x{h} RGB, rows cycling None/Sub/Up/Average/Paeth: read_png '
+          f'{read_s:.3f} s (zlib and the compiled unfilter {png.library_path().name}, '
+          + ('built earlier' if built_before else f'built in {build_s:.2f} s')
+          + f'); the unfilter alone {1e3 * native_s:.1f} ms compiled, {plain_s:.2f} s plain '
+          f'Python, the same bytes', flush=True)
+    return record
+
+
+def bmp_check(tmp, image):
+    """The image as BMP in 8-bit palette, 24-bit and 32-bit form (an odd width,
+    so padded rows), written here and read back exactly by ``read_bmp``."""
+    h, w = image.shape[0] - 1, image.shape[1] - 3
+    rgb = np.ascontiguousarray(image[:h, :w])
+    rng = np.random.default_rng(7)
+    palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    index = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    forms = {8: (index, palette[index]), 24: (rgb[..., ::-1], rgb),
+             32: (np.concatenate([rgb[..., ::-1], np.full((h, w, 1), 255, np.uint8)], -1),
+                  rgb)}
+    times = {}
+    for bits, (pixels, want) in forms.items():
+        stride = (w * bits + 31) // 32 * 4
+        rows = np.zeros((h, stride), np.uint8)
+        rows[:, :w * bits // 8] = pixels.reshape(h, -1)
+        table = (np.concatenate([palette[:, ::-1], np.zeros((256, 1), np.uint8)], 1).tobytes()
+                 if bits == 8 else b'')
+        offset = 54 + len(table)
+        info = struct.pack('<IiiHHIIiiII', 40, w, h, 1, bits, 0, rows.size, 2835, 2835,
+                           256 if bits == 8 else 0, 0)
+        path = os.path.join(tmp, f'image{bits}.bmp')
+        with open(path, 'wb') as f:
+            f.write(b'BM' + struct.pack('<IHHI', offset + rows.size, 0, 0, offset) + info
+                    + table + rows[::-1].tobytes())
+        t0 = time.perf_counter()
+        got = bmp.read_bmp(path)
+        times[bits] = time.perf_counter() - t0
+        if got.dtype != np.uint8 or not np.array_equal(got, want):
+            raise AssertionError(f'read_bmp of the {bits}-bit BMP differs from what was written')
+    print(f'[codec legs] BMP {w}x{h} read back exactly: ' + ', '.join(
+        f'{bits}-bit {1e3 * t:.1f} ms' for bits, t in times.items()), flush=True)
+    return {'shape': [h, w], 'read_ms': {str(k): 1e3 * v for k, v in times.items()}}
+
+
+def leg_round_trip(codec_name, image, quality):
+    """One row's codec work on an (h, w, 3) float image, as its sweep does it:
+    (decoded float image, the bytes the row counts)."""
+    u8 = (image * 255).round().astype(np.uint8)
+    if codec_name == 'jpeg2000':
+        buf, decoded = jp2_helpers.encode_jp2(u8, psnr_target=float(quality))
+        return decoded, jp2_helpers.jp2_payload_bytes(buf)
+    if codec_name == 'bpg':
+        decoded, bpp = bpg_helpers.roundtrip(image, quality)
+        return decoded, int(bpp * image.shape[0] * image.shape[1] / 8)
+    module, kw = {'webp': (webp, {}), 'avif': (avif, {'speed': 6})}[codec_name]
+    buf = module.encode(u8, int(quality), **kw)
+    return module.decode(buf).astype(np.float32) / 255.0, len(buf)
+
+
+def msssim(db):
+    return 1.0 - 10.0 ** (-db / 10.0)
+
+
+def codec_leg(leg, codec_name, sweep, qualities, directory, n_images, device):
+    """One leg's sweep at its full quality range, checked: the rows, a row
+    re-encoded to the same bytes, its MS-SSIM on the card against the CPU, the
+    cache, the fits. Returns its record."""
+    zero_counts()
+    t0 = time.perf_counter()
+    table = sweep(directory, qualities=qualities, device=device)
+    sweep_s = time.perf_counter() - t0
+    expect_counts(f'[codec legs] {leg}', read_counts(), {})
+    check_rd_table(leg, table, n_images * len(qualities), [codec_name])
+    quality = qualities[len(qualities) // 2]
+    row = next(r for r in table.rows if r['image_id'] == 0 and r['quality'] == quality)
+    image0 = png.read_png(os.path.join(directory, row['filename'])).astype(np.float32) / 255
+    t0 = time.perf_counter()
+    decoded, nbytes = leg_round_trip(codec_name, image0, quality)
+    codec_s = time.perf_counter() - t0
+    if nbytes != row['bytes']:
+        raise AssertionError(f'{leg}: a re-encoded row counts {nbytes} bytes, the sweep {row}')
+    msssim_cpu = rd._msssim_db(image0, decoded, 'cpu')
+    if abs(msssim(msssim_cpu) - msssim(row['msssim_db'])) > MAX_DCN_SSIM_DIFF:
+        raise AssertionError(f'{leg}: MS-SSIM {row["msssim_db"]} dB on the card, {msssim_cpu} '
+                             'dB on the CPU')
+    t0 = time.perf_counter()
+    rd._row(0, row['filename'], codec_name, quality, image0, decoded, nbytes, device)
+    metrics_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cached = sweep(directory, qualities=qualities, device=device)
+    cache_s = time.perf_counter() - t0
+    if cached.rows != table.rows:
+        raise AssertionError(f'{leg}: the cached sweep differs from the sweep')
+    fits = rd_fits(table)
+    bpp = table['bpp'].astype(np.float64)
+    record = {'images': n_images, 'rows': len(table), 'qualities': [min(qualities),
+                                                                     max(qualities)],
+              'sweep_s': sweep_s, 'ms_per_row': 1e3 * sweep_s / len(table),
+              'row_codec_ms': 1e3 * codec_s, 'row_metrics_ms': 1e3 * metrics_s,
+              'cache_hit_s': cache_s, 'bpp_range': [float(bpp.min()), float(bpp.max())],
+              'psnr_range': [float(table['psnr'].astype(np.float64).min()),
+                             float(table['psnr'].astype(np.float64).max())],
+              'row_checked': {'quality': quality, 'bytes': nbytes,
+                              'msssim_db_card': row['msssim_db'], 'msssim_db_cpu': msssim_cpu},
+              'fits': fits}
+    print(f'[codec legs] {leg}: {len(table)} rows ({n_images} images x {len(qualities)} '
+          f'qualities {min(qualities)}-{max(qualities)}) in {sweep_s:.2f} s '
+          f'({record["ms_per_row"]:.1f} ms a row; image 0 at {quality}: codec '
+          f'{1e3 * codec_s:.1f} ms, metrics {1e3 * metrics_s:.1f} ms, re-encoded to the same '
+          f'{nbytes} bytes, MS-SSIM card/CPU {row["msssim_db"]:.4f}/{msssim_cpu:.4f} dB); '
+          f'{bpp.min():.3f}-{bpp.max():.3f} bpp; cache hit {1e3 * cache_s:.1f} ms', flush=True)
+    for key, fit in fits.items():
+        print(f'[codec legs] {leg} fit {key}: {fit}', flush=True)
+    return record
+
+
+def hevc_check(image):
+    """``hevc.encode_rgb`` / ``decode_rgb`` of an image at QP ``HEVC_QP``:
+    the bytes again on a second encode, the decode's shape and PSNR."""
+    u8 = (image * 255).round().astype(np.uint8)
+    t0 = time.perf_counter()
+    data = hevc.encode_rgb(u8, HEVC_QP)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = hevc.decode_rgb(data)
+    decode_s = time.perf_counter() - t0
+    psnr = float(metrics.psnr(image, decoded))
+    if hevc.encode_rgb(u8, HEVC_QP) != data or decoded.shape != image.shape or \
+            not np.isfinite(decoded).all() or psnr < 30:
+        raise AssertionError(f'HEVC round trip at QP {HEVC_QP}: {len(data)} bytes, shape '
+                             f'{decoded.shape}, PSNR {psnr} dB')
+    print(f'[codec legs] HEVC intra {image.shape[1]}x{image.shape[0]} at QP {HEVC_QP}: '
+          f'{len(data)} bytes ({8 * len(data) / (image.shape[0] * image.shape[1]):.3f} bpp), '
+          f'{psnr:.2f} dB, encode {1e3 * encode_s:.1f} ms, decode {1e3 * decode_s:.1f} ms',
+          flush=True)
+    return {'qp': HEVC_QP, 'bytes': len(data), 'psnr': psnr, 'encode_ms': 1e3 * encode_s,
+            'decode_ms': 1e3 * decode_s}
+
+
+def codec_legs_phase(args, device):
+    """``[codec legs]``: the codec libraries, each leg whose library loads at
+    its full quality range on [codec eval]'s images, the HEVC round trip, the
+    PNG unfilter and the BMP reader, and the evaluation CLI with every leg.
+    Returns (K2 launches of the CLI's DCN leg, results)."""
+    t_phase = time.perf_counter()
+    libraries = rd.codec_libraries()
+    for name, (ok, text) in libraries.items():
+        print(f'[codec legs] {name}: ' + (f'loaded, {text}' if ok else f'absent: {text}'),
+              flush=True)
+    results = {'libraries': {name: {'loaded': ok, ('version' if ok else 'reason'): text}
+                             for name, (ok, text) in libraries.items()}, 'legs': {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        images_dir, jp2_dir = os.path.join(tmp, 'kodak_like'), os.path.join(tmp, 'kodak_like_2')
+        os.makedirs(images_dir)
+        os.makedirs(jp2_dir)
+        batch = fixtures.kodak_like_batch(RD_IMAGES, *RD_SHAPE)
+        for i, image in enumerate(batch):
+            for directory in (images_dir, jp2_dir)[:1 + (i < JP2_IMAGES)]:
+                png.write_png(os.path.join(directory, f'kodak_like_{i:02d}.png'),
+                              (image * 255).round().astype(np.uint8))
+        for leg, codec_name, sweep, library, qualities in CODEC_LEGS:
+            ok, text = libraries[library]
+            if not ok:
+                print(f'[codec legs] {leg}: not run, {library} absent ({text})', flush=True)
+                results['legs'][codec_name] = {'run': False, 'reason': text}
+                continue
+            jp2 = codec_name == 'jpeg2000'
+            results['legs'][codec_name] = codec_leg(
+                leg, codec_name, sweep, qualities, jp2_dir if jp2 else images_dir,
+                JP2_IMAGES if jp2 else RD_IMAGES, device)
+        image0 = png.read_png(os.path.join(images_dir, 'kodak_like_00.png'))
+        if libraries['libx265'][0] and libraries['libde265'][0]:
+            results['hevc'] = hevc_check(image0.astype(np.float32) / 255)
+        else:
+            print('[codec legs] HEVC: not run, libx265 or libde265 absent', flush=True)
+        results['png'] = unfilter_check(tmp, args.seed + 1500)
+        results['bmp'] = bmp_check(tmp, image0)
+
+        # the evaluation CLI with every leg, on the JPEG 2000 leg's images (its
+        # cache read, the other legs swept again, the DCN leg through K2)
+        zero_counts()
+        t0 = time.perf_counter()
+        tables, curves = rate_dist_cli.main(['--data', jp2_dir, '--dcn-models',
+                                             str(base.REPO_ROOT / RD_DCN_ROOT),
+                                             '--device', str(device)])
+        cli_s = time.perf_counter() - t0
+        counts = read_counts()
+        expect_counts('[codec legs] test_dcn_rate_dist', counts,
+                      {'codebook_fwd': JP2_IMAGES * len(RD_PRESETS)})
+        # a table a leg whose library loads, in the reference's order, then the DCN leg's
+        want = ['jpeg'] + [c for _, c, _, library, _ in CODEC_LEGS if libraries[library][0]]
+        codecs = [t['codec'][0] for t in tables[:-1]]
+        if codecs != want or len(tables[-1].unique('codec')) != len(RD_PRESETS) or \
+                any(t.empty for t in tables):
+            raise AssertionError(f'test_dcn_rate_dist: tables of {codecs} and the DCN leg, '
+                                 f'expected {want}')
+        results['cli'] = {'s': cli_s, 'rows': {c: len(t) for c, t in zip(codecs + ['dcn'],
+                                                                         tables)},
+                          'curves': len(curves), 'k2': counts['codebook_fwd']}
+        print(f'[codec legs] test_dcn_rate_dist on {JP2_IMAGES} images: {len(tables)} tables, '
+              f'{len(curves)} curves in {cli_s:.1f} s, K2 {counts["codebook_fwd"]}', flush=True)
+    results['phase_s'] = time.perf_counter() - t_phase
+    print(f'[codec legs] phase {results["phase_s"]:.1f} s', flush=True)
+    return counts, results
+
+
 # -- data parallelism ---------------------------------------------------------------------
 
 # the [parallel] phase: each of the four steps over 2 ranks sharing cuda:0 over
@@ -3250,16 +3538,20 @@ def main():
     codec_eval_counts, codec_eval = codec_eval_phase(args, device, flush)
     print('[codec eval] ' + json.dumps(codec_eval), flush=True)
 
-    # 15. data parallelism and development in bands
+    # 15. the last rate-distortion legs and the image readers
+    codec_legs_counts, codec_legs = codec_legs_phase(args, device)
+    print('[codec legs] ' + json.dumps(codec_legs), flush=True)
+
+    # 16. data parallelism and development in bands
     parallel_counts, parallel_rank_counts, _, parallel_results = parallel_phase(args, device)
     print('[parallel] ' + json.dumps(parallel_results), flush=True)
 
-    # 16. the tooling layer at the training phases' median steps
+    # 17. the tooling layer at the training phases' median steps
     tooling_counts, tooling = tooling_phase(args, device, {
         'f32': train_main['median_ms'], 'bf16': bf16_train['median_ms']['bf16']})
     print('[tooling] ' + json.dumps(tooling), flush=True)
 
-    # 17. results: K1's numbers are its two launches of one m_quality request,
+    # 18. results: K1's numbers are its two launches of one m_quality request,
     # summed; K2's and K3's are at the DCN flow's shape (N = 409,600), K4's at
     # the DCN training step's
     print('[slice] ' + json.dumps({
@@ -3291,7 +3583,7 @@ def main():
                 'library_ms': None}]
     launches = {name: sum(c[name] for c in (serve_counts, fixed_counts, train_counts,
                                             dcn_flow_counts, dcn_trainer_counts,
-                                            codec_eval_counts, parallel_counts,
+                                            codec_eval_counts, codec_legs_counts, parallel_counts,
                                             tooling_counts, *parallel_rank_counts))
                 for name in ('codebook_fwd', 'codebook_bwd', 'codebook_bwd_train')}
     for name, replaces, shape in (('codebook_fwd', 51, 'dcn flow'),

@@ -6,14 +6,16 @@ must be asked for).
 
     python -m neural_imaging_tpu_torch.cli.test_dcn_rate_dist --data DIR [--metric ssim]
 
-The JPEG leg and, when ``--dcn-models`` is a directory, the DCN leg
-(``compression/ratedistortion.py``, cached as ``jpeg.csv`` and ``dcn.csv``
-in ``--data``); the JPEG 2000, BPG, WebP and AVIF legs are skipped with a
-line naming what they need. In place of the reference's figure each codec's
-fitted curve is printed (the per-image fit-then-average when there are
-several images, else the pooled fit; with ``--bulk`` one pooled fit an
-image), and ``--out`` writes the curves as CSV (codec, image_id, bpp and the
-metric; image_id is empty for a codec's curve over all images).
+The legs of the reference, in its order (``compression/ratedistortion.py``,
+each cached as CSV in ``--data``): JPEG, JPEG 2000, BPG, WebP, AVIF and,
+when ``--dcn-models`` is a directory, the DCN codecs. A line first says which
+codec libraries load (``rd.codec_libraries()``); a leg whose library or
+binaries are absent prints the reason in place of its rows. In place of the
+reference's figure each codec's fitted curve is printed (the per-image
+fit-then-average when there are several images, else the pooled fit; with
+``--bulk`` one pooled fit an image), and ``--out`` writes the curves as CSV
+(codec, image_id, bpp and the metric; image_id is empty for a codec's curve
+over all images).
 """
 import argparse
 import os
@@ -22,8 +24,10 @@ import numpy as np
 
 from neural_imaging_tpu_torch.compression import ratedistortion as rd
 
-SKIPPED_LEGS = (('JPEG 2000', 'OpenCV with OpenJPEG'), ('BPG', 'the bpgenc/bpgdec binaries'),
-                ('WebP', "Pillow's libwebp"), ('AVIF', "Pillow's libavif"))
+# (leg, its sweep, the libraries it needs), in the reference's order
+LEGS = (('JPEG', rd.get_jpeg_df, ()), ('JPEG 2000', rd.get_jpeg2k_df, ('libopenjp2',)),
+        ('BPG', rd.get_bpg_df, ('bpgenc/bpgdec',)), ('WebP', rd.get_webp_df, ('libwebp',)),
+        ('AVIF', rd.get_avif_df, ('libavif',)))
 CURVE_POINTS = 5       # grid points printed a curve (--out keeps all 50)
 
 
@@ -65,12 +69,21 @@ def fit_curves(table, metric, bulk=False):
 def main(argv=None):
     """Run the legs and print the fitted curves; returns (tables, curves)."""
     args = build_parser().parse_args(argv)
-    tables = [rd.get_jpeg_df(args.data, force_calc=args.force, device=args.device)]
-    for leg, needs in SKIPPED_LEGS:
-        print(f'{leg}: skipped, needs {needs} (ROADMAP.md §1 item 3)')
+    libraries = rd.codec_libraries()
+    print('codec libraries: ' + '; '.join(f'{name} {text}' if ok else f'{name} absent ({text})'
+                                         for name, (ok, text) in libraries.items()))
+    tables = []
+    for leg, sweep, needs in LEGS:
+        absent = [f'{name}: {libraries[name][1]}' for name in needs if not libraries[name][0]]
+        if absent:
+            print(f'{leg}: no rows, ' + '; '.join(absent))
+            continue
+        tables.append(sweep(args.data, force_calc=args.force, device=args.device))
+        print(f'{leg}: {len(tables[-1])} rows')
     if os.path.isdir(args.dcn_models):
         tables.append(rd.get_dcn_df(args.data, args.dcn_models, force_calc=args.force,
                                     device=args.device))
+        print(f'DCN: {len(tables[-1])} rows')
     curves = []
     for table in tables:
         curves += fit_curves(table, args.metric, args.bulk)

@@ -1,19 +1,27 @@
 """
-Rate-distortion benchmarking: per-image R/D tables for JPEG and the learned
-DCN codecs, CSV caches next to the data, and the parametric curve fits. Port
-of ``neural_imaging_tpu/compression/ratedistortion.py``.
+Rate-distortion benchmarking: per-image R/D tables for JPEG, JPEG 2000, BPG,
+WebP, AVIF and the learned DCN codecs, CSV caches next to the data, and the
+parametric curve fits. Port of ``neural_imaging_tpu/compression/ratedistortion.py``.
 
 The columns (image_id, filename, codec, quality, ssim, psnr, msssim_db,
 bytes, bpp) and the fit families (logistic in log-bpp for SSIM, log-quadratic
 for PSNR and MS-SSIM dB) are the reference's. A :class:`Table`
 (``utils/table.py``) stands in for its pandas DataFrame and writes and reads
-the same CSV: each package reads the other's cache. The JPEG leg runs libjpeg's codec (the port's own,
-``compression/baseline_jpeg.py``) on the host; the DCN leg restores each
-codec on the caller's device and compresses through K2
-(``codec.simulate_compression``); MS-SSIM runs on that device too. The
-JPEG 2000, BPG, WebP and AVIF legs need OpenCV/OpenJPEG, bpgenc, libwebp or
-libavif and raise ``NotImplementedError``; the plots need matplotlib and are
-not ported (ROADMAP.md §1 item 3).
+the same CSV: each package reads the other's cache. Every leg's codec runs on
+the host and MS-SSIM on the caller's device:
+- JPEG: libjpeg's codec, the port's own (``compression/baseline_jpeg.py``);
+- JPEG 2000: the system's libopenjp2 (``compression/jp2_helpers.py``), as
+  OpenCV drives it in the reference; without it the leg raises, where the
+  reference fails to import OpenCV;
+- BPG: the bpgenc/bpgdec binaries (``compression/bpg_helpers.py``);
+- WebP and AVIF: the system's libwebp and libavif (``compression/webp.py``,
+  ``compression/avif.py``), in place of Pillow's;
+- DCN: each codec restored on the device, compressed through K2
+  (``codec.simulate_compression``).
+BPG, WebP and AVIF give an empty table with a warning when their binaries or
+library are absent, as in the reference; :func:`codec_libraries` says which
+load. The sweep reads PNG, BMP and binary PPM images. The plots need
+matplotlib and stay in the JAX package.
 """
 import math
 import os
@@ -23,7 +31,9 @@ import numpy as np
 import torch
 from scipy.optimize import curve_fit
 
-from neural_imaging_tpu_torch.compression import codec as codec_mod, jpeg_helpers
+from neural_imaging_tpu_torch.compression import avif, bpg_helpers, codec as codec_mod, hevc
+from neural_imaging_tpu_torch.compression import jp2_helpers, jpeg_helpers, webp
+from neural_imaging_tpu_torch.data.bmp import read_bmp
 from neural_imaging_tpu_torch.data.png import read_png, write_png
 from neural_imaging_tpu_torch.ops import ssim as ssim_ops
 from neural_imaging_tpu_torch.utils import metrics, table
@@ -75,8 +85,7 @@ def _read_image(path):
         return read_png(path)
     if suffix == 'ppm':
         return _read_ppm(path)
-    raise NotImplementedError(f'{path}: BMP images are not read by the port (ROADMAP.md §1 '
-                              'item 3); convert them to PNG')
+    return read_bmp(path)
 
 
 def _load_images(directory, files=None):
@@ -161,25 +170,124 @@ def get_jpeg_df(directory, write_files=False, effective_bytes=True, force_calc=F
     return _cached(build, directory, 'jpeg.csv', force_calc, qualities=qualities, files=files)
 
 
-def _not_ported(leg, needs):
-    raise NotImplementedError(f'the {leg} R/D leg needs {needs}, which the port does not have '
-                              '(ROADMAP.md §1 item 3); the JAX package runs it')
+def _library_error(module):
+    """None when ``module``'s library loads, else the reason it does not."""
+    try:
+        module.library()
+        return None
+    except RuntimeError as e:
+        return str(e)
 
 
-def get_jpeg2k_df(*args, **kwargs):
-    _not_ported('JPEG 2000', 'OpenCV with OpenJPEG')
+def codec_libraries():
+    """{name: (True, version) or (False, the reason it does not load)} of
+    the libraries and binaries the host codecs of the sweep need."""
+    found = {}
+    for name, module in (('libopenjp2', jp2_helpers), ('libwebp', webp), ('libavif', avif)):
+        error = _library_error(module)
+        found[name] = (False, error) if error else (True, module.version())
+    try:
+        found.update({f'lib{k}': (True, v) for k, v in hevc.versions().items()})
+    except hevc.HEVCError as e:
+        for name, handle in (('libx265', hevc._X265), ('libde265', hevc._De265)):
+            try:
+                handle()
+                found[name] = (True, f'loads, but the codec does not: {e}')
+            except hevc.HEVCError as own:
+                found[name] = (False, str(own))
+    found['bpgenc/bpgdec'] = ((True, f'{bpg_helpers.BPGENC}, {bpg_helpers.BPGDEC}')
+                              if bpg_helpers.bpg_available()
+                              else (False, 'bpgenc/bpgdec binaries not on PATH'))
+    return found
 
 
-def get_bpg_df(*args, **kwargs):
-    _not_ported('BPG', 'the bpgenc/bpgdec binaries')
+def _u8(img):
+    return (img * 255).round().astype(np.uint8)
 
 
-def get_webp_df(*args, **kwargs):
-    _not_ported('WebP', "Pillow's libwebp")
+def get_jpeg2k_df(directory, write_files=False, effective_bytes=True, force_calc=False,
+                  files=None, qualities=tuple(range(25, 46)), device='cuda'):
+    """JPEG 2000 R/D sweep through OpenJPEG: PSNR-targeted encoding (25-45 dB)
+    with the effective payload bytes of the codestream's tile-parts; MS-SSIM
+    on ``device``. Raises OpenJPEGError, naming libopenjp2, when it does not
+    load and the cache does not cover the sweep."""
+    device = resolve_device(device)
+
+    def build():
+        names, images = _load_images(directory, files)
+        rows = []
+        for i, (name, img) in enumerate(zip(names, images)):
+            u8 = _u8(img)
+            for q in qualities:
+                buf, decoded = jp2_helpers.encode_jp2(u8, psnr_target=float(q))
+                nbytes = jp2_helpers.jp2_payload_bytes(buf) if effective_bytes else len(buf)
+                rows.append(_row(i, name, 'jpeg2000', q, img, decoded, nbytes, device))
+                _maybe_write(directory, 'jpeg2000', name, q, decoded, write_files)
+        return Table(rows)
+    return _cached(build, directory, 'jpeg2000.csv', force_calc, qualities=qualities,
+                   files=files)
 
 
-def get_avif_df(*args, **kwargs):
-    _not_ported('AVIF', "Pillow's libavif")
+def get_bpg_df(directory, write_files=False, force_calc=False, files=None,
+               qualities=range(15, 48, 3), device='cuda'):
+    """BPG R/D sweep (needs bpgenc/bpgdec; an empty table otherwise); MS-SSIM
+    on ``device``."""
+    if not bpg_helpers.bpg_available():
+        logger.warning('bpgenc/bpgdec unavailable — skipping the BPG sweep')
+        return Table()
+    device = resolve_device(device)
+
+    def build():
+        names, images = _load_images(directory, files)
+        rows = []
+        for i, (name, img) in enumerate(zip(names, images)):
+            for q in qualities:
+                decoded, bpp = bpg_helpers.roundtrip(img, q)
+                nbytes = int(bpp * img.shape[0] * img.shape[1] / 8)
+                rows.append(_row(i, name, 'bpg', q, img, decoded, nbytes, device))
+                _maybe_write(directory, 'bpg', name, q, decoded, write_files)
+        return Table(rows)
+    return _cached(build, directory, 'bpg.csv', force_calc, qualities=qualities, files=files)
+
+
+def _host_leg(directory, codec, module, write_files, force_calc, files, qualities, device,
+              **encode_kw):
+    """The WebP or AVIF sweep: ``module.encode`` / ``decode`` at each quality
+    (an empty table with a warning when its library does not load)."""
+    error = _library_error(module)
+    if error:
+        logger.warning('%s — skipping the %s sweep', error, codec)
+        return Table()
+    device = resolve_device(device)
+
+    def build():
+        names, images = _load_images(directory, files)
+        rows = []
+        for i, (name, img) in enumerate(zip(names, images)):
+            u8 = _u8(img)
+            for q in qualities:
+                buf = module.encode(u8, int(q), **encode_kw)
+                decoded = module.decode(buf).astype(np.float32) / 255.0
+                rows.append(_row(i, name, codec, q, img, decoded, len(buf), device))
+                _maybe_write(directory, codec, name, q, decoded, write_files)
+        return Table(rows)
+    return _cached(build, directory, f'{codec}.csv', force_calc, qualities=qualities,
+                   files=files)
+
+
+def get_webp_df(directory, write_files=False, force_calc=False, files=None,
+                qualities=range(10, 96, 5), device='cuda'):
+    """WebP (VP8 intra) R/D sweep through libwebp at method 4; MS-SSIM on
+    ``device``. An empty table when libwebp does not load."""
+    return _host_leg(directory, 'webp', webp, write_files, force_calc, files, qualities, device)
+
+
+def get_avif_df(directory, write_files=False, force_calc=False, files=None,
+                qualities=range(10, 96, 5), device='cuda'):
+    """AVIF (AV1 intra) R/D sweep through libavif at speed 6; MS-SSIM on
+    ``device``. An empty table when libavif does not load."""
+    return _host_leg(directory, 'avif', avif, write_files, force_calc, files, qualities, device,
+                     speed=6)
 
 
 def get_dcn_df(directory, model_directory, write_files=False, force_calc=False, files=None,

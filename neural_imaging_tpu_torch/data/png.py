@@ -2,23 +2,35 @@
 PNG reading and writing with the standard library's ``zlib``, in place of
 imageio and PIL, which the GPU machine lacks.
 
-``read_png`` decodes 8-bit gray, RGB and RGBA images, non-interlaced, with
-any of the five row filters; it raises ``ValueError`` on anything else
-(palette, 16-bit, gray with alpha, Adam7 interlacing). Rows filtered with
-None, Sub or Up are undone with whole-row numpy operations; Average and
-Paeth rows depend on their own left neighbours and are undone byte by byte
-in Python (about 0.1 s for a 256x384 RGB image made only of such rows).
+``read_png`` decodes non-interlaced 8-bit gray, gray with alpha, RGB and
+RGBA images and palette images of 1, 2, 4 or 8 bits, with any of the five
+row filters, as imageio reads them: a palette image comes back as RGB
+through its palette (imageio drops a ``tRNS`` table there, and so does
+``read_png``). It raises ``ValueError`` on anything else (16-bit samples,
+gray below 8 bits, Adam7 interlacing). The row filters are undone in one
+call of the native ``csrc/png_unfilter.cpp``, built at first use by
+``utils/native.py`` into ``neural_imaging_tpu_torch/_build/`` and loaded
+with ``ctypes``; a failed build raises. :func:`_unfilter` is its plain
+version (whole-row numpy for None, Sub and Up, a Python loop a byte for
+Average and Paeth), which the tests hold it against and nothing else calls.
 ``write_png`` writes 8-bit gray, RGB or RGBA with no row filter.
 """
+import ctypes
+import functools
 import struct
 import zlib
 
 import numpy as np
 
+from neural_imaging_tpu_torch.ops.hopper._build import PACKAGE_DIR
+from neural_imaging_tpu_torch.utils import native
+
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
-# colour type → channels, for 8-bit samples
-CHANNELS = {0: 1, 2: 3, 6: 4}
+# colour type → samples a pixel: gray, RGB, palette index, gray + alpha, RGBA
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+PALETTE = 3
 NONE, SUB, UP, AVERAGE, PAETH = range(5)
+SOURCE = PACKAGE_DIR / 'csrc' / 'png_unfilter.cpp'
 
 
 def _chunks(blob):
@@ -60,7 +72,8 @@ def _unfilter_loop(kind, row, prev, bpp):
 
 
 def _unfilter(raw, height, stride, bpp):
-    """Undo the row filters of the decompressed image data."""
+    """Undo the row filters of the decompressed image data: the plain
+    version of :func:`unfilter`."""
     rows = np.frombuffer(raw, dtype=np.uint8)
     if rows.size != height * (stride + 1):
         raise ValueError(f'PNG: {rows.size} bytes of image data, expected {height * (stride + 1)}')
@@ -84,32 +97,79 @@ def _unfilter(raw, height, stride, bpp):
     return out
 
 
+def library_path():
+    """Where the library built from ``csrc/png_unfilter.cpp`` lives."""
+    return native.library_path(SOURCE, 'png_unfilter')
+
+
+@functools.lru_cache()
+def library():
+    """The native unfilter, ``pu_unfilter``, typed for ``ctypes``; built
+    first if its library is missing (a failed build raises)."""
+    lib = ctypes.CDLL(str(native.build(SOURCE, 'png_unfilter')))
+    lib.pu_unfilter.restype = ctypes.c_long
+    lib.pu_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_long, ctypes.c_int,
+                                ctypes.c_void_p]
+    return lib
+
+
+def unfilter(raw, height, stride, bpp):
+    """Undo the row filters of the decompressed image data in the native
+    library: ``height`` rows of a filter byte and ``stride`` bytes, ``bpp``
+    bytes a pixel. Returns (height, stride) uint8."""
+    raw = bytes(raw)
+    if len(raw) != height * (stride + 1):
+        raise ValueError(f'PNG: {len(raw)} bytes of image data, expected {height * (stride + 1)}')
+    out = np.empty((height, stride), dtype=np.uint8)
+    bad = library().pu_unfilter(raw, height, stride, bpp, out.ctypes.data)
+    if bad:
+        raise ValueError(f'PNG: unknown row filter {raw[(bad - 1) * (stride + 1)]} in row '
+                         f'{bad - 1}')
+    return out
+
+
 def read_png(filename):
-    """An 8-bit PNG as a uint8 array: (h, w) for gray, (h, w, 3) for RGB,
-    (h, w, 4) for RGBA."""
+    """A PNG as a uint8 array, as imageio reads it: (h, w) for gray, (h, w, 2)
+    for gray with alpha, (h, w, 3) for RGB and palette images, (h, w, 4) for
+    RGBA."""
     with open(filename, 'rb') as f:
         blob = f.read()
     if not blob.startswith(SIGNATURE):
         raise ValueError(f'{filename}: not a PNG file')
-    header, data = None, []
+    header, data, palette = None, [], None
     for kind, chunk in _chunks(blob):
         if kind == b'IHDR':
             header = struct.unpack('>IIBBBBB', chunk)
+        elif kind == b'PLTE':
+            palette = chunk
         elif kind == b'IDAT':
             data.append(chunk)
     if header is None:
         raise ValueError(f'{filename}: PNG without an IHDR chunk')
     width, height, depth, colour, compression, filtering, interlace = header
-    if depth != 8 or colour not in CHANNELS:
+    if colour not in CHANNELS or (depth != 8 and not (colour == PALETTE and depth in (1, 2, 4))):
         raise ValueError(f'{filename}: PNG of bit depth {depth} and colour type {colour} is not '
-                         'supported; only 8-bit gray (0), RGB (2) and RGBA (6)')
+                         'supported; only 8-bit gray (0), RGB (2), gray with alpha (4) and RGBA '
+                         '(6), and palette (3) of 1, 2, 4 or 8 bits')
     if interlace != 0:
         raise ValueError(f'{filename}: interlaced (Adam7) PNG is not supported')
     if compression != 0 or filtering != 0:
         raise ValueError(f'{filename}: unknown PNG compression {compression} or filtering '
                          f'{filtering} method')
+    if colour == PALETTE and (palette is None or len(palette) % 3):
+        raise ValueError(f'{filename}: palette PNG without a valid PLTE chunk')
     channels = CHANNELS[colour]
-    pixels = _unfilter(zlib.decompress(b''.join(data)), height, width * channels, channels)
+    stride = (width * channels * depth + 7) // 8
+    pixels = unfilter(zlib.decompress(b''.join(data)), height, stride,
+                      max(1, channels * depth // 8))
+    if colour == PALETTE:
+        if depth < 8:
+            pixels = np.unpackbits(pixels, axis=1).reshape(height, -1, depth)[:, :width]
+            pixels = (pixels * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
+                axis=2, dtype=np.uint8)
+        table = np.zeros((256, 3), np.uint8)        # entries past the PLTE's are black
+        table[:len(palette) // 3] = np.frombuffer(palette, np.uint8).reshape(-1, 3)
+        return table[pixels]
     return pixels.reshape(height, width) if channels == 1 else \
         pixels.reshape(height, width, channels)
 

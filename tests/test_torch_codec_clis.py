@@ -22,6 +22,7 @@ from neural_imaging_tpu.data import loading as jloading
 from neural_imaging_tpu.models import jpeg as jjpeg
 from neural_imaging_tpu.utils import metrics as jmetrics
 from neural_imaging_tpu_torch.cli import test_dcn, test_dcn_rate_dist, test_jpeg
+from neural_imaging_tpu_torch.compression import ratedistortion as rd
 from neural_imaging_tpu_torch.data import fixtures
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -130,10 +131,20 @@ def test_test_dcn_rate_dist_cli_matches_reference(image_dir, tmp_path, capsys):
     tables, curves = test_dcn_rate_dist.main(['--data', port_dir, '--dcn-models', DCN_8C,
                                               '--out', out, '--device', 'cpu'])
     printed = capsys.readouterr().out
-    for leg in ('JPEG 2000', 'BPG', 'WebP', 'AVIF'):
-        assert f'{leg}: skipped' in printed and 'item 3' in printed
-    assert [len(t) for t in tables] == [2 * 18, 2]
-    assert os.path.isfile(os.path.join(port_dir, 'jpeg.csv'))
+    # every leg of the reference in its order, BPG only where bpgenc/bpgdec are
+    # on PATH (its reason printed in place of rows otherwise)
+    libraries = rd.codec_libraries()
+    assert printed.startswith('codec libraries: libopenjp2 ')
+    legs = [('JPEG', 'jpeg', 2 * 18), ('JPEG 2000', 'jpeg2000', 2 * 21), ('BPG', 'bpg', 2 * 11),
+            ('WebP', 'webp', 2 * 18), ('AVIF', 'avif', 2 * 18)]
+    if not libraries['bpgenc/bpgdec'][0]:
+        assert 'BPG: no rows, bpgenc/bpgdec: bpgenc/bpgdec binaries not on PATH' in printed
+        legs.remove(('BPG', 'bpg', 2 * 11))
+    for leg, _, rows in legs:
+        assert f'{leg}: {rows} rows' in printed
+    assert [len(t) for t in tables] == [rows for _, _, rows in legs] + [2]
+    for _, name, _ in legs:
+        assert os.path.isfile(os.path.join(port_dir, f'{name}.csv'))
     assert os.path.isfile(os.path.join(port_dir, 'dcn.csv'))
     ref_table = jrd.get_jpeg_df(ref_dir)
     grid, fitted = jrd.fit_rd_curve_per_image(ref_table, 'ssim')
@@ -144,8 +155,9 @@ def test_test_dcn_rate_dist_cli_matches_reference(image_dir, tmp_path, capsys):
     # one sample an image: the DCN codec has no fit and says so
     assert 'TwitterDCN-8C/soft-codebook_Q-5bpf_S+_H+250.00: no ssim fit' in printed
     written = pd.read_csv(out)
-    assert list(written.columns) == ['codec', 'image_id', 'bpp', 'ssim'] and len(written) == 50
+    assert list(written.columns) == ['codec', 'image_id', 'bpp', 'ssim']
+    assert len(written) == 50 * len(legs)
     # --bulk: one pooled fit an image, from the cache
     _, bulk = test_dcn_rate_dist.main(['--data', port_dir, '--dcn-models', DCN_8C, '--bulk',
                                        '--metric', 'psnr', '--device', 'cpu'])
-    assert [(c, i) for c, i, _, _ in bulk] == [('jpeg', 0), ('jpeg', 1)]
+    assert [(c, i) for c, i, _, _ in bulk] == [(name, i) for _, name, _ in legs for i in (0, 1)]

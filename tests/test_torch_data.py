@@ -106,9 +106,9 @@ def test_imageio_reads_what_write_png_wrote(tmp_path, channels):
 
 
 @pytest.mark.parametrize('header, message', [
-    ((8, 8, 8, 3, 0, 0, 0), 'colour type 3'),       # palette
+    ((8, 8, 8, 3, 0, 0, 0), 'without a valid PLTE'),   # palette, but no palette
     ((8, 8, 16, 2, 0, 0, 0), 'bit depth 16'),
-    ((8, 8, 8, 4, 0, 0, 0), 'colour type 4'),       # gray with alpha
+    ((8, 8, 16, 4, 0, 0, 0), 'bit depth 16 and colour type 4'),   # 16-bit gray with alpha
     ((8, 8, 8, 2, 0, 0, 1), 'interlaced'),
 ], ids=['palette', '16-bit', 'gray-alpha', 'adam7'])
 def test_read_png_refuses_what_it_does_not_cover(tmp_path, header, message):

@@ -55,7 +55,9 @@ def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package()
                  'parallel.train', 'parallel.launch', 'parallel.spatial', 'ops.hopper.registry',
                  'utils.profiling', 'utils.debugging', 'utils.runtime', 'utils.stats',
                  'utils.table', 'cli.test_nip', 'cli.diff_nip', 'cli.summarize_nip',
-                 'cli.results'):
+                 'cli.results', 'data.bmp', 'compression.jp2_helpers', 'compression.webp',
+                 'compression.avif', 'compression.hevc', 'compression.bpg_helpers',
+                 'cli.pstrace'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',
