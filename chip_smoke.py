@@ -148,7 +148,14 @@ NVIDIA GPU:
    exported 32c launches K2 through its operator), reads
    ``device_memory_stats``, and runs ``test_nip`` of the QualityRef UNet_5
    and INet on the card against the CPU;
-18. print one JSON line of the kernels, then the last line
+18. the end-to-end framework harness: ``[framework]`` runs all seven
+   scenarios of ``config/tests/framework.json`` at their full epochs on the
+   harness's fixture data (``cli/test_framework.py``: the CLIs' ``main``
+   called in this process on the harness's mapped argv), checks each
+   scenario's artifacts and gates with the harness's functions, and reads
+   the launch counts around each scenario: K2 and K3 in the two DCN
+   scenarios, no kernel in the others;
+19. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -161,6 +168,7 @@ device it exits non-zero before doing anything.
 """
 import argparse
 import hashlib
+import importlib
 import json
 import logging
 import os
@@ -183,6 +191,7 @@ from torch.profiler import ProfilerActivity, profile
 from neural_imaging_tpu_torch.cli import develop_images as develop_cli
 from neural_imaging_tpu_torch.cli import test_dcn as test_dcn_cli
 from neural_imaging_tpu_torch.cli import test_dcn_rate_dist as rate_dist_cli
+from neural_imaging_tpu_torch.cli import test_framework as framework
 from neural_imaging_tpu_torch.cli import test_jpeg as test_jpeg_cli
 from neural_imaging_tpu_torch.cli import test_nip as test_nip_cli
 from neural_imaging_tpu_torch.cli import train_prepare_training_set as prepare_cli
@@ -3382,6 +3391,60 @@ def tooling_phase(args, device, medians_ms):
     return counts, results
 
 
+# the scenarios of config/tests/framework.json that train the DCN with a fixed
+# codebook: K2 forward and K3 backward; the others run no kernel of the port
+FRAMEWORK_DCN = ('train-dcn', 'train-manipulation-dcn')
+
+
+def run_cli_in_process(module, argv):
+    """The harness's runner for this process: a port CLI's ``main(argv)``;
+    whatever it raises propagates."""
+    importlib.import_module(module).main(argv)
+    return 0, ''
+
+
+def framework_phase(device):
+    """``[framework]``: every scenario of ``config/tests/framework.json`` at
+    its full length through the port's CLIs on the card, checked by the
+    harness's ``run_scenario`` at the spec's gates. Returns ({scenario:
+    launch counts}, results)."""
+    root = tempfile.mkdtemp(prefix='framework-')
+    cam = framework.DEFAULT_CAM
+    try:
+        t0 = time.perf_counter()
+        framework.prepare_data(root, cam)
+        data_s = time.perf_counter() - t0
+        counts, results = {}, {}
+        for name, spec in framework.load_spec().items():
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            ok, message, gates = framework.run_scenario(name, spec, root, cam, device.type,
+                                                        run=run_cli_in_process)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts[name] = read_counts()
+            if not ok:
+                raise AssertionError(f'[framework] {name}: {message}')
+            expected_kernels = ({'codebook_fwd', 'codebook_bwd'} if name in FRAMEWORK_DCN
+                                else set())
+            launched = {k for k, n in counts[name].items() if n}
+            if launched != expected_kernels:
+                raise AssertionError(f'[framework] {name}: launches {counts[name]}, expected '
+                                     f'{sorted(expected_kernels) or "none"}')
+            results[name] = {'seconds': seconds, 'launches': counts[name],
+                             'gates': {k: {'value': v, 'threshold': t}
+                                       for k, (v, t) in gates.items()}}
+            gate_text = ', '.join(f'{k} {v:.4f} (gate {t})' for k, (v, t) in gates.items())
+            print(f'[framework] {name}: PASS in {seconds:.1f} s; {gate_text}; launches '
+                  f'K1 {counts[name]["jpeg8x8"]}, K2 {counts[name]["codebook_fwd"]}, '
+                  f'K3 {counts[name]["codebook_bwd"]}, K4 {counts[name]["codebook_bwd_train"]}',
+                  flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, {'data_s': data_s, 'scenarios': results}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -3551,7 +3614,11 @@ def main():
         'f32': train_main['median_ms'], 'bf16': bf16_train['median_ms']['bf16']})
     print('[tooling] ' + json.dumps(tooling), flush=True)
 
-    # 18. results: K1's numbers are its two launches of one m_quality request,
+    # 18. the end-to-end framework harness, every scenario at full length
+    framework_counts, framework_results = framework_phase(device)
+    print('[framework] ' + json.dumps(framework_results), flush=True)
+
+    # 19. results: K1's numbers are its two launches of one m_quality request,
     # summed; K2's and K3's are at the DCN flow's shape (N = 409,600), K4's at
     # the DCN training step's
     print('[slice] ' + json.dumps({
@@ -3572,7 +3639,8 @@ def main():
                              + sum(c['jpeg8x8'] for c in manip7_counts)
                              + codec_eval_counts['jpeg8x8'] + parallel_counts['jpeg8x8']
                              + sum(c['jpeg8x8'] for c in parallel_rank_counts)
-                             + tooling_counts['jpeg8x8']),
+                             + tooling_counts['jpeg8x8']
+                             + sum(c['jpeg8x8'] for c in framework_counts.values())),
                 'parallel_launches_per_rank': [c['jpeg8x8'] for c in parallel_rank_counts],
                 'max_abs_err': max(r['max_abs_err'] for r in (*k1, k1_dcn_flow, k1_manip7)),
                 'ms': sum(r['ms'] for r in k1),
@@ -3584,7 +3652,8 @@ def main():
     launches = {name: sum(c[name] for c in (serve_counts, fixed_counts, train_counts,
                                             dcn_flow_counts, dcn_trainer_counts,
                                             codec_eval_counts, codec_legs_counts, parallel_counts,
-                                            tooling_counts, *parallel_rank_counts))
+                                            tooling_counts, *parallel_rank_counts,
+                                            *framework_counts.values()))
                 for name in ('codebook_fwd', 'codebook_bwd', 'codebook_bwd_train')}
     for name, replaces, shape in (('codebook_fwd', 51, 'dcn flow'),
                                   ('codebook_bwd', 137, 'dcn flow'),

@@ -20,15 +20,20 @@ kept with probability 1 − rate and scaled by 1 / (1 − rate), or zeroed. The
 masks come from the FAN's ``torch.Generator`` or from the caller (flax's and
 torch's random streams differ). The joint manipulation-classification step
 runs the FAN without dropout, as the reference's does.
+
+The initial weights from ``seed`` are the reference's from ``PRNGKey(seed)``
+(``utils/prng.py``: flax's LeCun-normal draw of each layer, its key folded
+from the layer's name), so the two packages' runs start from one model.
 """
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neural_imaging_tpu_torch.models.base import TorchModel, flax_default_init
+from neural_imaging_tpu_torch.models.base import TorchModel
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops.kernels import center_mask_2dfilter, repeat_2dfilter
+from neural_imaging_tpu_torch.utils import prng
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 
 
@@ -97,7 +102,6 @@ class FANCore(nn.Module):
             raise ValueError('FAN without GAP needs patch_size to size its first dense layer')
         if stem == 'fused' and n_convolutions < 1:
             raise ValueError("stem='fused' requires n_convolutions >= 1")
-        g = torch.Generator().manual_seed(seed)
         self.act = ops.ACTIVATIONS[activation]
         self.use_gap = use_gap
         self.n_convolutions = n_convolutions
@@ -107,13 +111,22 @@ class FANCore(nn.Module):
         self.stem = stem
         self.constrained = ConstrainedConv(dtype=dtype)
 
+        def flax_init(name, m, shape, fan_in, to_torch):
+            """flax's init of layer ``name``: its kernel (flax's layout
+            ``shape``) drawn from the seed, zero bias."""
+            kernel = prng.lecun_normal(prng.flax_param_key(seed, name), shape, fan_in)
+            with torch.no_grad():
+                m.weight.copy_(torch.from_numpy(np.ascontiguousarray(to_torch(kernel))))
+                m.bias.zero_()
+            setattr(self, name, m)
+
         def conv(name, cin, cout, k):
-            m = nn.utils.skip_init(nn.Conv2d, cin, cout, k, padding='same')
-            setattr(self, name, flax_default_init(m, cin * k * k, g))
+            flax_init(name, nn.utils.skip_init(nn.Conv2d, cin, cout, k, padding='same'),
+                      (k, k, cin, cout), k * k * cin, lambda w: w.transpose(3, 2, 0, 1))
 
         def dense(name, fin, fout):
-            m = nn.utils.skip_init(nn.Linear, fin, fout)
-            setattr(self, name, flax_default_init(m, fin, g))
+            flax_init(name, nn.utils.skip_init(nn.Linear, fin, fout), (fin, fout), fin,
+                      lambda w: w.T)
 
         cin, nf = 3, n_filters
         for i in range(n_convolutions):

@@ -1,6 +1,7 @@
 """
 Host helpers of the trainer: the package's logger, number checks and the
-formatting of numbers, patch shapes and arguments. Copy of the parts of
+formatting of numbers, patch shapes and arguments, and the lookup of a
+logged metric by its key path. Copy of the parts of
 ``neural_imaging_tpu/utils/utils.py`` that the trainer uses, so the port's
 logs read as the JAX package's.
 """
@@ -87,3 +88,14 @@ def match_option(value, options, threshold=3):
     if distances and distances[0][0] <= threshold:
         return distances[0][1]
     raise ValueError(f'Could not match option {value!r}; available: {options}')
+
+
+def get(dictionary, path, sep='/'):
+    """Recursive dict lookup with a path string, e.g. get(d, 'performance/psnr/validation');
+    empty segments are skipped."""
+    node = dictionary
+    for key in path.split(sep):
+        if not key:
+            continue
+        node = node[key]
+    return node

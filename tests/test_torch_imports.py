@@ -57,7 +57,7 @@ def test_port_and_chip_smoke_import_without_jax_pil_imageio_or_the_jax_package()
                  'utils.table', 'cli.test_nip', 'cli.diff_nip', 'cli.summarize_nip',
                  'cli.results', 'data.bmp', 'compression.jp2_helpers', 'compression.webp',
                  'compression.avif', 'compression.hevc', 'compression.bpg_helpers',
-                 'cli.pstrace'):
+                 'cli.pstrace', 'cli.test_framework', 'utils.prng'):
         assert f'neural_imaging_tpu_torch.{name}' in modules
     code = '\n'.join([
         'import importlib, sys',
