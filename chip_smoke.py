@@ -154,7 +154,9 @@ NVIDIA GPU:
    called in this process on the harness's mapped argv), checks each
    scenario's artifacts and gates with the harness's functions, and reads
    the launch counts around each scenario: K2 and K3 in the two DCN
-   scenarios, no kernel in the others;
+   scenarios, no kernel in the others. It prints the N of each launch
+   and, after the scenarios, holds K2 and K3 (and K4) against their plain
+   versions at each of those N;
 19. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -606,6 +608,8 @@ COUNTERS = {'jpeg8x8': jpeg8x8.jpeg_core_cuda,
 def zero_counts():
     for wrapper in COUNTERS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, 'sizes'):
+            wrapper.sizes.clear()
 
 
 def read_counts():
@@ -3403,11 +3407,13 @@ def run_cli_in_process(module, argv):
     return 0, ''
 
 
-def framework_phase(device):
+def framework_phase(args, device, flush, gen):
     """``[framework]``: every scenario of ``config/tests/framework.json`` at
     its full length through the port's CLIs on the card, checked by the
-    harness's ``run_scenario`` at the spec's gates. Returns ({scenario:
-    launch counts}, results)."""
+    harness's ``run_scenario`` at the spec's gates; then K2 and K3 (and K4)
+    against their plain versions at each N that the DCN scenarios launched
+    them at. Returns ({scenario: launch counts}, results, {N: the kernels'
+    records})."""
     root = tempfile.mkdtemp(prefix='framework-')
     cam = framework.DEFAULT_CAM
     try:
@@ -3424,6 +3430,8 @@ def framework_phase(device):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts[name] = read_counts()
+            sizes = {k: dict(sorted(COUNTERS[k].sizes.items()))
+                     for k in ('codebook_fwd', 'codebook_bwd')}
             if not ok:
                 raise AssertionError(f'[framework] {name}: {message}')
             expected_kernels = ({'codebook_fwd', 'codebook_bwd'} if name in FRAMEWORK_DCN
@@ -3433,16 +3441,23 @@ def framework_phase(device):
                 raise AssertionError(f'[framework] {name}: launches {counts[name]}, expected '
                                      f'{sorted(expected_kernels) or "none"}')
             results[name] = {'seconds': seconds, 'launches': counts[name],
+                             'launches_by_n': sizes,
                              'gates': {k: {'value': v, 'threshold': t}
                                        for k, (v, t) in gates.items()}}
             gate_text = ', '.join(f'{k} {v:.4f} (gate {t})' for k, (v, t) in gates.items())
             print(f'[framework] {name}: PASS in {seconds:.1f} s; {gate_text}; launches '
                   f'K1 {counts[name]["jpeg8x8"]}, K2 {counts[name]["codebook_fwd"]}, '
-                  f'K3 {counts[name]["codebook_bwd"]}, K4 {counts[name]["codebook_bwd_train"]}',
+                  f'K3 {counts[name]["codebook_bwd"]}, K4 {counts[name]["codebook_bwd_train"]}; '
+                  f'at N (N: launches) K2 {sizes["codebook_fwd"]}, K3 {sizes["codebook_bwd"]}',
                   flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return counts, {'data_s': data_s, 'scenarios': results}
+    # the kernels at the path's own N, after the counted runs
+    fwd_n = {n for r in results.values() for n in r['launches_by_n']['codebook_fwd']}
+    bwd_n = {n for r in results.values() for n in r['launches_by_n']['codebook_bwd']}
+    shapes = {n: check_codebook(f'framework N={n}', n, args.reps, flush, gen, device,
+                                backward=n in bwd_n) for n in sorted(fwd_n | bwd_n)}
+    return counts, {'data_s': data_s, 'scenarios': results}, shapes
 
 
 def main():
@@ -3615,12 +3630,14 @@ def main():
     print('[tooling] ' + json.dumps(tooling), flush=True)
 
     # 18. the end-to-end framework harness, every scenario at full length
-    framework_counts, framework_results = framework_phase(device)
+    framework_counts, framework_results, framework_shapes = framework_phase(args, device, flush,
+                                                                            gen)
     print('[framework] ' + json.dumps(framework_results), flush=True)
 
     # 19. results: K1's numbers are its two launches of one m_quality request,
-    # summed; K2's and K3's are at the DCN flow's shape (N = 409,600), K4's at
-    # the DCN training step's
+    # summed; K2's and K3's times are at the DCN flow's shape (N = 409,600),
+    # K4's at the DCN training step's; each kernel's error is its largest over
+    # every shape it was checked at
     print('[slice] ' + json.dumps({
         'requests': args.requests, 'batch': args.batch,
         'latency_ms': [1e3 * t for t in latencies], 'raw_patches_per_s': args.batch / median,
@@ -3659,12 +3676,14 @@ def main():
                                   ('codebook_bwd', 137, 'dcn flow'),
                                   ('codebook_bwd_train', 231, 'training')):
         r = k234[shape][name]
+        checked = [records[name] for records in (*k234.values(), *framework_shapes.values())
+                   if name in records]
         kernels.append({'name': name, 'route': 'cuda',
                         'source': 'neural_imaging_tpu_torch/csrc/codebook.cu',
                         'replaces': f'neural_imaging_tpu/ops/pallas/codebook.py:{replaces}',
                         'launches': launches[name],
                         'parallel_launches_per_rank': [c[name] for c in parallel_rank_counts],
-                        'max_abs_err': r['max_abs_err'],
+                        'max_abs_err': max(c['max_abs_err'] for c in checked),
                         'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                         'bound_by': r['bound_by'], 'library_ms': None})
     print(json.dumps({'kernels': kernels}))

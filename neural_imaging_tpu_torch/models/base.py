@@ -18,7 +18,6 @@ forward, where the JAX package lowers its ``_apply`` to StableHLO).
 """
 import ast
 import json
-import math
 import os
 from pathlib import Path
 
@@ -27,7 +26,7 @@ import torch
 from torch import nn
 
 from neural_imaging_tpu_torch.parallel import multihost
-from neural_imaging_tpu_torch.utils import utils
+from neural_imaging_tpu_torch.utils import prng, utils
 from neural_imaging_tpu_torch.utils.device import resolve_device
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 from neural_imaging_tpu_torch.utils.table import Table
@@ -90,12 +89,22 @@ def _parse_tuple_args(parameters):
     return out
 
 
-def flax_default_init(module, fan_in, generator):
-    """flax's default init of a conv or dense ``module``: LeCun-normal weight
-    (truncated at 2σ), zero bias (where it has one)."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+def flax_default_init(module, key):
+    """flax's default init of a conv, transposed conv or dense ``module``:
+    its kernel drawn from ``key`` (``utils/prng.py``) as flax's LeCun normal
+    in flax's layout and laid out as :func:`convert_params` lays out a flax
+    kernel, zero bias (where it has one)."""
+    w = module.weight
+    if isinstance(module, nn.ConvTranspose2d):      # (in, out, kh, kw)
+        kernel = prng.lecun_normal(key, (*w.shape[2:], w.shape[0], w.shape[1]))
+        kernel = kernel[::-1, ::-1].transpose(2, 3, 0, 1)
+    elif w.ndim == 4:                               # OIHW
+        kernel = prng.lecun_normal(key, (*w.shape[2:], w.shape[1], w.shape[0]))
+        kernel = kernel.transpose(3, 2, 0, 1)
+    else:                                           # (out, in)
+        kernel = prng.lecun_normal(key, (w.shape[1], w.shape[0])).T
     with torch.no_grad():
-        nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+        w.copy_(torch.from_numpy(np.ascontiguousarray(kernel)))
         if module.bias is not None:
             module.bias.zero_()
     return module

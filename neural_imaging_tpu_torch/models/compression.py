@@ -28,6 +28,7 @@ from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops import ssim as ssim_ops
 from neural_imaging_tpu_torch.ops.hopper.codebook import quantize_with_entropy_fused
 from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
+from neural_imaging_tpu_torch.utils import prng
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 
 ROUNDING_MODES = ('identity', 'soft', 'soft-codebook', 'sin')
@@ -40,14 +41,14 @@ SCAN_SEED = 29
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` with its defaults: TF 'SAME' padding at any stride,
-    a bias, LeCun-normal init. Weight OIHW."""
+    a bias, LeCun-normal init from the parameter key ``key``. Weight OIHW."""
 
-    def __init__(self, cin, cout, kernel, stride=1, generator=None):
+    def __init__(self, cin, cout, kernel, stride, key):
         super().__init__()
         self.stride = stride
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(cout))
-        flax_default_init(self, cin * kernel * kernel, generator)
+        flax_default_init(self, key)
 
     def forward(self, x):
         return ops.conv2d(x, self.weight, 'SAME', self.stride, self.bias)
@@ -60,23 +61,30 @@ def _residual_blocks(module, act, h):
     return h
 
 
-def _add_residual_blocks(module, generator):
+def _add_conv(module, root, name, cin, cout, kernel, stride=1):
+    """The flax module's conv ``name``, drawn as flax's ``init(root, ...)``
+    draws it."""
+    setattr(module, name, Conv(cin, cout, kernel, stride, prng.flax_param_key(root, name)))
+
+
+def _add_residual_blocks(module, root):
     for i in range(3):
-        setattr(module, f'res{i}_1', Conv(128, 128, 3, generator=generator))
-        setattr(module, f'res{i}_2', Conv(128, 128, 3, generator=generator))
+        _add_conv(module, root, f'res{i}_1', 128, 128, 3)
+        _add_conv(module, root, f'res{i}_2', 128, 128, 3)
 
 
 class TwitterEncoder(nn.Module):
     """Two 5x5 stride-2 convs (64, 128), three residual blocks, a 5x5
-    stride-2 conv to ``n_features``: (N, 3, h, w) → (N, F, h/8, w/8)."""
+    stride-2 conv to ``n_features``: (N, 3, h, w) → (N, F, h/8, w/8).
+    Initialized as the reference's flax module from the key ``root``."""
 
-    def __init__(self, n_features=32, activation='leaky_relu', generator=None):
+    def __init__(self, n_features, activation, root):
         super().__init__()
         self.act = ops.ACTIVATIONS[activation]
-        self.down1 = Conv(3, 64, 5, 2, generator)
-        self.down2 = Conv(64, 128, 5, 2, generator)
-        _add_residual_blocks(self, generator)
-        self.to_latent = Conv(128, n_features, 5, 2, generator)
+        _add_conv(self, root, 'down1', 3, 64, 5, 2)
+        _add_conv(self, root, 'down2', 64, 128, 5, 2)
+        _add_residual_blocks(self, root)
+        _add_conv(self, root, 'to_latent', 128, n_features, 5, 2)
 
     def forward(self, x):
         h = self.act(self.down1(2.0 * (x - 0.5)))
@@ -87,15 +95,16 @@ class TwitterEncoder(nn.Module):
 
 class TwitterDecoder(nn.Module):
     """Mirror of the encoder with three TF-order depth_to_space upsamples
-    (512 → 256 → 12 channels): (N, F, h, w) → (N, 3, 8h, 8w) in [0, 1]."""
+    (512 → 256 → 12 channels): (N, F, h, w) → (N, 3, 8h, 8w) in [0, 1].
+    Initialized as the reference's flax module from the key ``root``."""
 
-    def __init__(self, n_features=32, activation='leaky_relu', generator=None):
+    def __init__(self, n_features, activation, root):
         super().__init__()
         self.act = ops.ACTIVATIONS[activation]
-        self.up1 = Conv(n_features, 512, 3, generator=generator)
-        _add_residual_blocks(self, generator)
-        self.up2 = Conv(128, 256, 3, generator=generator)
-        self.up3 = Conv(64, 12, 3, generator=generator)
+        _add_conv(self, root, 'up1', n_features, 512, 3)
+        _add_residual_blocks(self, root)
+        _add_conv(self, root, 'up2', 128, 256, 3)
+        _add_conv(self, root, 'up3', 64, 12, 3)
 
     def forward(self, z):
         h = _residual_blocks(self, self.act, ops.depth_to_space(self.up1(z), 2))
@@ -148,8 +157,9 @@ class DCN(TorchModel):
                        use_batchnorm=use_batchnorm, loss_metric=loss_metric, rounding=rounding)
         self.patch_size = patch_size
         self.v, self.gamma = float(v), float(gamma)
-        generator = torch.Generator().manual_seed(seed)
-        encoder, decoder = self.construct_model(generator, **kwargs)
+        # the reference initializes its encoder and decoder from the two
+        # halves of split(PRNGKey(seed))
+        encoder, decoder = self.construct_model(*prng.split(prng.prng_key(seed)), **kwargs)
         codebook = quant.default_codebook(latent_bpf) if train_codebook else None
         super().__init__(DCNCore(encoder, decoder, scale_latent, codebook), device)
         self._fixed_codebook = torch.from_numpy(quant.default_codebook(latent_bpf)).to(self.device)
@@ -157,8 +167,9 @@ class DCN(TorchModel):
         self._scan_generator = None
         self.init_optimizer()
 
-    def construct_model(self, generator, **kwargs):
-        """Return (encoder, decoder) modules and record their hyper-parameters."""
+    def construct_model(self, encoder_key, decoder_key, **kwargs):
+        """Return (encoder, decoder) modules, initialized from their keys, and
+        record their hyper-parameters."""
         raise NotImplementedError
 
     def init_optimizer(self):
@@ -367,7 +378,8 @@ class DCN(TorchModel):
 class TwitterDCN(DCN):
     """Compressive autoencoder of Theis et al."""
 
-    def construct_model(self, generator, n_features=32, activation='leaky_relu'):
+    def construct_model(self, encoder_key, decoder_key, n_features=32,
+                        activation='leaky_relu'):
         if not (isinstance(n_features, int) and 4 <= n_features <= 128):
             raise ValueError(f'n_features must be an integer in [4, 128], got {n_features!r}')
         if activation not in ops.ACTIVATIONS:
@@ -375,8 +387,8 @@ class TwitterDCN(DCN):
         self.n_features = n_features
         self._h.add({'n_features': (32, int), 'activation': ('leaky_relu', str)})
         self._h.update(n_features=n_features, activation=activation)
-        return (TwitterEncoder(n_features, activation, generator),
-                TwitterDecoder(n_features, activation, generator))
+        return (TwitterEncoder(n_features, activation, encoder_key),
+                TwitterDecoder(n_features, activation, decoder_key))
 
 
 # Agreement of two float32 runs of the codec on the same image (the card and

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neural_imaging_tpu_torch.models.base import TorchModel
+from neural_imaging_tpu_torch.models.base import TorchModel, flax_default_init
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops.kernels import center_mask_2dfilter, repeat_2dfilter
 from neural_imaging_tpu_torch.utils import prng
@@ -111,22 +111,16 @@ class FANCore(nn.Module):
         self.stem = stem
         self.constrained = ConstrainedConv(dtype=dtype)
 
-        def flax_init(name, m, shape, fan_in, to_torch):
-            """flax's init of layer ``name``: its kernel (flax's layout
-            ``shape``) drawn from the seed, zero bias."""
-            kernel = prng.lecun_normal(prng.flax_param_key(seed, name), shape, fan_in)
-            with torch.no_grad():
-                m.weight.copy_(torch.from_numpy(np.ascontiguousarray(to_torch(kernel))))
-                m.bias.zero_()
-            setattr(self, name, m)
+        root = prng.prng_key(seed)
 
         def conv(name, cin, cout, k):
-            flax_init(name, nn.utils.skip_init(nn.Conv2d, cin, cout, k, padding='same'),
-                      (k, k, cin, cout), k * k * cin, lambda w: w.transpose(3, 2, 0, 1))
+            setattr(self, name, flax_default_init(
+                nn.utils.skip_init(nn.Conv2d, cin, cout, k, padding='same'),
+                prng.flax_param_key(root, name)))
 
         def dense(name, fin, fout):
-            flax_init(name, nn.utils.skip_init(nn.Linear, fin, fout), (fin, fout), fin,
-                      lambda w: w.T)
+            setattr(self, name, flax_default_init(nn.utils.skip_init(nn.Linear, fin, fout),
+                                                  prng.flax_param_key(root, name)))
 
         cin, nf = 3, n_filters
         for i in range(n_convolutions):

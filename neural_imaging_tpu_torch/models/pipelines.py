@@ -33,6 +33,7 @@ from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops.kernels import (EXAMPLE_SRGB, bilin_kernel, gamma_kernels,
                                                   upsampling_kernel)
 from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
+from neural_imaging_tpu_torch.utils import prng
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
 from neural_imaging_tpu_torch.utils.utils import format_patch_shape
 
@@ -103,10 +104,11 @@ class INetCore(nn.Module):
         return ops.st_clip(y)
 
 
-def _conv_layer(cin, cout, k, generator, padding=0, bias=True):
-    """An ``nn.Conv2d`` with flax's default init (LeCun normal, zero bias)."""
+def _conv_layer(cin, cout, k, key, padding=0, bias=True):
+    """An ``nn.Conv2d`` with flax's default init (LeCun normal from the
+    parameter key ``key``, zero bias)."""
     m = nn.utils.skip_init(nn.Conv2d, cin, cout, k, padding=padding, bias=bias)
-    return flax_default_init(m, cin * k * k, generator)
+    return flax_default_init(m, key)
 
 
 def _apply_conv(layer, h, dtype):
@@ -130,26 +132,31 @@ class UNetCore(nn.Module):
     head, TF-order depth_to_space and the straight-through clip."""
 
     def __init__(self, n_steps=5, activation='leaky_relu', dtype=torch.float32,
-                 in_channels=4, generator=None):
+                 in_channels=4, seed=0):
         super().__init__()
-        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        root = prng.prng_key(seed)
+
+        def conv(name, cin, cout):
+            setattr(self, name, _conv_layer(cin, cout, 3, prng.flax_param_key(root, name),
+                                            padding=1))
         self.n_steps = n_steps
         self.act = ops.ACTIVATIONS[activation]
         self.compute_dtype = dtype
         cin = in_channels
         for n in range(1, n_steps + 1):
             ch = 32 * 2 ** (n - 1)
-            setattr(self, f'enc{n}_1', _conv_layer(cin, ch, 3, g, padding=1))
-            setattr(self, f'enc{n}_2', _conv_layer(ch, ch, 3, g, padding=1))
+            conv(f'enc{n}_1', cin, ch)
+            conv(f'enc{n}_2', ch, ch)
             cin = ch
         for n in range(1, n_steps):
             ch = 32 * 2 ** (n_steps - n - 1)
             up = nn.utils.skip_init(nn.ConvTranspose2d, cin, ch, 2, stride=2)
-            setattr(self, f'dec{n}_up', flax_default_init(up, cin * 4, g))
-            setattr(self, f'dec{n}_1', _conv_layer(2 * ch, ch, 3, g, padding=1))
-            setattr(self, f'dec{n}_2', _conv_layer(ch, ch, 3, g, padding=1))
+            setattr(self, f'dec{n}_up',
+                    flax_default_init(up, prng.flax_param_key(root, f'dec{n}_up')))
+            conv(f'dec{n}_1', 2 * ch, ch)
+            conv(f'dec{n}_2', ch, ch)
             cin = ch
-        self.head = _conv_layer(cin, 12, 3, g, padding=1)
+        conv('head', cin, 12)
 
     def forward(self, x):
         """(N, 4, h, w) RAW stack → (N, 3, 2h, 2w) RGB; h and w divisible by
@@ -184,18 +191,19 @@ class DNetCore(nn.Module):
     weights 1)."""
 
     def __init__(self, n_layers=15, kernel=3, n_features=64, dtype=torch.float32,
-                 in_channels=4, generator=None):
+                 in_channels=4, seed=0):
         super().__init__()
-        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        root = prng.prng_key(seed)
         self.n_layers = n_layers
         self.kernel = kernel
         self.compute_dtype = dtype
         cin = in_channels
         for r in range(n_layers):
             feats = 12 if r == n_layers - 1 else n_features
-            setattr(self, f'conv{r}', _conv_layer(cin, feats, kernel, g))
+            setattr(self, f'conv{r}',
+                    _conv_layer(cin, feats, kernel, prng.flax_param_key(root, f'conv{r}')))
             cin = feats
-        self.project = _conv_layer(6, n_features, kernel, g)
+        self.project = _conv_layer(6, n_features, kernel, prng.flax_param_key(root, 'project'))
         self.to_rgb = nn.utils.skip_init(nn.Conv2d, n_features, 3, 1, bias=False)
         with torch.no_grad():
             self.to_rgb.weight.fill_(1.0)
@@ -234,9 +242,9 @@ class DemosaicingModule(nn.Module):
     direct form is the CNN with a sigmoid output."""
 
     def __init__(self, c_filters=(), kernel=5, activation='leaky_relu', residual=True,
-                 generator=None):
+                 seed=0, scope=()):
         super().__init__()
-        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        root = prng.prng_key(seed)
         self.c_filters = tuple(c_filters)
         self.kernel = kernel
         self.act = ops.ACTIVATIONS[activation]
@@ -244,10 +252,11 @@ class DemosaicingModule(nn.Module):
         pad = (kernel - 1) // 2
         cin = 3
         for i, nf in enumerate(self.c_filters):
-            setattr(self, f'conv{i}', _conv_layer(cin, nf, kernel, g, padding=pad))
+            setattr(self, f'conv{i}', _conv_layer(
+                cin, nf, kernel, prng.flax_param_key(root, (*scope, f'conv{i}')), padding=pad))
             cin = nf
         if self.c_filters or not residual:
-            self.out = _conv_layer(cin, 3, 1, g)
+            self.out = _conv_layer(cin, 3, 1, prng.flax_param_key(root, (*scope, 'out')))
         if residual:
             self.alpha = nn.Parameter(torch.tensor(0.1, dtype=torch.float32))
             self.register_buffer('bilinear', ops.hwio_to_oihw(bilin_kernel(kernel)),
@@ -286,14 +295,14 @@ class ClassicISPCore(nn.Module):
     [1/255, 1] → gamma 1/2.2."""
 
     def __init__(self, kernel=5, c_filters=(), cfa_pattern='gbrg', residual=True,
-                 brightness='', generator=None):
+                 brightness='', seed=0):
         super().__init__()
         self.brightness = brightness
         self.register_buffer('upsampling', torch.zeros(12, 4, 1, 1), persistent=False)
         self.register_buffer('srgb', torch.eye(3), persistent=False)
         self.set_cfa_pattern(cfa_pattern)
         self.demosaicing = DemosaicingModule(c_filters, kernel, 'leaky_relu', residual,
-                                             generator)
+                                             seed, scope=('demosaicing',))
 
     def set_cfa_pattern(self, cfa_pattern):
         upk = ops.hwio_to_oihw(upsampling_kernel(cfa_pattern).reshape(1, 1, 4, 12))

@@ -24,7 +24,8 @@ codeword loop over (N,) tensors (``*_plain``), a registered operator
 ``codebook_bwd_train``: ``registry``) that launches it, a work function
 (``*_work``: one launch's instructions and bytes, which bound it) and a
 dispatcher that takes the plain version for a CPU tensor and the operator
-for a CUDA tensor.
+for a CUDA tensor. Each launcher counts its launches (``launches``) and
+the launches at each N (``sizes``).
 
 Around them, in plain PyTorch as in the reference: the per-codeword counts
 (a fixed-size ``index_add_`` of the hard indices, ``bincount``'s counts
@@ -38,6 +39,7 @@ data-parallel step the entropy is the global latent's: the counts are
 summed over the ranks, and K3 and K4 run on a rank's values with the
 global divisor (``_forward``, ``_per_global_n``).
 """
+import collections
 import ctypes
 import functools
 
@@ -187,10 +189,12 @@ def codebook_fwd_cuda(z, codebook, v=50.0, gamma=25.0):
                                       hard.data_ptr(), device.index or 0, stream),
               'codebook_fwd')
     codebook_fwd_cuda.launches += 1
+    codebook_fwd_cuda.sizes[n] += 1
     return soft, hard
 
 
 codebook_fwd_cuda.launches = 0
+codebook_fwd_cuda.sizes = collections.Counter()     # launches by N
 
 
 def _scalar(value, like):
@@ -312,10 +316,12 @@ def codebook_bwd_cuda(z, g, codebook, per_codeword, v=50.0, gamma=25.0):
                                       device.index or 0, stream),
               'codebook_bwd')
     codebook_bwd_cuda.launches += 1
+    codebook_bwd_cuda.sizes[n] += 1
     return dz
 
 
 codebook_bwd_cuda.launches = 0
+codebook_bwd_cuda.sizes = collections.Counter()     # launches by N
 
 
 def _dz_plain(z, g, codebook, per_codeword, v, gamma):
@@ -374,10 +380,12 @@ def codebook_bwd_train_cuda(z, g, codebook, per_codeword, v=50.0, gamma=25.0):
         float(v), float(gamma), blocks, dz.data_ptr(), partial.data_ptr(), dcb.data_ptr(),
         device.index or 0, stream), 'codebook_bwd_train')
     codebook_bwd_train_cuda.launches += 1
+    codebook_bwd_train_cuda.sizes[n] += 1
     return dz, dcb
 
 
 codebook_bwd_train_cuda.launches = 0
+codebook_bwd_train_cuda.sizes = collections.Counter()     # launches by N
 
 
 def codebook_bwd_train_plain(z, g, codebook, per_codeword, v=50.0, gamma=25.0):

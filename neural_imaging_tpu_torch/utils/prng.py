@@ -1,14 +1,14 @@
 """
 The draws by which the JAX package's flax models are initialized from a
 seed, in numpy: ``jax.random``'s default generator (threefry2x32, in the
-partitionable layout of its random bits), ``PRNGKey``, ``fold_in``, flax's
-fold-in of a parameter's module path and counter, and float32 ``uniform``
-and ``truncated_normal`` with XLA's single-precision inverse error function.
-A layer initialized from ``flax_param_key(seed, name)`` starts from the
-weights that the JAX package's layer of that name draws from
-``PRNGKey(seed)``, so a run of the port and one of the reference start from
-the same model (within an ulp or two where XLA's float32 arithmetic rounds
-otherwise).
+partitionable layout of its random bits), ``PRNGKey``, ``fold_in``,
+``split``, flax's fold-in of a parameter's module path and counter, and
+float32 ``uniform`` and ``truncated_normal`` with XLA's single-precision
+inverse error function. A layer initialized from ``flax_param_key(key,
+path)`` starts from the weights that the JAX package's layer at that path
+draws when its flax module is initialized from ``key``, so a run of the port
+and one of the reference start from the same model (within an ulp or two
+where XLA's float32 arithmetic rounds otherwise).
 """
 import hashlib
 import math
@@ -66,6 +66,13 @@ def fold_in(key, data):
     return np.array([a[0], b[0]], np.uint32)
 
 
+def split(key, num=2):
+    """``jax.random.split(key, num)`` in the partitionable layout: the
+    Threefry hash of a 64-bit iota, its two words the new keys' two words."""
+    b1, b2 = threefry2x32(key, np.zeros(num, np.uint32), np.arange(num, dtype=np.uint32))
+    return np.stack([b1, b2], axis=1)
+
+
 def fold_in_static(key, parts):
     """flax's fold-in of static data: the first 4 bytes of the SHA-1 of the
     parts (a string's UTF-8, an int's big-endian bytes) as one ``fold_in``."""
@@ -82,12 +89,12 @@ def fold_in_static(key, parts):
     return fold_in(key, int.from_bytes(m.digest()[:4], byteorder='big'))
 
 
-def flax_param_key(seed, path, counter=1):
-    """The key flax's ``init(PRNGKey(seed), ...)`` gives the ``counter``-th
-    parameter drawn in the module at ``path`` (a name or a tuple of names
-    from the root): a conv's or dense layer's kernel is its first."""
+def flax_param_key(key, path, counter=1):
+    """The key flax's ``init(key, ...)`` gives the ``counter``-th parameter
+    drawn in the module at ``path`` (a name or a tuple of names from the
+    root): a conv's or dense layer's kernel is its first."""
     path = (path,) if isinstance(path, str) else tuple(path)
-    return fold_in_static(prng_key(seed), (*path, counter))
+    return fold_in_static(key, (*path, counter))
 
 
 def random_bits32(key, n):
@@ -135,9 +142,11 @@ def truncated_normal(key, lower, upper, shape):
                    np.nextafter(upper, np.float32(-np.inf))).astype(np.float32)
 
 
-def lecun_normal(key, shape, fan_in):
-    """flax's default kernel init (``lecun_normal``): a standard normal
-    truncated to (-2, 2), scaled to variance 1/fan_in, in float32."""
-    variance = np.float32(1.0 / fan_in)
+def lecun_normal(key, shape):
+    """flax's default kernel init (``lecun_normal``) of a kernel in flax's
+    layout (the input features second to last, the output's last): a
+    standard normal truncated to (-2, 2), scaled to variance 1/fan_in, in
+    float32."""
+    variance = np.float32(1.0 / math.prod(shape[:-1]))
     stddev = np.sqrt(variance) / np.float32(TRUNCATED_STD)
     return (truncated_normal(key, -2, 2, shape) * stddev).astype(np.float32)

@@ -1,192 +1,170 @@
-"""How the framework scenarios' gated metrics spread from run to run, and what
-moves them (the numbers in PERF.md's findings on the framework harness).
+"""How often a scenario of ``config/tests/framework.json`` meets its gate,
+and how busy it keeps the card (the numbers in PERF.md's findings on the
+framework harness).
 
-    # train-manipulation with the FAN drawn from each seed, in either package
-    JAX_PLATFORMS=cpu python tests/support/framework_spread.py fan-seeds \\
-        --package jax --seeds 0,1,2 --root /tmp/spread
-    # the port's run from the JAX FAN's initial weights for a seed
-    JAX_PLATFORMS=cpu python tests/support/framework_spread.py fan-from-jax --seeds 0 ...
-    # train-dcn with K2/K3 or their plain versions, the augmentations seeded
-    python tests/support/framework_spread.py dcn --device cuda --modes kernel,plain \\
-        --seeds 1,2,3 --root /tmp/spread
-    # the JAX package's train-dcn, the augmentations seeded (the CPU)
-    JAX_PLATFORMS=cpu python tests/support/framework_spread.py dcn --package jax --seeds 1 ...
-    # digests of the initial weights of the scenarios' DCN and FAN, to compare machines
-    python tests/support/framework_spread.py init-digests --root /tmp/spread
+    # train-dcn 20 times through the port's CLI on the card
+    python tests/support/framework_spread.py train-dcn --runs 20 --root /tmp/spread
+    # the JAX package's train-dcn through its harness, on the CPU
+    JAX_PLATFORMS=cpu python tests/support/framework_spread.py train-dcn \\
+        --package jax --runs 3 --root /tmp/spread
+    # one run under torch.profiler: the card's busy share of its wall time
+    python tests/support/framework_spread.py train-dcn --profile --root /tmp/spread
+    # train-dcn in both packages with the augmentations drawn alike (the CPU)
+    JAX_PLATFORMS=cpu python tests/support/framework_spread.py train-dcn \
+        --matched 1,2,3 --device cpu --root /tmp/spread
 
-Each mode prints one ``RESULT`` line a run: the validation history of the
-scenario's gate metric and the first and last training losses. The data are
-the framework harness's fixtures under ``--root``; the manipulation modes
-start from the port's ``train-nip`` snapshot there (trained on the CPU if
-absent; both packages read it). JAX is imported only by the modes that run
-it, so ``dcn`` runs where there is none."""
+A run is the scenario as the spec and the harness give it, unseeded as the
+harness runs it: the port's CLI ``main`` called in this process on the
+harness's mapped argv (``--device`` appended), or the JAX harness's
+``run_scenario``, a subprocess. The scenarios it depends on run once
+first, where their artifacts are missing. Only a scenario that starts
+afresh (``--overwrite``) is run more than once. Each run prints one ``RESULT``
+line (its seconds and gate values); the last line counts the misses.
+``--matched SEEDS`` runs train-dcn's trainer in each package instead, on
+the spec's settings (its command parsed by the port CLI's parser, each
+package's codec, ``Dataset`` and ``train_dcn`` as its CLI calls them) with
+the augmentations drawn from one ``np.random.default_rng(seed)`` in both:
+the two runs then see the same weights, patches and augmentations, and
+each prints one ``MATCHED`` line. JAX is imported only with ``--package
+jax`` and ``--matched``."""
 import argparse
-import hashlib
-import json
+import importlib
 import os
 import sys
 import time
 
-import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
 from neural_imaging_tpu_torch.cli import test_framework as harness  # noqa: E402
-from neural_imaging_tpu_torch.data.dataset import Dataset  # noqa: E402
-from neural_imaging_tpu_torch.models import base, compression  # noqa: E402
-from neural_imaging_tpu_torch.ops.hopper import codebook  # noqa: E402
-from neural_imaging_tpu_torch.training.compression import train_dcn  # noqa: E402
-from neural_imaging_tpu_torch.training.manipulation import train_manipulation_nip  # noqa: E402
 from neural_imaging_tpu_torch.utils.device import resolve_device  # noqa: E402
-from neural_imaging_tpu_torch.workflows.manipulation_classification import (  # noqa: E402
-    ManipulationClassification)
-
-CAM = harness.DEFAULT_CAM
-# the train-manipulation scenario of config/tests/framework.json
-FLOW = dict(manipulations=['sharpen:1', 'gaussian:1'], trainable={'nip'}, raw_patch_size=32,
-            distribution={'downsampling': 'none', 'compression': 'none'},
-            fan_args={'n_convolutions': 2, 'n_filters': 16, 'n_dense': 1})
-TRAINING = {'camera_name': CAM, 'use_pretrained_nip': True, 'patch_size': 32, 'batch_size': 4,
-            'n_epochs': 61, 'learning_rate': 1e-4, 'lambda_nip': 0.1, 'lambda_dcn': 0.0,
-            'run_number': 0, 'augment': False, 'validation_schedule': 20}
-SPLIT = dict(n_images=6, v_images=2, val_rgb_patch_size=64, val_n_patches=2)
-# the train-dcn scenario
-DCN_TRAINING = {'n_epochs': 401, 'batch_size': 4, 'patch_size': 32, 'learning_rate': 1e-4,
-                'validation_schedule': 40}
-DCN_SPLIT = dict(load='y', n_images=16, v_images=2, val_rgb_patch_size=32, val_n_patches=2)
 
 
-def prepare(root, nip=True):
-    harness.prepare_data(root, CAM)
-    if nip and harness.missing_artifacts(harness.load_spec()['train-nip'], root, CAM):
-        ok, message, _ = harness.run_scenario('train-nip', harness.load_spec()['train-nip'],
-                                              root, CAM, 'cpu')
-        if not ok:
-            raise RuntimeError(f'train-nip: {message}')
+def run_in_process(module, argv):
+    importlib.import_module(module).main(argv)
+    return 0, ''
 
 
-def report(label, log_file, scope, metric):
-    with open(log_file) as f:
-        perf = json.load(f)[scope]['performance']
-    losses = perf['loss']['training']
-    print('RESULT', label, [round(x, 4) for x in perf[metric]['validation']], 'loss',
-          [round(x, 4) for x in losses[:2]], round(losses[-1], 4), flush=True)
+def port_run(name, spec, root, cam, device):
+    ok, message, _ = harness.run_scenario(name, spec, root, cam, device, run=run_in_process)
+    return ok, message
 
 
-def jax_fan_params(seed):
-    """The JAX flow of the scenario with its FAN drawn from ``seed``."""
-    import jax
-    import jax.numpy as jnp
-    from neural_imaging_tpu.workflows import ManipulationClassification as JaxFlow
-    flow = JaxFlow('INet', **FLOW)
-    flow.fan._init_params(seed)
-    flow.params = flow._collect_params()
-    flow.opt_state = flow._tx.init(flow._train_partition(flow.params))
-    flow._initial_params = jax.tree.map(jnp.copy, flow.params)
-    return flow
+def jax_run(name, spec, root, cam, device):
+    import test_framework as jax_harness
+    return jax_harness.run_scenario(name, spec, root, cam, platform='cpu')
 
 
-def manipulation_run(mode, package, seed, root):
-    out = os.path.join(root, 'spread', f'{mode}-{package}-{seed}')
-    directories = {'root': out, 'nip_snapshots': os.path.join(root, 'models', 'nip')}
-    data_dir = os.path.join(root, 'data', CAM)
-    if package == 'jax':
-        from neural_imaging_tpu.data.dataset import Dataset as JaxDataset
-        from neural_imaging_tpu.training import manipulation as jmanipulation
-        jmanipulation.train_manipulation_nip(jax_fan_params(seed), TRAINING,
-                                             JaxDataset(data_dir, **SPLIT), directories)
-    else:
-        flow = ManipulationClassification('INet', device='cpu', **{
-            **FLOW, 'fan_args': {**FLOW['fan_args'], 'seed': seed}})
-        if mode == 'fan-from-jax':
-            from flax import traverse_util
-            flat = traverse_util.flatten_dict(jax_fan_params(seed).fan.params, sep='/')
-            flow.fan.module.load_state_dict(
-                base.convert_params({k: np.asarray(v) for k, v in flat.items()}), strict=True)
-        train_manipulation_nip(flow, TRAINING, Dataset(data_dir, **SPLIT), directories)
-    report(f'{mode} {package} seed {seed}',
-           os.path.join(out, CAM, 'INet', 'ln-0.1000', 'fixed-codec', '000', 'training.json'),
-           'forensics', 'accuracy')
+def profile_run(name, spec, root, cam, device):
+    """One run under ``torch.profiler``; prints the card's busy time and
+    share of the run's wall time and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ok, message = port_run(name, spec, root, cam, device)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    print(f'PROFILE {name}: wall {wall:.2f} s, device {busy:.2f} s, busy {100 * busy / wall:.1f}%, '
+          f'{sum(e.count for e in events)} device ops', flush=True)
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+        print(f'PROFILE   {e.self_device_time_total / 1e6:8.3f} s x{e.count:7d} {e.key[:90]}',
+              flush=True)
+    return ok, message
 
 
-def jax_dcn_run(seed, root):
+def matched_runs(spec, root, cam, device, seeds):
+    """train-dcn's trainer in both packages from one augmentation seed."""
+    import json
+    import numpy as np
     from neural_imaging_tpu.data.dataset import Dataset as JaxDataset
     from neural_imaging_tpu.models import compression as jcompression
-    from neural_imaging_tpu.training import compression as jtraining
-    t0 = time.perf_counter()
-    dcn = jcompression.TwitterDCN(patch_size=32, n_features=32)
-    out = os.path.join(root, 'spread', f'dcn-jax-{seed}')
-    jtraining.train_dcn(dcn, DCN_TRAINING, JaxDataset(os.path.join(root, 'data', 'rgb'),
-                                                       **DCN_SPLIT),
-                        directory=out, rng=np.random.default_rng(seed))
-    report(f'dcn jax seed {seed} {time.perf_counter() - t0:.1f} s',
-           os.path.join(out, dcn.model_code, dcn.scoped_name, 'progress.json'), 'codec', 'ssim')
-
-
-def dcn_run(device, mode, seed, root):
-    plain = mode == 'plain'
-    kernels = codebook.codebook_fwd, codebook.codebook_bwd
-    if plain:
-        codebook.codebook_fwd, codebook.codebook_bwd = (codebook.codebook_fwd_plain,
-                                                        codebook.codebook_bwd_plain)
-    try:
-        t0 = time.perf_counter()
-        dcn = compression.TwitterDCN(patch_size=32, device=device, n_features=32)
-        out = os.path.join(root, 'spread', f'dcn-{device}-{mode}-{seed}')
-        train_dcn(dcn, DCN_TRAINING, Dataset(os.path.join(root, 'data', 'rgb'), **DCN_SPLIT),
-                  directory=out, rng=np.random.default_rng(seed))
-    finally:
-        codebook.codebook_fwd, codebook.codebook_bwd = kernels
-    report(f'dcn {device} {mode} seed {seed} {time.perf_counter() - t0:.1f} s',
-           os.path.join(out, dcn.model_code, dcn.scoped_name, 'progress.json'), 'codec', 'ssim')
-
-
-def init_digests():
-    """SHA-1 prefixes of the port's initial TwitterDCN-32C and scenario FAN
-    weights from their default seeds, with the torch and numpy versions."""
-    from neural_imaging_tpu_torch.models import forensics
-
-    def digest(module):
-        h = hashlib.sha1()
-        for _, value in sorted(module.state_dict().items()):
-            h.update(value.detach().cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
-    dcn = compression.TwitterDCN(patch_size=32, n_features=32, device='cpu')
-    fan = forensics.FAN(n_classes=3, patch_size=64, device='cpu', **FLOW['fan_args'])
-    print('RESULT torch', torch.__version__, 'numpy', np.__version__, 'dcn', digest(dcn.module),
-          'fan', digest(fan.module), flush=True)
+    from neural_imaging_tpu.training.compression import train_dcn as jax_train_dcn
+    from neural_imaging_tpu_torch.cli import train_dcn as cli
+    from neural_imaging_tpu_torch.data.dataset import Dataset
+    from neural_imaging_tpu_torch.models import compression
+    from neural_imaging_tpu_torch.training.compression import train_dcn
+    module, argv = harness.port_command(spec['command'], root, cam, device)
+    if module != cli.__name__:
+        raise SystemExit(f'--matched runs train_dcn scenarios, not {module}')
+    args = cli.build_parser().parse_args(argv)
+    n_images, v_images, val_n_patches = cli.parse_split(args.split)
+    split = dict(load='y', n_images=n_images, v_images=v_images,
+                 val_rgb_patch_size=args.patch, val_n_patches=val_n_patches)
+    training = {'n_epochs': args.epochs, 'batch_size': args.batch, 'patch_size': args.patch,
+                'learning_rate': args.lr, 'validation_schedule': args.val_schedule}
+    params = cli.parse_json_arg(args.params)
+    for seed in seeds:
+        for package in ('jax', 'port'):
+            out = os.path.join(root, 'matched', f'{package}-{seed}')
+            if package == 'jax':
+                directory = jax_train_dcn(
+                    getattr(jcompression, args.dcn)(patch_size=args.patch, **params),
+                    dict(training), JaxDataset(args.data, **split), directory=out,
+                    overwrite=True, rng=np.random.default_rng(seed))
+            else:
+                directory = train_dcn(
+                    getattr(compression, args.dcn)(patch_size=args.patch, device=device,
+                                                   **params),
+                    dict(training), Dataset(args.data, **split), directory=out,
+                    overwrite=True, rng=np.random.default_rng(seed))
+            with open(os.path.join(directory, 'progress.json')) as f:
+                perf = json.load(f)['codec']['performance']
+            tail = slice(-(len(perf['loss']['training']) // 4), None)
+            print('MATCHED', package, 'seed', seed, 'loss last quarter',
+                  round(float(np.mean(perf['loss']['training'][tail])), 4), 'entropy',
+                  round(float(np.mean(perf['entropy']['training'][tail])), 4), 'ssim',
+                  round(perf['ssim']['validation'][-1], 4), flush=True)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('mode', choices=['fan-seeds', 'fan-from-jax', 'dcn', 'init-digests'])
+    parser.add_argument('scenario')
+    parser.add_argument('--runs', type=int, default=1)
     parser.add_argument('--package', default='port', choices=['port', 'jax'])
-    parser.add_argument('--device', default='cuda')
-    parser.add_argument('--modes', default='kernel,plain', help='dcn: kernel and/or plain')
-    parser.add_argument('--seeds', default='0')
+    parser.add_argument('--device', default='cuda', help="the port's: 'cuda' (default) or 'cpu'")
+    parser.add_argument('--profile', action='store_true', help='one port run, profiled')
+    parser.add_argument('--matched', default=None, help='train-dcn: seeds, both packages')
     parser.add_argument('--root', required=True)
     args = parser.parse_args(argv)
-    torch.set_num_threads(1)
-    seeds = [int(s) for s in args.seeds.split(',')]
-    if args.mode == 'init-digests':
-        init_digests()
-    elif args.mode == 'dcn':
-        prepare(args.root, nip=False)
-        if args.package == 'jax':
-            for seed in seeds:
-                jax_dcn_run(seed, args.root)
-            return
+    scenarios = harness.load_spec()
+    if args.runs > 1 and '--overwrite' not in scenarios[args.scenario]['command']:
+        parser.error(f'{args.scenario} continues its last run: it can be run once')
+    cam = harness.DEFAULT_CAM
+    if args.package == 'port':
         resolve_device(args.device)
-        for mode in args.modes.split(','):
-            for seed in seeds:
-                dcn_run(args.device, mode, seed, args.root)
-    else:
-        prepare(args.root)
-        for seed in seeds:
-            manipulation_run(args.mode, 'port' if args.mode == 'fan-from-jax' else args.package,
-                             seed, args.root)
+    os.makedirs(args.root, exist_ok=True)
+    harness.prepare_data(args.root, cam)
+    if args.matched:
+        return matched_runs(scenarios[args.scenario], args.root, cam, args.device,
+                            [int(seed) for seed in args.matched.split(',')])
+    run = jax_run if args.package == 'jax' else port_run
+    for dep in harness.DEPENDENCIES.get(args.scenario, ()):
+        if harness.missing_artifacts(scenarios[dep], args.root, cam):
+            ok, message = run(dep, scenarios[dep], args.root, cam, args.device)
+            if not ok:
+                raise RuntimeError(f'{dep}: {message}')
+    if args.profile:
+        run, args.runs = profile_run, 1
+    spec, misses = scenarios[args.scenario], 0
+    for i in range(args.runs):
+        t0 = time.perf_counter()
+        ok, message = run(args.scenario, spec, args.root, cam, args.device)
+        seconds = time.perf_counter() - t0
+        values = (harness.gate_values(spec, args.root, cam)
+                  if not harness.missing_artifacts(spec, args.root, cam) else {})
+        misses += not ok
+        print('RESULT', args.package, args.scenario, i, f'{seconds:.1f} s',
+              'PASS' if ok else 'MISS', {k: v for k, (v, _) in values.items()}, message,
+              flush=True)
+    print(f'SPREAD {args.package} {args.scenario}: {misses} of {args.runs} runs missed the gate',
+          flush=True)
 
 
 if __name__ == '__main__':

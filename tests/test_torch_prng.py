@@ -1,13 +1,13 @@
 """The port's numpy counterparts of ``jax.random`` and of flax's key
 derivation (``utils/prng.py``) against jax and flax on the CPU, and the
-port's FAN initialized from a seed against the JAX package's FAN from
-``PRNGKey(seed)``.
+port's models initialized from a seed (the FAN, the camera ISPs, the DCN)
+against the JAX package's from ``PRNGKey(seed)``.
 
 Keys, ``fold_in`` and random bits are exact, as is ``uniform`` (its
 multiply-add rounded once, as XLA's CPU code fuses it). The inverse error
 function differs from XLA's by at most ``ERFINV_ULPS`` ulps (XLA's own
 float32 ``log1p``; numpy's rounds otherwise in ~1.5% of values), so the
-truncated normal draws and the FAN's initial weights agree within
+truncated normal draws and the models' initial weights agree within
 ``WEIGHT_ULPS`` ulps, ~98% of them bit for bit."""
 import jax
 import jax.numpy as jnp
@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 from flax import traverse_util
 
+from neural_imaging_tpu.models import compression as jcompression
 from neural_imaging_tpu.models import forensics as jforensics
-from neural_imaging_tpu_torch.models import base, forensics
+from neural_imaging_tpu.models import pipelines as jpipelines
+from neural_imaging_tpu_torch.models import base, compression, forensics, pipelines
 from neural_imaging_tpu_torch.utils import prng
 
 ERFINV_ULPS, WEIGHT_ULPS = 2, 4
@@ -35,6 +37,14 @@ def test_prng_key_and_fold_in_are_jax_s(seed):
         np.testing.assert_array_equal(prng.fold_in(key, data),
                                       np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed),
                                                                     data)))
+
+
+@pytest.mark.parametrize('seed', [0, 1, 29, -5])
+@pytest.mark.parametrize('num', [1, 2, 3])
+def test_split_is_jax_s(seed, num):
+    ref = jax.random.split(jax.random.PRNGKey(seed), num)
+    np.testing.assert_array_equal(prng.split(prng.prng_key(seed), num),
+                                  np.asarray(jax.random.key_data(ref)))
 
 
 def test_prng_key_refuses_a_seed_outside_int32():
@@ -94,3 +104,34 @@ def test_fan_initial_weights_are_the_reference_s(fan_args, seed):
         value = np.asarray(value)
         assert port[name].shape == value.shape, name
         assert ulps(port[name].numpy(), value).max() <= WEIGHT_ULPS, name
+
+
+def assert_initial_weights_match(port_module, ref_params):
+    """Every parameter and buffer of the port's state equals the JAX
+    model's initial value of that name within ``WEIGHT_ULPS``."""
+    flat = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(ref_params, sep='/').items()}
+    expected = base.convert_params(flat, base.transposed_kernels(port_module))
+    port = {k: v for k, v in port_module.state_dict().items()}
+    assert port.keys() == expected.keys()
+    for name, value in expected.items():
+        assert port[name].shape == value.shape, name
+        assert ulps(port[name].numpy(), value.numpy()).max() <= WEIGHT_ULPS, name
+
+
+@pytest.mark.parametrize('name, kwargs', [
+    ('UNet', {'n_steps': 3}), ('UNet', {}), ('DNet', {'n_layers': 3, 'n_features': 8}),
+    ('ClassicISP', {'c_filters': (8, 8)}),
+    ('ClassicISP', {'c_filters': (8,), 'residual': False}), ('ClassicISP', {})],
+    ids=['unet3', 'unet5', 'dnet', 'classic_residual', 'classic_direct', 'classic_bilinear'])
+def test_isp_initial_weights_are_the_reference_s(name, kwargs):
+    ref = getattr(jpipelines, name)(patch_size=32, **kwargs)
+    port = getattr(pipelines, name)(patch_size=32, device='cpu', **kwargs)
+    assert_initial_weights_match(port.module, ref.params)
+
+
+@pytest.mark.parametrize('kwargs', [{'n_features': 32}, {'n_features': 8, 'train_codebook': True}],
+                         ids=['framework', 'trainable'])
+def test_dcn_initial_weights_are_the_reference_s(kwargs):
+    ref = jcompression.TwitterDCN(patch_size=32, **kwargs)
+    port = compression.TwitterDCN(patch_size=32, device='cpu', **kwargs)
+    assert_initial_weights_match(port.module, ref.params)
