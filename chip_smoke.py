@@ -11,8 +11,10 @@ NVIDIA GPU:
    shapes its path gives it, and time both (CUDA events, L2 flushed; a
    kernel's time is the device's alone, see ``time_ms``), and each of its
    launches (``torch.profiler``): K1 (dJPEG core; also at the DCN flow's
-   and the 8-class flow's channel shapes), K2 (codebook quantizer), K3 and
-   K4 (its backwards);
+   and the 8-class flow's channel shapes and at ragged edge shapes up to
+   the D90's whole image, each beside ``copy_ms``, the card's time for a
+   copy with K1's traffic), K2 (codebook quantizer), K3 and K4 (its
+   backwards);
 4. manipulation classification: restore the shipped ``m_quality`` run (INet
    → 4 manipulations → pool → JPEG QF 50 → FAN, full width) and answer
    requests of raw 128-px patches with ``run_workflow_to_decisions``; check
@@ -154,10 +156,15 @@ NVIDIA GPU:
    called in this process on the harness's mapped argv), checks each
    scenario's artifacts and gates with the harness's functions, and reads
    the launch counts around each scenario: K2 and K3 in the two DCN
-   scenarios, no kernel in the others. It prints the N of each launch
-   and, after the scenarios, holds K2 and K3 (and K4) against their plain
-   versions at each of those N;
-19. print one JSON line of the kernels, then the last line
+   scenarios, no kernel in the others. The two DCN scenarios' host
+   augmentations draw from ``np.random.default_rng(--seed)`` (the command
+   line and the harness's own runs stay unseeded). It prints the N of each
+   launch and, after the scenarios, holds K2 and K3 (and K4) against their
+   plain versions at each of those N;
+19. K1 at every shape the paths above launched it at in this process
+   (``jpeg_core_cuda.sizes``, tallied by ``read_counts``) against its plain
+   version, timed;
+20. print one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path runs with every launch count set to 0 just before it and is read
@@ -169,6 +176,8 @@ Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before doing anything.
 """
 import argparse
+import collections
+import functools
 import hashlib
 import importlib
 import json
@@ -510,6 +519,33 @@ def format_launches(launch_ms):
     return ', '.join(f'{name} {ms:.4f} ms' for name, ms in launch_ms.items())
 
 
+def copy_ms(planes, reps, flush):
+    """Device ms of one copy with K1's traffic on ``planes``: float32 to
+    float64, one kernel that reads 4 and writes 8 bytes a pixel, timed as
+    ``time_ms`` times a kernel. The rate the card delivers for K1's bytes,
+    not a library call computing K1's function."""
+    out = torch.empty(planes.shape, dtype=torch.float64, device=planes.device)
+    return time_ms(lambda: out.copy_(planes), reps, flush)
+
+
+def k1_inputs(p, h, w, quality, gen, device):
+    """Centered planes (P, H, W) from ``gen`` and their q-tables at
+    ``quality``, luma then chroma twice, repeated."""
+    planes = (torch.rand((p, h, w), generator=gen) * 255 - 127).to(device)
+    q_luma, q_chroma = qtables(quality, device)
+    q = torch.stack([q_luma, q_chroma, q_chroma]).repeat(-(-p // 3), 1, 1)[:p].contiguous()
+    return planes, q
+
+
+def k1_bound(shape):
+    """(least ms, 'bytes' or 'operations') of a K1 launch on planes of
+    ``shape``: its FLOPs at the f32 rate, its bytes at the memory rate."""
+    flops, bytes_moved = jpeg8x8.jpeg_core_work(shape)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
+
+
 def check_k1(name, planes, q, reps, flush):
     """K1 against its plain version on the card at one shape; returns its record."""
     y_k, c_k = jpeg8x8.jpeg_core_cuda(planes, q)
@@ -522,18 +558,17 @@ def check_k1(name, planes, q, reps, flush):
         plain_ms = time_ms(lambda: jpeg8x8.jpeg_core_plain(planes, q), reps, flush,
                            device_only=False)
         launch_ms = kernel_ms(lambda: jpeg8x8.jpeg_core_cuda(planes, q), reps, flush)
+        copy = copy_ms(planes, reps, flush)
     p, h, w = planes.shape
-    flops, bytes_moved = jpeg8x8.jpeg_core_work(planes.shape, q.shape)
-    bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / F32_FLOP_PER_S * 1e3
+    bound_ms, bound_by = k1_bound(planes.shape)
     record = {'shape': name, 'P': p, 'H': h, 'W': w, 'ms': ms, 'plain_ms': plain_ms,
-              'launch_ms': launch_ms, 'bound_ms': max(bound_bytes_ms, bound_ops_ms),
-              'bound_by': 'bytes' if bound_bytes_ms >= bound_ops_ms else 'operations',
-              **report}
+              'launch_ms': launch_ms, 'copy_ms': copy, 'bound_ms': bound_ms,
+              'bound_by': bound_by, **report}
     print(f'[k1] {name}: P={p} {h}x{w} flipped={report["flipped"]}/{report["coefficients"]} '
           f'max|dy| clean blocks={report["max_abs_err"]:.3g} all={report["max_abs_err_all"]:.3g} '
-          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {record["bound_ms"]:.4f} ms '
-          f'({record["bound_by"]}); launches {format_launches(launch_ms)}', flush=True)
+          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, copy {copy:.4f} ms, bound '
+          f'{record["bound_ms"]:.4f} ms ({record["bound_by"]}); launches '
+          f'{format_launches(launch_ms)}', flush=True)
     return record
 
 
@@ -605,14 +640,25 @@ COUNTERS = {'jpeg8x8': jpeg8x8.jpeg_core_cuda,
             'codebook_bwd_train': codebook.codebook_bwd_train_cuda}
 
 
+# K1's launches by (P, H, W) on the paths of this process: what each window
+# from zero_counts to read_counts launched, each launch once
+K1_PATH_SIZES = collections.Counter()
+_K1_TALLIED = collections.Counter()
+
+
 def zero_counts():
     for wrapper in COUNTERS.values():
         wrapper.launches = 0
         if hasattr(wrapper, 'sizes'):
             wrapper.sizes.clear()
+    _K1_TALLIED.clear()
 
 
 def read_counts():
+    sizes = jpeg8x8.jpeg_core_cuda.sizes
+    K1_PATH_SIZES.update(sizes - _K1_TALLIED)
+    _K1_TALLIED.clear()
+    _K1_TALLIED.update(sizes)
     return {name: wrapper.launches for name, wrapper in COUNTERS.items()}
 
 
@@ -3395,15 +3441,26 @@ def tooling_phase(args, device, medians_ms):
     return counts, results
 
 
+# K1's ragged shapes (P, H, W), checked after its paths' shapes
+K1_EDGE_SHAPES = ((1, 8, 8), (3, 64, 136), (3, 48, 392), (3, 8, 4288), (3, 2848, 4288))
+
+
 # the scenarios of config/tests/framework.json that train the DCN with a fixed
 # codebook: K2 forward and K3 backward; the others run no kernel of the port
 FRAMEWORK_DCN = ('train-dcn', 'train-manipulation-dcn')
 
 
-def run_cli_in_process(module, argv):
+def run_cli_in_process(module, argv, seed=None):
     """The harness's runner for this process: a port CLI's ``main(argv)``;
-    whatever it raises propagates."""
-    importlib.import_module(module).main(argv)
+    whatever it raises propagates. With ``seed``, ``train_dcn``'s host
+    augmentations draw from ``np.random.default_rng(seed)`` instead of fresh
+    entropy (its patches, weights and the other scenarios' draws already
+    come from fixed seeds: the datasets', the models', the flow's)."""
+    main = importlib.import_module(module).main
+    if seed is not None and module == 'neural_imaging_tpu_torch.cli.train_dcn':
+        main(argv, rng=np.random.default_rng(seed))
+    else:
+        main(argv)
     return 0, ''
 
 
@@ -3425,8 +3482,9 @@ def framework_phase(args, device, flush, gen):
             torch.cuda.synchronize()
             zero_counts()
             t0 = time.perf_counter()
-            ok, message, gates = framework.run_scenario(name, spec, root, cam, device.type,
-                                                        run=run_cli_in_process)
+            ok, message, gates = framework.run_scenario(
+                name, spec, root, cam, device.type,
+                run=functools.partial(run_cli_in_process, seed=args.seed))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts[name] = read_counts()
@@ -3457,7 +3515,7 @@ def framework_phase(args, device, flush, gen):
     bwd_n = {n for r in results.values() for n in r['launches_by_n']['codebook_bwd']}
     shapes = {n: check_codebook(f'framework N={n}', n, args.reps, flush, gen, device,
                                 backward=n in bwd_n) for n in sorted(fwd_n | bwd_n)}
-    return counts, {'data_s': data_s, 'scenarios': results}, shapes
+    return counts, {'data_s': data_s, 'augmentation_seed': args.seed, 'scenarios': results}, shapes
 
 
 def main():
@@ -3528,6 +3586,11 @@ def main():
     q_luma, q_chroma = qtables(int(flow.codec.quality), device)
     k1_manip7 = check_k1('manip7 channel QF50', planes, torch.stack(
         [q_luma, q_chroma, q_chroma]).repeat(n_manip7, 1, 1).contiguous(), args.reps, flush)
+    # ragged shapes: a lone tile, widths of 17 and 49 tiles, one tile row
+    # across the D90's width, the D90's whole image; each launch's grid walk
+    # ends part-way through its last step
+    k1_edges = [check_k1(f'edge P={p} {h}x{w}', *k1_inputs(p, h, w, 50, gen, device), args.reps,
+                         flush) for p, h, w in K1_EDGE_SHAPES]
 
     # 4. manipulation classification
     batches = [synthetic_raw(args.seed + i, args.batch, RAW_PATCH) for i in range(args.requests)]
@@ -3634,7 +3697,17 @@ def main():
                                                                             gen)
     print('[framework] ' + json.dumps(framework_results), flush=True)
 
-    # 19. results: K1's numbers are its two launches of one m_quality request,
+    # 19. K1 at every shape its paths launched it at in this process
+    print('[k1] launches on the paths by (P, H, W): ' + ', '.join(
+        f'{p}x{h}x{w}: {n}' for (p, h, w), n in sorted(K1_PATH_SIZES.items())), flush=True)
+    if not K1_PATH_SIZES:
+        raise AssertionError('[k1] the paths launched K1 at no shape')
+    k1_paths = [dict(check_k1(f'path P={p} {h}x{w}', *k1_inputs(p, h, w, 50, gen, device),
+                              args.reps, flush), path_launches=n)
+                for (p, h, w), n in sorted(K1_PATH_SIZES.items())]
+    print('[k1] ' + json.dumps({'edge_shapes': k1_edges, 'path_shapes': k1_paths}), flush=True)
+
+    # 20. results: K1's numbers are its two launches of one m_quality request,
     # summed; K2's and K3's times are at the DCN flow's shape (N = 409,600),
     # K4's at the DCN training step's; each kernel's error is its largest over
     # every shape it was checked at
@@ -3659,7 +3732,8 @@ def main():
                              + tooling_counts['jpeg8x8']
                              + sum(c['jpeg8x8'] for c in framework_counts.values())),
                 'parallel_launches_per_rank': [c['jpeg8x8'] for c in parallel_rank_counts],
-                'max_abs_err': max(r['max_abs_err'] for r in (*k1, k1_dcn_flow, k1_manip7)),
+                'max_abs_err': max(r['max_abs_err'] for r in (*k1, k1_dcn_flow, k1_manip7,
+                                                               *k1_edges, *k1_paths)),
                 'ms': sum(r['ms'] for r in k1),
                 'plain_ms': sum(r['plain_ms'] for r in k1),
                 'bound_ms': sum(r['bound_ms'] for r in k1),

@@ -65,7 +65,10 @@ def build_parser():
     return parser
 
 
-def main(argv=None):
+def main(argv=None, rng=None):
+    """The CLI on ``argv``. ``rng``: for callers in the same process, the
+    numpy generator of the host-fed augmentations (``train_dcn``'s; without
+    one each run draws from fresh entropy, as the command line does)."""
     args = build_parser().parse_args(argv)
     if args.fill is not None and args.fill != '-' and not args.fill.endswith('.csv'):
         raise SystemExit(f"--fill must be '-' or a .csv path, got {args.fill}")
@@ -74,12 +77,12 @@ def main(argv=None):
         return
     parallel = ptrain.from_cli_args(args, batch_size=args.batch)
     try:
-        _train(args, parallel)
+        _train(args, parallel, rng)
     finally:
         multihost.shutdown()
 
 
-def _train(args, parallel):
+def _train(args, parallel, rng=None):
 
     dcn_cls = getattr(compression, args.dcn, None)
     if not (isinstance(dcn_cls, type) and issubclass(dcn_cls, compression.DCN)):
@@ -104,7 +107,7 @@ def _train(args, parallel):
                         'patch_size': args.patch, 'learning_rate': args.lr,
                         'validation_schedule': args.val_schedule},
                   data, directory=args.out, overwrite=args.overwrite,
-                  device_data=args.device_data, resume=args.resume, parallel=parallel)
+                  device_data=args.device_data, resume=args.resume, parallel=parallel, rng=rng)
         if args.fill is not None:
             results_rows.append(result_row(args.out, params, dcn))
 

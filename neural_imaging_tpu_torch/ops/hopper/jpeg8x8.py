@@ -4,8 +4,10 @@ YCbCr plane, DCT → divide by the plane's q-table → round half to even →
 multiply back → inverse DCT.
 
 - :func:`jpeg_core_cuda` launches the hand-written CUDA kernel
-  (``csrc/jpeg8x8.cu``, built for sm_90a by ``_build``). It replaces the TPU
-  kernel ``neural_imaging_tpu/ops/pallas/jpeg8x8.py::_strip_kernel``.
+  (``csrc/jpeg8x8.cu``, built for sm_90a by ``_build``) with the geometry of
+  :func:`launch_plan`, and tallies its launches (``launches``) and their
+  shapes (``sizes``). It replaces the TPU kernel
+  ``neural_imaging_tpu/ops/pallas/jpeg8x8.py::_strip_kernel``.
 - :func:`jpeg_core_plain` is the same math in plain PyTorch (blockify →
   dct2d → round → idct2d). The CPU takes it; the GPU checks compare the
   kernel with it.
@@ -17,6 +19,7 @@ multiply back → inverse DCT.
   reference's backward is not a kernel either.
 - :func:`jpeg_core_work` is one launch's work, which bounds the kernel.
 """
+import collections
 import ctypes
 import functools
 import math
@@ -36,9 +39,72 @@ K1_FLOP_PER_PIXEL = 4 * 16 + 3
 def _launcher():
     from neural_imaging_tpu_torch.ops.hopper import _build
     fn = _build.load(LIBRARY).jpeg8x8_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache()
+def _residency(device_index):
+    """{'sms': the card's SMs, 'resident_warps': the warps of K1 an SM keeps
+    resident at ``MAX_BLOCK`` threads a block} on CUDA device
+    ``device_index``, from the CUDA runtime's occupancy of the built kernel."""
+    from neural_imaging_tpu_torch.ops.hopper import _build
+    fn = _build.load(LIBRARY).jpeg8x8_residency
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    sms, warps = ctypes.c_int(), ctypes.c_int()
+    err = fn(device_index, MAX_BLOCK, ctypes.byref(sms), ctypes.byref(warps))
+    if err != 0 or warps.value < 1:
+        raise RuntimeError(f'jpeg8x8 occupancy query failed with CUDA error {err}')
+    return {'sms': sms.value, 'resident_warps': warps.value}
+
+
+# The launch geometry (``csrc/jpeg8x8.cu``): a warp takes 4 neighbouring 8x8
+# tiles ("a group") at a time, 8 lanes a tile, and warps walk the groups at a
+# stride of the grid's warps. On the card the SMs and the resident warps come
+# from ``_residency``; these defaults are the H100's and the kernel's there.
+SMS = 132                       # H100 SXM
+RESIDENT_WARPS = 40
+TILES_PER_WARP = 4
+# A warp's ring keeps its next groups in flight, yet one wave of warps that
+# each walk many groups ran slower than more waves of warps that walk few
+# (the D90's whole image: 0.178-0.185 ms at 27-34 groups a warp, 0.157-0.160
+# at 1-2; NVIDIA H100 80GB HBM3, bench_jpeg8x8.py --plans): a warp takes up
+# to 3 groups where that fills one wave, else at most 2. Blocks of 128
+# threads ran 0-3% faster than of 256 (bench_jpeg8x8.py against a tree
+# that differs in that alone); the kernel takes up to 256
+MAX_GROUPS_PER_WARP = 2
+ONE_WAVE_GROUPS = 3
+MAX_BLOCK = 128
+MIN_BLOCK = 32
+MAX_TILES = 2 ** 31             # the kernel's 32-bit tile index
+
+
+def launch_plan(p, h, w, sms=SMS, resident_warps=RESIDENT_WARPS):
+    """(grid, block) of K1's launch on planes (P, H, W).
+
+    A launch of more groups of 4 tiles than the card holds warps (``sms`` x
+    ``resident_warps``) fills every resident slot where no warp then takes
+    more than ``ONE_WAVE_GROUPS``, else launches enough warps for
+    ``MAX_GROUPS_PER_WARP`` each, in blocks of 128 threads; the warps'
+    shares differ by at most one group. A smaller one gives each warp one
+    group, in blocks of 128 threads, halved (down to a warp) until there are
+    at least two blocks an SM, so that every SM takes a share."""
+    tiles = p * (h // 8) * (w // 8)
+    if tiles >= MAX_TILES:
+        raise ValueError(f'planes {(p, h, w)} exceed the kernel\'s {MAX_TILES} tiles')
+    groups = -(-tiles // TILES_PER_WARP)
+    resident = sms * resident_warps
+    if groups > resident:
+        warps = (resident if groups <= ONE_WAVE_GROUPS * resident
+                 else max(resident, -(-groups // MAX_GROUPS_PER_WARP)))
+        return -(-warps * 32 // MAX_BLOCK), MAX_BLOCK
+    block = MAX_BLOCK
+    while block > MIN_BLOCK and -(-groups * 32 // block) < 2 * sms:
+        block //= 2
+    return -(-groups * 32 // block), block
 
 
 def _check(planes, q_tables):
@@ -66,22 +132,26 @@ def jpeg_core_cuda(planes, q_tables):
     if not (planes.is_contiguous() and q_tables.is_contiguous()):
         raise ValueError('jpeg_core_cuda needs contiguous inputs')
     p, h, w = planes.shape
-    if p > 65535 or h // 8 > 65535:
-        raise ValueError(f'planes {tuple(planes.shape)} exceed the launch grid')
-    d = dct_ops.dct_tensor(planes.device)
+    grid, block = launch_plan(p, h, w, **_residency(planes.device.index or 0))
+    # 16-byte accesses: a contiguous view may start anywhere in its storage
+    planes, q_tables = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (planes, q_tables))
     y = torch.empty_like(planes)
     c = torch.empty_like(planes)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
-    err = _launcher()(planes.data_ptr(), q_tables.data_ptr(), d.data_ptr(),
-                      y.data_ptr(), c.data_ptr(), p, h, w, planes.device.index or 0,
-                      stream)
+    err = _launcher()(planes.data_ptr(), q_tables.data_ptr(), _DCT.ctypes.data,
+                      y.data_ptr(), c.data_ptr(), p, h, w, grid, block,
+                      planes.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f'jpeg8x8 kernel launch failed with CUDA error {err}')
     jpeg_core_cuda.launches += 1
+    jpeg_core_cuda.sizes[(p, h, w)] += 1
     return y, c
 
 
 jpeg_core_cuda.launches = 0
+jpeg_core_cuda.sizes = collections.Counter()     # launches by (P, H, W)
+# the DCT matrix, handed to the launcher, which holds it against its own
+_DCT = dct_ops.dct_matrix()
 
 
 def jpeg_core_work(planes_shape, q_tables_shape=None):

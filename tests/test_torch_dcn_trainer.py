@@ -257,6 +257,30 @@ def test_cli_trains_a_codec(data_dir, tmp_path):
     assert jcodec.restore(str(out)).model_code == 'TwitterDCN-8C/soft-codebook_Q-5bpf_S+_H+250.00'
 
 
+def test_cli_draws_augmentations_from_the_callers_generator(data_dir, tmp_path):
+    """``main(argv, rng=...)``, as ``chip_smoke.py``'s framework phase calls
+    it: two runs from one seed log the same losses, and those of
+    ``train_dcn`` with that seed's generator."""
+    args = ['--data', data_dir, '--split', '8:2:2', '--patch', str(PATCH), '--batch',
+            str(BATCH), '--epochs', '2', '--val-schedule', '1', '--params', "{'n_features': 8}",
+            '--device', 'cpu']
+    code = os.path.join('TwitterDCN-8C', 'soft-codebook_Q-5bpf_S+_H+250.00', 'twitterdcn')
+    losses = []
+    for run in ('a', 'b'):
+        cli.main([*args, '--out', str(tmp_path / run)], rng=np.random.default_rng(5))
+        losses.append(jsonlog.load_json(tmp_path / run / code / 'progress.json')
+                      ['codec']['performance']['loss']['training'])
+    out = training.train_dcn(
+        compression.TwitterDCN(patch_size=PATCH, device='cpu', n_features=8),
+        {'n_epochs': 2, 'batch_size': BATCH, 'patch_size': PATCH, 'validation_schedule': 1,
+         'learning_rate': LR},
+        Dataset(data_dir, load='y', n_images=8, v_images=2, val_rgb_patch_size=PATCH,
+                val_n_patches=2),
+        directory=str(tmp_path / 'direct'), rng=np.random.default_rng(5))
+    direct = jsonlog.load_json(os.path.join(out, 'progress.json'))
+    assert losses[0] == losses[1] == direct['codec']['performance']['loss']['training']
+
+
 @pytest.mark.parametrize('extra, error, item', [
     (['--fill', 'results.txt'], SystemExit, "--fill must be '-' or a .csv path"),
     (['--devices', str(torch.cuda.device_count() + 1), '--device', 'cuda'], ValueError,

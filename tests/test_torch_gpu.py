@@ -34,17 +34,32 @@ def inputs(seed, p, h, w, quality, device):
     return torch.from_numpy(planes).to(device), torch.from_numpy(q).to(device)
 
 
-# widths that fill, split and fall short of the kernel's 128-column tiles
+# the paths' shapes, and ragged ones whose grid walk ends part-way through
+# its last step (one tile; 17 and 49 tiles a row; one tile row of the D90)
 @pytest.mark.parametrize('p,h,w', [(3, 8, 8), (3, 16, 24), (6, 16, 136), (3, 24, 256),
-                                   (60, 256, 256), (300, 128, 128)])
+                                   (60, 256, 256), (300, 128, 128), (480, 128, 128),
+                                   (150, 64, 64), (12, 256, 384), (3, 64, 136), (3, 48, 392),
+                                   (3, 8, 4288)])
 def test_kernel_matches_plain(cuda, p, h, w):
     planes, q = inputs(p * h + w, p, h, w, 50, cuda)
     before = jpeg8x8.jpeg_core_cuda.launches
+    shape_before = jpeg8x8.jpeg_core_cuda.sizes[(p, h, w)]
     y, c = jpeg8x8.jpeg_core_cuda(planes, q)
     y_p, c_p = jpeg8x8.jpeg_core_plain(planes, q)
     torch.cuda.synchronize()
     assert jpeg8x8.jpeg_core_cuda.launches == before + 1
+    assert jpeg8x8.jpeg_core_cuda.sizes[(p, h, w)] == shape_before + 1
     jpeg8x8.check_cores(y, c, y_p, c_p, q)
+
+
+def test_kernel_takes_views_that_start_off_its_16_byte_accesses(cuda):
+    planes, q = inputs(3, 3, 16, 24, 50, cuda)
+    storage = torch.empty(planes.numel() + 1, device=cuda)
+    view = storage[1:].view(planes.shape)
+    view.copy_(planes)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    for a, b in zip(jpeg8x8.jpeg_core_cuda(view, q), jpeg8x8.jpeg_core_cuda(planes, q)):
+        assert torch.equal(a, b)
 
 
 def test_dispatch_and_backward_on_the_card(cuda):
