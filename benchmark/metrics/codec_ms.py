@@ -1,0 +1,7 @@
+"""codec_ms: device ms a call of the operations launched inside the
+'codec' layer's forward and backward marks (``trace.py``), over the
+traced calls."""
+
+
+def read(ctx):
+    return None if ctx.trace is None else ctx.trace.layer_ms('codec')
