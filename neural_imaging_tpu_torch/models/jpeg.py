@@ -26,7 +26,7 @@ from neural_imaging_tpu_torch.models.base import TorchModel
 from neural_imaging_tpu_torch.ops import color, dct, ops
 from neural_imaging_tpu_torch.ops import quantization as quant
 from neural_imaging_tpu_torch.ops.hopper.jpeg8x8 import jpeg_core
-from neural_imaging_tpu_torch.utils import stats
+from neural_imaging_tpu_torch.utils import profiling, stats
 from neural_imaging_tpu_torch.utils.device import resolve_device
 
 ROUNDING_APPROXIMATIONS = ('sin', 'harmonic', 'soft')
@@ -47,7 +47,7 @@ def is_valid_quality(quality):
 @functools.lru_cache()
 def _base_table(channel, device):
     """The Annex-K table of a channel on ``device``, copied there once."""
-    return torch.as_tensor(K1_LUMA if channel == 0 else K2_CHROMA, device=device)
+    return profiling.to_device(K1_LUMA if channel == 0 else K2_CHROMA, device)
 
 
 def jpeg_qtable_traced(quality, channel=0):
@@ -61,8 +61,8 @@ def jpeg_qtable_traced(quality, channel=0):
 @functools.lru_cache()
 def qtables(quality, device):
     """(luma, chroma) tables of an integer quality as tensors on ``device``."""
-    return (torch.as_tensor(jpeg_qtable(quality, 0), device=device),
-            torch.as_tensor(jpeg_qtable(quality, 1), device=device))
+    return (profiling.to_device(jpeg_qtable(quality, 0), device),
+            profiling.to_device(jpeg_qtable(quality, 1), device))
 
 
 def jpeg_forward_nchw(x, q_luma, q_chroma, rounding='soft', taylor_terms=5, precision=None):
@@ -100,7 +100,7 @@ def jpeg_forward_nchw(x, q_luma, q_chroma, rounding='soft', taylor_terms=5, prec
 
 def _tables(q_luma, q_chroma, dtype, device):
     """The (3, 8, 8) stack of a batch's tables (luma, chroma, chroma) in ``dtype``."""
-    return torch.stack([torch.as_tensor(t, device=device).to(dtype)
+    return torch.stack([profiling.to_device(t, device).to(dtype)
                         for t in (q_luma, q_chroma, q_chroma)])
 
 
@@ -255,7 +255,7 @@ class JPEG(TorchModel):
                 batch_x = batch_x.detach().cpu().numpy()
             y = jpeg_helpers.compress_batch(np.asarray(batch_x), quality)[0]
             return (y, np.nan) if return_entropy else y
-        x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device)
+        x = profiling.to_device(batch_x, self.device, torch.float32)
         with torch.no_grad():
             if self.trainable or quality == self.quality:
                 y, coeffs = self._model(x)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from neural_imaging_tpu_torch.ops import ops
+from neural_imaging_tpu_torch.utils import profiling
 
 # JPEG (JFIF) color transform: 255-scale, chroma offset by +128; the inverse
 # folds the offsets into its affine part.
@@ -32,8 +33,8 @@ def _affine_tensors(forward, dtype, device):
     """(matrix, offset) of the forward or inverse transform on ``device``,
     copied there once (a copy from the host waits for the device's queue)."""
     matrix, offset = (_F_MATRIX, _F_OFFSET) if forward else (_I_MATRIX, _I_OFFSET)
-    return (torch.as_tensor(matrix, dtype=dtype, device=device),
-            torch.as_tensor(offset, dtype=dtype, device=device)[:, None, None])
+    return (profiling.to_device(matrix, device, dtype),
+            profiling.to_device(offset, device, dtype)[:, None, None])
 
 
 def _affine(x, forward, precision):

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from neural_imaging_tpu_torch.utils import profiling
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / '_build'
@@ -77,6 +79,7 @@ def build(names, csrc_dir=CSRC_DIR):
 
 
 @functools.lru_cache()
+@profiling.spanned('kernels.load')
 def load(name):
     """Build (if needed) and load ``csrc/<name>.cu`` as a ``ctypes.CDLL``."""
     return ctypes.CDLL(str(build([name])[name]))

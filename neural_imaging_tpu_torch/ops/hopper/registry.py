@@ -16,6 +16,7 @@ counts it). A CPU tensor never reaches an operator: the dispatchers take the
 kernels' plain versions there.
 """
 import torch
+from torch.utils.flop_counter import flop_registry, register_flop_formula
 
 NAMESPACE = 'neural_imaging_tpu_torch'
 # name → (operator packet, work function)
@@ -32,5 +33,14 @@ def register(name, launcher, fake, work):
         op = torch.library.custom_op(f'{NAMESPACE}::{name}', launcher, mutates_args=(),
                                      device_types='cuda')
         op.register_fake(fake)
-        OPS[name] = (getattr(getattr(torch.ops, NAMESPACE), name), work)
+        packet = getattr(getattr(torch.ops, NAMESPACE), name)
+        if packet not in flop_registry:
+            register_flop_formula(packet)(_flop_formula(work))
+        OPS[name] = (packet, work)
     return OPS[name][0]
+
+
+def _flop_formula(work):
+    def flops(*shapes, out_shape=None, **kwargs):
+        return work(*shapes)[0]
+    return flops

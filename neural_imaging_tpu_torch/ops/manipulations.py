@@ -31,6 +31,7 @@ from torch.autograd.function import once_differentiable
 from neural_imaging_tpu_torch.models.jpeg import jpeg_forward_nchw, jpeg_qtable_traced, qtables
 from neural_imaging_tpu_torch.ops import color, ops, quantization
 from neural_imaging_tpu_torch.ops.kernels import gkern, repeat_2dfilter
+from neural_imaging_tpu_torch.utils import profiling
 
 
 @functools.lru_cache()
@@ -61,7 +62,7 @@ def _resize_matrix(n_in, n_out):
 def _resize_operator(n_in, n_out, dtype, device):
     """:func:`_resize_matrix` on ``device``, copied there once (a copy from the
     host waits for the device's queue)."""
-    return torch.as_tensor(_resize_matrix(n_in, n_out), dtype=dtype, device=device)
+    return profiling.to_device(_resize_matrix(n_in, n_out), device, dtype)
 
 
 def resize_bilinear(x, h_out, w_out):
@@ -102,7 +103,7 @@ def _resample_operators(n_in, n_out, candidates, device):
         up = _resize_matrix(size, n_out).astype(np.float64)
         down = _resize_matrix(n_in, size).astype(np.float64)
         ops_k.append(up @ down)
-    return torch.as_tensor(np.stack(ops_k).astype(np.float32), device=device)
+    return profiling.to_device(np.stack(ops_k).astype(np.float32), device)
 
 
 @functools.lru_cache()
@@ -118,8 +119,8 @@ def _resample_stages(n_in, side, candidates, dtype, device):
     for k, size in enumerate(sizes):
         down[k, :size] = _resize_matrix(n_in, size)
         up[k, :, :size] = _resize_matrix(size, side)
-    return (torch.as_tensor(down, dtype=dtype, device=device),
-            torch.as_tensor(up, dtype=dtype, device=device))
+    return (profiling.to_device(down, device, dtype),
+            profiling.to_device(up, device, dtype))
 
 
 def resample_switch(x, index, candidates):
@@ -133,7 +134,7 @@ def resample_switch(x, index, candidates):
     operators zero-padded to one shape (``_resample_stages``)."""
     side = x.shape[-2]
     candidates = tuple(int(c) for c in candidates)
-    index = torch.as_tensor(index, device=x.device).reshape(1)
+    index = profiling.to_device(index, x.device).reshape(1)
 
     def pick(operators):
         return torch.index_select(operators, 0, index)[0].to(x.dtype)
@@ -154,7 +155,7 @@ def resample_switch(x, index, candidates):
 def _gaussian_filter(kernel, std, device):
     """:func:`gkern` in float32 on ``device``, copied there once (a copy from
     the host waits for the device's queue)."""
-    return torch.as_tensor(gkern(kernel, std), dtype=torch.float32, device=device)
+    return profiling.to_device(gkern(kernel, std), device, torch.float32)
 
 
 def gaussian(x, kernel=5, std=0.83):
@@ -184,7 +185,7 @@ def _sharpen_kernel(strength, hsv, device):
     """The sharpen filter's diagonal (3, 3, 3) in float32 on ``device``,
     copied there once."""
     k = _sharpen_filter(strength, hsv)[:, :, range(3), range(3)]
-    return torch.as_tensor(k, dtype=torch.float32, device=device)
+    return profiling.to_device(k, device, torch.float32)
 
 
 def sharpen(x, strength=1.0, hsv=True):
@@ -218,9 +219,9 @@ def _sharpen_parts(dtype, device):
     center[1, 1] = True
     ident = np.zeros((3, 3))
     ident[2, 2] = 1.0
-    return (torch.as_tensor(base, dtype=dtype, device=device),
-            torch.as_tensor(center, device=device),
-            torch.as_tensor(ident, dtype=torch.float32, device=device))
+    return (profiling.to_device(base, device, dtype),
+            profiling.to_device(center, device),
+            profiling.to_device(ident, device, torch.float32))
 
 
 def sharpen_traced(x, strength, hsv=True):
@@ -228,7 +229,7 @@ def sharpen_traced(x, strength, hsv=True):
     the reference, the filter's surround is rounded to x's dtype (and its
     sum too) but the filter is float32."""
     base, center, ident = _sharpen_parts(x.dtype, x.device)
-    strength = torch.as_tensor(strength, dtype=torch.float32, device=x.device)
+    strength = profiling.to_device(strength, x.device, torch.float32)
     total = torch.abs(base.sum()).to(torch.float32)
     gk = torch.where(center, strength + 1.0, strength * base.to(torch.float32) / total)
     if hsv:
@@ -246,7 +247,7 @@ def sharpen_traced(x, strength, hsv=True):
 def gaussian_traced(x, std, kernel=5):
     """:func:`gaussian` with the std in a 0-d tensor (or a float); the filter
     is float32 whatever x's dtype, as the reference's is."""
-    std = torch.as_tensor(std, dtype=torch.float32, device=x.device)
+    std = profiling.to_device(std, x.device, torch.float32)
     coords = torch.arange(kernel, dtype=torch.float32, device=x.device) - (kernel - 1) / 2.0
     g1 = torch.exp(-0.5 * (coords / std) ** 2)
     g2 = torch.outer(g1, g1)
@@ -258,7 +259,7 @@ def jpeg_traced(x, quality):
     """Soft-rounding JPEG with the quality in a 0-d tensor: its tables are
     built on the device (``jpeg_qtable_traced``). In x's dtype, as the
     reference's is: K1 for float32, the plain blockified form otherwise."""
-    quality = torch.as_tensor(quality, dtype=torch.float32, device=x.device)
+    quality = profiling.to_device(quality, x.device, torch.float32)
     return jpeg_forward_nchw(x, jpeg_qtable_traced(quality, 0),
                              jpeg_qtable_traced(quality, 1))[0]
 
@@ -419,7 +420,7 @@ def _median_masks(candidates, device):
         outside = np.flatnonzero(~inside.reshape(-1))
         low[i, outside[:len(outside) // 2]] = True
         high[i, outside[len(outside) // 2:]] = True
-    return torch.as_tensor(low, device=device), torch.as_tensor(high, device=device)
+    return profiling.to_device(low, device), profiling.to_device(high, device)
 
 
 def median_switch(x, index, candidates):
@@ -433,7 +434,7 @@ def median_switch(x, index, candidates):
     is the k-window's median, the same element that ``median(x, k)`` picks,
     ties included: equal in value and gradient, bit for bit."""
     candidates = tuple(_median_kernel(k) for k in candidates)
-    index = torch.as_tensor(index, device=x.device).reshape(1).clamp(0, len(candidates) - 1)
+    index = profiling.to_device(index, x.device).reshape(1).clamp(0, len(candidates) - 1)
     low, high = (torch.index_select(m, 0, index)[0]
                  for m in _median_masks(candidates, x.device))
     w = max(candidates)
@@ -475,7 +476,7 @@ def _gaussian_pooled_filter(kernel, std, device):
     gfilter = np.zeros((kernel + 1, kernel + 1, 3, 3), dtype=np.float32)
     for r in range(3):
         gfilter[:, :, r, r] = k2
-    return ops.hwio_to_oihw(gfilter).to(device)
+    return profiling.to_device(ops.hwio_to_oihw(gfilter), device)
 
 
 def gaussian_pooled(x, kernel=5, std=0.83):
@@ -498,7 +499,7 @@ def _resample_pooled_filter(device):
     rf = np.zeros((3, 3, 3, 3), np.float32)
     for r in range(3):
         rf[:, :, r, r] = np.outer(k1, k1)
-    return ops.hwio_to_oihw(rf).to(device)
+    return profiling.to_device(ops.hwio_to_oihw(rf), device)
 
 
 def resample_pooled(x, factor=50):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from neural_imaging_tpu_torch.ops import ssim as ssim_ops
 from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
+from neural_imaging_tpu_torch.utils import profiling
 
 
 # the reference's matrix-unit precisions of float32 operands
@@ -161,7 +162,7 @@ def depthwise_conv2d(x, k2d, pad_mode='reflect'):
     in the reference, the kernel and the sums are float32 whatever x's
     dtype, and the result is rounded to x's dtype once."""
     c = x.shape[1]
-    k = torch.as_tensor(k2d, dtype=torch.float32, device=x.device)
+    k = profiling.to_device(k2d, x.device, torch.float32)
     if k.ndim == 2:
         k = k[:, :, None].expand(-1, -1, c)
     kh, kw = k.shape[:2]
@@ -220,7 +221,7 @@ def _pool_operator(n, factor, dtype, device):
     m = np.zeros((n // factor, n), np.float32)
     for i in range(n // factor):
         m[i, i * factor:(i + 1) * factor] = 1.0 / factor
-    return torch.as_tensor(m, dtype=dtype, device=device)
+    return profiling.to_device(m, device, dtype)
 
 
 def avg_pool_flat(x, factor):

@@ -1,15 +1,33 @@
 """
 Tracing and profiling: port of ``neural_imaging_tpu/utils/profiling.py``.
 
-- :class:`StepTimer`: per-step wall-clock statistics, synchronized with the
-  device of the step's output;
+- :func:`span`, :func:`root`, :func:`spanned`, :func:`tracing`,
+  :func:`spans`, :func:`clear`: the spans that the program opens at each
+  stage of a step or a request, recorded in memory (see below);
+- :func:`to_device`: the one helper through which the call path moves host
+  data to a card, which counts the copies and their bytes in the open span;
 - :func:`trace`: a ``torch.profiler`` session (CPU and CUDA activities) that
-  writes a Chrome/Perfetto trace;
+  writes a Chrome/Perfetto trace, the spans among its events;
 - :class:`ScalarLog`: an append-only JSONL scalar log;
 - :func:`chip_peaks` and :func:`utilization`: MFU and the HBM share against
   the card's published peaks;
 - :func:`step_cost`, :func:`op_traffic` and :func:`compiled_stats`: FLOPs
   and bytes of one call, counted while it runs.
+
+Spans. ``with span('isp'): ...`` marks a stage. While recording is off, the
+default, ``span`` returns one shared object that does nothing: no
+allocation, no synchronization, no call into the dispatcher. Recording is
+on while :func:`tracing` has turned it on or a ``torch.profiler`` session
+runs; each span then keeps a record: its name, its id, its parent's id (a
+stack per thread), the id of its root span (``call``: all the spans of one
+step or request share it), its start and end, and the host→device copies
+made inside it and not inside a child (``h2d_copies``, ``h2d_bytes``).
+Times are nanoseconds of ``time.time_ns``, the clock on which
+``torch.profiler`` reports its host and device events, so that spans
+recorded beside a trace of the device alone line up with its operations.
+While a profiler session runs, a span also opens a ``record_function`` of
+its name, which the session's trace shows around the operators inside it.
+Spans change no arithmetic and read nothing back from the device.
 
 The JAX package reads FLOPs and bytes from XLA's cost analysis of a compiled
 program, and ranks the HLO instructions of its ENTRY computation by their
@@ -21,9 +39,9 @@ are seen too):
   products and convolutions (a 'SAME' convolution's taps over the padding
   included, as PyTorch counts them; XLA counts only the taps inside the
   image) and no elementwise operator. K1-K4, registered as operators
-  (``ops/hopper/registry.py``), are counted by their work functions, on
-  which ``chip_smoke.py`` bounds them too: K1 its FLOPs, K2-K4 their issued
-  instructions.
+  (``ops/hopper/registry.py``, which registers their FLOP formulas too),
+  are counted by their work functions, on which ``chip_smoke.py`` bounds
+  them too: K1 its FLOPs, K2-K4 their issued instructions.
 - Bytes: every aten operator's input and output tensors (each operator of
   an eager program reads and writes device memory), views and allocations
   without a write excepted; K1-K4 by their work functions. It is the
@@ -31,67 +49,143 @@ are seen too):
   instruction.
 """
 import contextlib
+import functools
+import itertools
 import json
 import os
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode, flop_registry, register_flop_formula
+from torch.utils.flop_counter import FlopCounterMode
 from torch.utils.module_tracker import ModuleTracker
 
-from neural_imaging_tpu_torch.ops.hopper import codebook, jpeg8x8, registry  # noqa: F401
+from neural_imaging_tpu_torch.ops.hopper import registry
 
 aten = torch.ops.aten
 
+# -- spans ------------------------------------------------------------------------------
 
-class StepTimer:
-    """Wall-clock timing of train steps with percentile summaries.
+_recording = False
+_records = []
+_ids = itertools.count(1)
+_local = threading.local()
 
-    Pass a step's output to ``stop``: the CUDA devices of its tensors are
-    synchronized first, so that asynchronous launches do not hide the
-    device's time."""
 
-    def __init__(self, warmup=2):
-        self.warmup = warmup
-        self.times = []
-        self._t0 = None
-        self._seen = 0
+class _NoSpan:
+    """What :func:`span` returns while nothing records."""
 
-    def start(self):
-        self._t0 = time.perf_counter()
+    def __enter__(self):
+        return self
 
-    def stop(self, sync_value=None):
-        if sync_value is not None:
-            for device in {t.device for t in tree_flatten(sync_value)[0]
-                           if torch.is_tensor(t) and t.is_cuda}:
-                torch.cuda.synchronize(device)
-        elapsed = time.perf_counter() - self._t0
-        self._seen += 1
-        if self._seen > self.warmup:
-            self.times.append(elapsed)
-        return elapsed
+    def __exit__(self, *exc):
+        return False
 
-    @contextlib.contextmanager
-    def step(self):
-        self.start()
-        yield
-        self.stop()
 
-    def summary(self):
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            'steps': len(arr),
-            'mean_s': float(arr.mean()),
-            'p50_s': float(np.percentile(arr, 50)),
-            'p95_s': float(np.percentile(arr, 95)),
-            'steps_per_sec': float(1.0 / arr.mean()),
-        }
+_NO_SPAN = _NoSpan()
+
+
+def _stack():
+    stack = getattr(_local, 'stack', None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+
+    def __init__(self, name):
+        self.name = name
+        self.function = None
+
+    def __enter__(self):
+        stack = _stack()
+        span_id = next(_ids)
+        parent = stack[-1] if stack else None
+        self.record = {'name': self.name, 'id': span_id,
+                       'parent': None if parent is None else parent['id'],
+                       'call': span_id if parent is None else parent['call'],
+                       'start': time.time_ns(), 'end': None, 'h2d_copies': 0, 'h2d_bytes': 0}
+        _records.append(self.record)
+        stack.append(self.record)
+        if _autograd_profiler._is_profiler_enabled:
+            self.function = record_function(self.name)
+            self.function.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.function is not None:
+            self.function.__exit__(*exc)
+        self.record['end'] = time.time_ns()
+        _stack().pop()
+        return False
+
+
+def span(name):
+    """A context manager that marks the stage ``name`` (see the module docstring)."""
+    if not (_recording or _autograd_profiler._is_profiler_enabled):
+        return _NO_SPAN
+    return _Span(name)
+
+
+def root(name):
+    """``span(name)`` where no span is open on this thread, else nothing: the
+    root of a call that may also run inside another."""
+    if not (_recording or _autograd_profiler._is_profiler_enabled) or _stack():
+        return _NO_SPAN
+    return _Span(name)
+
+
+def spanned(name):
+    """Decorator: each call of the function runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def tracing(on=True):
+    """Turn the recording of spans on or off (a running ``torch.profiler``
+    session records them in any case)."""
+    global _recording
+    _recording = bool(on)
+
+
+def spans():
+    """The spans recorded since the last :func:`clear`, in the order they
+    opened: dicts with 'name', 'id', 'parent', 'call', 'start', 'end' (ns;
+    None while open), 'h2d_copies' and 'h2d_bytes'."""
+    return list(_records)
+
+
+def clear():
+    """Drop the recorded spans."""
+    _records.clear()
+
+
+# -- host→device copies ----------------------------------------------------------------
+
+def to_device(data, device, dtype=None):
+    """``torch.as_tensor(data, dtype=dtype, device=device)``, counted in the
+    innermost open span (``h2d_copies``, ``h2d_bytes``) where it copies host
+    data to a device: the one way the call path moves host arrays, scalars
+    and constants to a card."""
+    out = torch.as_tensor(data, dtype=dtype, device=device)
+    stack = getattr(_local, 'stack', None)
+    if stack and out.device.type != 'cpu' and not (
+            torch.is_tensor(data) and data.device == out.device):
+        stack[-1]['h2d_copies'] += 1
+        stack[-1]['h2d_bytes'] += out.numel() * out.element_size()
+    return out
 
 
 @contextlib.contextmanager
@@ -180,17 +274,6 @@ def utilization(flops_per_step, bytes_per_step, seconds_per_step, device=None):
         out['hbm_util'] = bytes_per_step / seconds_per_step / peak_bw
     return out
 
-
-def _kernel_formula(work):
-    def flops(*shapes, out_shape=None, **kwargs):
-        return work(*shapes)[0]
-    return flops
-
-
-# K1-K4's operators count their work (registered once a process)
-for _packet, _work in registry.OPS.values():
-    if _packet not in flop_registry:
-        register_flop_formula(_packet)(_kernel_formula(_work))
 
 # allocations that write nothing
 _NO_TRAFFIC = {aten.empty.memory_format, aten.empty_like.default, aten.empty_strided.default,

@@ -49,7 +49,7 @@ from neural_imaging_tpu_torch.models.compression import DCN
 from neural_imaging_tpu_torch.ops import manipulations as manips
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
-from neural_imaging_tpu_torch.utils import runtime
+from neural_imaging_tpu_torch.utils import profiling, runtime
 from neural_imaging_tpu_torch.utils.device import resolve_device
 
 # the reference's class order of the manipulations
@@ -156,6 +156,7 @@ class ManipulationClassification:
     # the data-parallel context of the steps (``DataParallel.distribute``)
     parallel = None
 
+    @profiling.spanned('build')
     def __init__(self, nip_model='INet', manipulations=None, distribution=None,
                  fan_args=None, trainable=None, raw_patch_size=128, loss_metric='L2',
                  rng_seed=0, nip_args=None, channel_dtype='float32', channel_jpeg_dtype=None,
@@ -479,6 +480,7 @@ class ManipulationClassification:
                                           batch.shape[-1] // factor)
         return batch
 
+    @profiling.spanned('channel')
     def _compress(self, batch, q_luma, q_chroma):
         """The channel: (its output in the channel dtype, the entropy of the
         learned codec's latent, else None). The learned codec runs in float32.
@@ -514,16 +516,20 @@ class ManipulationClassification:
                                       scale * batch_x.shape[-1]), self._channel_dtype)
 
         def acquire(x):
-            batch_Y = self.nip.module(x)
-            return batch_Y, self._downsample(self._manipulate(batch_Y, strength_scalars,
-                                                              strength_indices, noise))
+            with profiling.span('isp'):
+                batch_Y = self.nip.module(x)
+            with profiling.span('manipulations'):
+                return batch_Y, self._downsample(self._manipulate(batch_Y, strength_scalars,
+                                                                  strength_indices, noise))
 
         if self.remat and torch.is_grad_enabled():
             batch_Y, batch_c = checkpoint(acquire, batch_x, use_reentrant=False)
         else:
             batch_Y, batch_c = acquire(batch_x)
         batch_C, entropy = self._compress(batch_c, q_luma, q_chroma)
-        return batch_Y, batch_c, batch_C, entropy, self.fan.module(batch_C)
+        with profiling.span('fan'):
+            probs = self.fan.module(batch_C)
+        return batch_Y, batch_c, batch_C, entropy, probs
 
     def _batch_labels(self, batch_size):
         """Class-major labels of an expanded batch, on the device."""
@@ -544,29 +550,30 @@ class ManipulationClassification:
         batch_Y, batch_c, batch_C, entropy, probs = self._forward(
             batch_x.permute(0, 3, 1, 2), q_luma, q_chroma, strength_scalars, strength_indices,
             None if noise is None else noise.permute(0, 3, 1, 2))
-        loss_ce = forensics.sparse_categorical_crossentropy(
-            self._batch_labels(batch_x.shape[0]), probs)
-        zero = torch.zeros((), device=probs.device)
-        loss_nip = (self.nip.loss(batch_y, batch_Y.permute(0, 2, 3, 1))
-                    if batch_y is not None else zero)
-        if isinstance(self.codec, DCN):
-            loss_dcn = self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32),
-                                       entropy if world == 1 else entropy / world)
-        elif self.codec is not None:
-            loss_dcn = self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32),
-                                       entropy)
-        else:
-            loss_dcn = zero
-        if world > 1:
-            loss_ce, loss_nip = loss_ce / world, loss_nip / world
-            if not isinstance(self.codec, DCN):
-                loss_dcn = loss_dcn / world
-        loss = loss_ce
-        if 'nip' in self._trainable:
-            loss = loss + lambda_nip * loss_nip
-        if 'dcn' in self._trainable:
-            loss = loss + lambda_dcn * loss_dcn
-        return loss, {'ce': loss_ce, 'nip': loss_nip, 'dcn': loss_dcn}
+        with profiling.span('loss'):
+            loss_ce = forensics.sparse_categorical_crossentropy(
+                self._batch_labels(batch_x.shape[0]), probs)
+            zero = torch.zeros((), device=probs.device)
+            loss_nip = (self.nip.loss(batch_y, batch_Y.permute(0, 2, 3, 1))
+                        if batch_y is not None else zero)
+            if isinstance(self.codec, DCN):
+                loss_dcn = self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32),
+                                           entropy if world == 1 else entropy / world)
+            elif self.codec is not None:
+                loss_dcn = self.codec.loss(batch_c.to(torch.float32), batch_C.to(torch.float32),
+                                           entropy)
+            else:
+                loss_dcn = zero
+            if world > 1:
+                loss_ce, loss_nip = loss_ce / world, loss_nip / world
+                if not isinstance(self.codec, DCN):
+                    loss_dcn = loss_dcn / world
+            loss = loss_ce
+            if 'nip' in self._trainable:
+                loss = loss + lambda_nip * loss_nip
+            if 'dcn' in self._trainable:
+                loss = loss + lambda_dcn * loss_dcn
+            return loss, {'ce': loss_ce, 'nip': loss_nip, 'dcn': loss_dcn}
 
     # -- random draws -----------------------------------------------------------------
 
@@ -608,8 +615,8 @@ class ManipulationClassification:
             lo, hi = manips.STRENGTH_RANGES[name]
             scalars[i] = self._rng.uniform(lo, hi)
             indices[i] = self._rng.integers(0, N_STRENGTH_CANDIDATES)
-        return (torch.as_tensor(scalars, device=self.device),
-                torch.as_tensor(indices, device=self.device))
+        return (profiling.to_device(scalars, self.device),
+                profiling.to_device(indices, self.device))
 
     def _sample_strengths_in_graph(self):
         """Randomized strengths of a training step, drawn on the device."""
@@ -625,7 +632,8 @@ class ManipulationClassification:
     def _batch(self, batch):
         """An NHWC batch (numpy or tensor; uint8 / uint16 / float) as float32
         in [0, 1] on the flow's device."""
-        return ops.normalize_batch(torch.as_tensor(batch).to(self.device))
+        with profiling.span('input'):
+            return ops.normalize_batch(profiling.to_device(batch, self.device))
 
     def loss_and_gradients(self, batch_x, batch_y, lambda_nip=0, lambda_dcn=0,
                            q_tables=None, strength_scalars=None, strength_indices=None,
@@ -644,14 +652,15 @@ class ManipulationClassification:
         x = self._batch(batch_x)
         y = None if batch_y is None else self._batch(batch_y)
         if noise is not None:
-            noise = torch.as_tensor(noise, device=self.device)
+            noise = profiling.to_device(noise, self.device)
         mesh = self.parallel.mesh if self.parallel is not None else None
         world = 1 if self.parallel is None else self.parallel.n_devices
         with mesh_lib.batch_reductions(mesh):
             q_luma, q_chroma = q_tables if q_tables is not None else self._channel_qtables()
             loss, parts = self._losses(x, y, q_luma, q_chroma, lambda_nip, lambda_dcn,
                                        strength_scalars, strength_indices, noise, world)
-            grads = torch.autograd.grad(loss, self._train_params, allow_unused=True)
+            with profiling.span('backward'):
+                grads = torch.autograd.grad(loss, self._train_params, allow_unused=True)
         names = [(part, k) for part, ps in self._train_partition(self._collect_params()).items()
                  for k in ps]
         grads = [torch.zeros_like(p) if g is None else g
@@ -666,6 +675,7 @@ class ManipulationClassification:
             by_part.setdefault(part, {})[k] = g
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, by_part
 
+    @profiling.spanned('step')
     def _step(self, batch_x, batch_y, lambda_nip, lambda_dcn, augment, learning_rate):
         """One joint step; returns (loss, parts, finite), ``finite`` a 0-d bool
         tensor on the device saying whether every gradient was finite (under
@@ -678,14 +688,15 @@ class ManipulationClassification:
         scalars, indices = self._sample_strengths_in_graph() if augment else (None, None)
         loss, parts, grads = self.loss_and_gradients(batch_x, batch_y, lambda_nip, lambda_dcn,
                                                      q_tables, scalars, indices)
-        flat = [g for part in grads.values() for g in part.values()]
-        finite = torch.stack([torch.isfinite(g).all() for g in flat]).all()
-        for p, g in zip(self._train_params, flat):
-            p.grad = g
-        for group in self.optimizer.param_groups:
-            group['lr'] = float(learning_rate)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        with profiling.span('optimizer'):
+            flat = [g for part in grads.values() for g in part.values()]
+            finite = torch.stack([torch.isfinite(g).all() for g in flat]).all()
+            for p, g in zip(self._train_params, flat):
+                p.grad = g
+            for group in self.optimizer.param_groups:
+                group['lr'] = float(learning_rate)
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
         return loss, parts, finite
 
     def training_step(self, batch_x, batch_y, lambda_nip=0, lambda_dcn=0,
@@ -756,19 +767,23 @@ class ManipulationClassification:
         views), the learned codec's latent entropy (0 for a JPEG), and the
         class probabilities ((K+1)·N, K+1), rows class-major. ``augment``
         draws the strengths (and a randomized channel quality) on the host."""
-        x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device)
-        q_luma, q_chroma = self._channel_qtables()
-        scalars, indices = self._sample_strengths() if augment else (None, None)
-        with torch.no_grad():
-            batch_Y, batch_c, batch_C, entropy, probs = self._forward(
-                x.permute(0, 3, 1, 2), q_luma, q_chroma, scalars, indices)
-        nhwc = [t.permute(0, 2, 3, 1) for t in (batch_Y, batch_c, batch_C)]
-        return (*nhwc, self._entropy_or_zero(entropy), probs)
+        with profiling.root('request'):
+            with profiling.span('input'):
+                x = profiling.to_device(batch_x, self.device, torch.float32)
+            q_luma, q_chroma = self._channel_qtables()
+            scalars, indices = self._sample_strengths() if augment else (None, None)
+            with torch.no_grad():
+                batch_Y, batch_c, batch_C, entropy, probs = self._forward(
+                    x.permute(0, 3, 1, 2), q_luma, q_chroma, scalars, indices)
+            nhwc = [t.permute(0, 2, 3, 1) for t in (batch_Y, batch_c, batch_C)]
+            return (*nhwc, self._entropy_or_zero(entropy), probs)
 
     def run_workflow_to_decisions(self, batch_x, augment=False):
         """Predicted class of every row of :meth:`run_workflow`, as a numpy array."""
-        probs = self.run_workflow(batch_x, augment=augment)[-1]
-        return probs.argmax(dim=1).cpu().numpy()
+        with profiling.span('request'):
+            probs = self.run_workflow(batch_x, augment=augment)[-1]
+            with profiling.span('readback'):
+                return probs.argmax(dim=1).cpu().numpy()
 
     def run_manipulations(self, batch_y, randomize=False, override=None):
         """The expanded NHWC batch of an NHWC RGB batch: at the fixed

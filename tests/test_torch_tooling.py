@@ -194,20 +194,6 @@ def test_compiled_stats_has_the_costs_and_sizes():
     assert 'temp_size_bytes' not in stats          # measured on a card only
 
 
-def test_step_timer_as_the_reference():
-    ours, ref = profiling.StepTimer(warmup=1), jprofiling.StepTimer(warmup=1)
-    for t in (ours, ref):
-        for _ in range(4):
-            with t.step():
-                sum(range(1000))
-        t.start()
-        t.stop(torch.ones(3) if t is ours else jnp.ones(3))
-    assert set(ours.summary()) == set(ref.summary())
-    assert ours.summary()['steps'] == ref.summary()['steps'] == 4
-    assert ours.summary()['steps_per_sec'] > 0
-    assert profiling.StepTimer().summary() == {}
-
-
 def test_scalar_log_writes_the_reference_bytes(tmp_path):
     records = [(0, {'loss': 1.5}), (1, {'loss': np.float64(1.2), 'acc': np.float32(0.7)}),
                (2, {'loss': 0.1 + 0.2, 'lr': 1e-4})]
