@@ -14,7 +14,9 @@ NVIDIA GPU:
    and the 8-class flow's channel shapes and at ragged edge shapes up to
    the D90's whole image, each beside ``copy_ms``, the card's time for a
    copy with K1's traffic), K2 (codebook quantizer), K3 and K4 (its
-   backwards);
+   backwards), K5 (the FAN's conv stage, its dgrad and wgrad, at the four
+   stage shapes of 100 and 50 rows, each beside its float32 bound and the
+   cuDNN composition's time, ``library_ms``);
 4. manipulation classification: restore the shipped ``m_quality`` run (INet
    → 4 manipulations → pool → JPEG QF 50 → FAN, full width) and answer
    requests of raw 128-px patches with ``run_workflow_to_decisions``; check
@@ -195,6 +197,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -219,7 +222,7 @@ from neural_imaging_tpu_torch.models.jpeg import JPEG, qtables
 from neural_imaging_tpu_torch.ops import manipulations as manips
 from neural_imaging_tpu_torch.ops import ops
 from neural_imaging_tpu_torch.ops import quantization as quant
-from neural_imaging_tpu_torch.ops.hopper import _build, codebook, jpeg8x8
+from neural_imaging_tpu_torch.ops.hopper import _build, codebook, fan_conv, jpeg8x8
 from neural_imaging_tpu_torch.parallel import launch, multihost, spatial
 from neural_imaging_tpu_torch.parallel import mesh as mesh_lib
 from neural_imaging_tpu_torch.parallel import train as ptrain
@@ -420,7 +423,7 @@ def synthetic_rgb(seed, n, height, width):
 # the hand-written kernels' function names in a profile
 HAND_KERNELS = ('jpeg8x8', 'codebook', 'sum_rows')
 SPIN_CYCLES = 200_000            # ~0.1 ms at 1.98 GHz: more than a wrapper's host time
-MAX_SPIN_CYCLES = 64 * SPIN_CYCLES
+MAX_SPIN_CYCLES = 1024 * SPIN_CYCLES   # ~0.1 s: a busy host's hiccups
 
 
 def time_ms(fn, reps, flush, device_only=True):
@@ -634,16 +637,127 @@ def check_codebook(name, n, reps, flush, gen, device, backward=False):
     return records
 
 
+# K5's stages at the m_quality flows' 128-px patches, (Cin, Cout, side), at the
+# FAN batches of the m_quality (5 classes x 20 patches) and m_quality_dcn (x 10) flows
+FAN_STAGES = ((3, 32, 128), (32, 64, 64), (64, 128, 32), (128, 256, 16))
+FAN_ROWS = (100, 50)
+
+
+def f32_bound(work):
+    """(least ms, 'bytes' or 'operations') of a K5 launch's (operations, bytes):
+    the float32 rate of the CUDA cores, the HBM's bytes."""
+    operations, bytes_moved = work
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = operations / F32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
+
+
+# K5's largest error by norm against a float64 evaluation of the same stage
+# (it reads under 1e-6; cuDNN's float32 composition, whose wgrad takes an FFT
+# at conv1 and conv2, reads up to 1e-2), and the largest share of windows
+# whose code may differ from the float32 plain version's (near-ties of the
+# float32 sums)
+K5_MAX_NORM_ERR = 1e-5
+K5_MAX_CODE_FLIPS = 1e-4
+
+
+def norm_error(got, exact):
+    return float((got.double() - exact).norm() / exact.norm())
+
+
+def check_fan_conv(reps, flush, gen, device):
+    """K5's forward, dgrad and wgrad at the FAN's stage shapes against a
+    float64 evaluation of their plain versions on the card, by norm (the
+    gradients through K5's code), and timed beside their bound and their
+    float32 plain versions; ``library_ms`` the cuDNN composition (conv, leaky
+    ReLU, max-pool) forward, and its autograd backward (dx, dW, db) for the
+    dgrad and wgrad together. Fails where an error or the share of codes
+    that differ passes its limit. Returns the records."""
+    records = []
+    for n in FAN_ROWS:
+        for c_in, c_out, side in FAN_STAGES:
+            x = torch.randn((n, c_in, side, side), generator=gen).to(device)
+            w = (torch.randn((c_out, c_in, 5, 5), generator=gen) / (5 * c_in ** 0.5)).to(device)
+            b = (0.1 * torch.randn(c_out, generator=gen)).to(device)
+            y, code = fan_conv.fan_conv_fwd_cuda(x, w, b)
+            code_p = fan_conv.fan_conv_fwd_plain(x, w, b)[1]
+            dy = torch.randn(tuple(y.shape), generator=gen).to(device)
+            got = {'fwd': (y,), 'dgrad': (fan_conv.fan_conv_dgrad_cuda(dy, code, w),),
+                   'wgrad': fan_conv.fan_conv_wgrad_cuda(dy, code, x)}
+            x64, w64, b64, dy64 = (t.double() for t in (x, w, b, dy))
+            exact = {'fwd': (fan_conv.fan_conv_fwd_plain(x64, w64, b64)[0],),
+                     'dgrad': (fan_conv.fan_conv_dgrad_plain(dy64, code, w64),),
+                     'wgrad': fan_conv.fan_conv_wgrad_plain(dy64, code, x64)}
+            del x64, w64, b64, dy64
+            leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+            y_lib = F.max_pool2d(F.leaky_relu(F.conv2d(*leaves, padding=2), 0.2), 2)
+            library = {'fwd': time_ms(lambda: F.max_pool2d(
+                           F.leaky_relu(F.conv2d(x, w, b, padding=2), 0.2), 2), reps, flush),
+                       'bwd': time_ms(lambda: torch.autograd.grad(y_lib, leaves, dy,
+                                                                  retain_graph=True),
+                                      reps, flush)}
+            launch = {'fwd': (lambda: fan_conv.fan_conv_fwd_cuda(x, w, b),
+                              lambda: fan_conv.fan_conv_fwd_plain(x, w, b),
+                              fan_conv.fan_conv_fwd_work(x.shape, w.shape)),
+                      'dgrad': (lambda: fan_conv.fan_conv_dgrad_cuda(dy, code, w),
+                                lambda: fan_conv.fan_conv_dgrad_plain(dy, code, w),
+                                fan_conv.fan_conv_dgrad_work(dy.shape, code.shape, w.shape)),
+                      'wgrad': (lambda: fan_conv.fan_conv_wgrad_cuda(dy, code, x),
+                                lambda: fan_conv.fan_conv_wgrad_plain(dy, code, x),
+                                fan_conv.fan_conv_wgrad_work(dy.shape, code.shape, x.shape))}
+            record = {'n': n, 'c_in': c_in, 'c_out': c_out, 'side': side,
+                      'code_flip_share': float((code != code_p).float().mean()),
+                      'library_fwd_ms': library['fwd'], 'library_bwd_ms': library['bwd']}
+            for kind, (kernel, plain, work) in launch.items():
+                bound_ms, bound_by = f32_bound(work)
+                ms = time_ms(kernel, reps, flush)
+                record[kind] = {
+                    'ms': ms, 'plain_ms': time_ms(plain, reps, flush, device_only=False),
+                    'bound_ms': bound_ms, 'bound_by': bound_by, 'share': bound_ms / ms,
+                    'norm_rel_err': max(norm_error(a, r) for a, r in zip(got[kind], exact[kind]))}
+            records.append(record)
+            del exact, got
+            print(f'[k5] N={n} {c_in}->{c_out} at {side}x{side}: ' + '; '.join(
+                f'{kind} {r["ms"]:.4f} ms (bound {r["bound_ms"]:.4f}, {r["bound_by"]}: '
+                f'{100 * r["share"]:.0f}%), plain {r["plain_ms"]:.4f}, error by norm against '
+                f'float64 {r["norm_rel_err"]:.2g}' for kind, r in ((k, record[k]) for k in launch))
+                + f'; cuDNN composition forward {library["fwd"]:.4f} ms, backward '
+                  f'{library["bwd"]:.4f} ms; code flips {record["code_flip_share"]:.2g}',
+                flush=True)
+            worst = max(record[kind]['norm_rel_err'] for kind in launch)
+            if not worst <= K5_MAX_NORM_ERR:
+                raise AssertionError(f'[k5] N={n} {c_in}->{c_out}: error by norm {worst:.3g} '
+                                     f'against float64, above {K5_MAX_NORM_ERR}')
+            if not record['code_flip_share'] <= K5_MAX_CODE_FLIPS:
+                raise AssertionError(f'[k5] N={n} {c_in}->{c_out}: codes differ from the plain '
+                                     f'version\'s at {record["code_flip_share"]:.3g} of the '
+                                     f'windows, above {K5_MAX_CODE_FLIPS}')
+    return records
+
+
 COUNTERS = {'jpeg8x8': jpeg8x8.jpeg_core_cuda,
             'codebook_fwd': codebook.codebook_fwd_cuda,
             'codebook_bwd': codebook.codebook_bwd_cuda,
-            'codebook_bwd_train': codebook.codebook_bwd_train_cuda}
+            'codebook_bwd_train': codebook.codebook_bwd_train_cuda,
+            'fan_conv_fwd': fan_conv.fan_conv_fwd_cuda,
+            'fan_conv_dgrad': fan_conv.fan_conv_dgrad_cuda,
+            'fan_conv_wgrad': fan_conv.fan_conv_wgrad_cuda}
+K5_COUNTERS = ('fan_conv_fwd', 'fan_conv_dgrad', 'fan_conv_wgrad')
+NO_K5 = dict.fromkeys(K5_COUNTERS, 0)
 
 
-# K1's launches by (P, H, W) on the paths of this process: what each window
-# from zero_counts to read_counts launched, each launch once
-K1_PATH_SIZES = collections.Counter()
-_K1_TALLIED = collections.Counter()
+def fan_passes(forward, backward=0):
+    """K5's launches in ``forward`` passes of a 4-stage FAN, ``backward`` of
+    them with their backward (a dgrad and a wgrad a stage)."""
+    return {'fan_conv_fwd': 4 * forward, 'fan_conv_dgrad': 4 * backward,
+            'fan_conv_wgrad': 4 * backward}
+
+
+# K1's and K5's launches by shape on the paths of this process: what each
+# window from zero_counts to read_counts launched, each launch once
+PATH_SIZES = {name: collections.Counter() for name in ('jpeg8x8', *K5_COUNTERS)}
+_TALLIED = {name: collections.Counter() for name in PATH_SIZES}
+K1_PATH_SIZES = PATH_SIZES['jpeg8x8']
 
 
 def zero_counts():
@@ -651,20 +765,32 @@ def zero_counts():
         wrapper.launches = 0
         if hasattr(wrapper, 'sizes'):
             wrapper.sizes.clear()
-    _K1_TALLIED.clear()
+    for tallied in _TALLIED.values():
+        tallied.clear()
 
 
 def read_counts():
-    sizes = jpeg8x8.jpeg_core_cuda.sizes
-    K1_PATH_SIZES.update(sizes - _K1_TALLIED)
-    _K1_TALLIED.clear()
-    _K1_TALLIED.update(sizes)
+    for name, tallied in _TALLIED.items():
+        sizes = COUNTERS[name].sizes
+        PATH_SIZES[name].update(sizes - tallied)
+        tallied.clear()
+        tallied.update(sizes)
     return {name: wrapper.launches for name, wrapper in COUNTERS.items()}
 
 
 def expect_counts(path, counts, expected):
-    """Fail unless the path launched exactly ``expected`` of each kernel."""
-    if counts != {name: expected.get(name, 0) for name in COUNTERS}:
+    """Fail unless the path launched exactly ``expected`` of each kernel. K5's
+    counts are held exactly where ``expected`` names them; elsewhere they have
+    to be whole passes of a 4-stage FAN, no stage's backward more often than
+    its forward."""
+    want = {name: expected.get(name, 0) for name in COUNTERS}
+    if not any(name in expected for name in K5_COUNTERS):
+        fan = {name: counts[name] for name in K5_COUNTERS}
+        if (any(n % 4 for n in fan.values())
+                or max(fan['fan_conv_dgrad'], fan['fan_conv_wgrad']) > fan['fan_conv_fwd']):
+            raise AssertionError(f'{path}: K5 launches {fan} are not whole FAN passes')
+        want.update(fan)
+    if counts != want:
         raise AssertionError(f'{path}: launches {counts}, expected {expected}')
 
 
@@ -721,8 +847,9 @@ def main_path_training(args, device):
         if launched != 2:
             raise AssertionError(f'training step {i} launched K1 {launched} times, expected 2')
     counts = read_counts()
+    n_steps = TRAIN_STEPS + TRAIN_AUGMENTED_STEPS
     expect_counts('main-path training', counts,
-                  {'jpeg8x8': 2 * (TRAIN_STEPS + TRAIN_AUGMENTED_STEPS)})
+                  {'jpeg8x8': 2 * n_steps, **fan_passes(n_steps, n_steps)})
     flow.assert_finite()
     if not all(np.isfinite(v) for step in losses for v in step.values()):
         raise AssertionError(f'non-finite training losses {losses}')
@@ -735,15 +862,16 @@ def main_path_training(args, device):
     print(f'[train] median step {1e3 * median:.2f} ms: {1 / median:.2f} steps/s, '
           f'{args.batch / median:.1f} raw patches/s; augmented steps '
           f'{", ".join(f"{1e3 * t:.2f}" for t in times[True])} ms; K1 launches a step '
-          f'{counts["jpeg8x8"] / (TRAIN_STEPS + TRAIN_AUGMENTED_STEPS):g}; largest parameter '
-          f'change {moved}', flush=True)
+          f'{counts["jpeg8x8"] / n_steps:g}, K5 launches a step '
+          f'{[counts[k] / n_steps for k in K5_COUNTERS]}; largest parameter change {moved}',
+          flush=True)
     return counts, {'batch': args.batch, 'raw_patch': RAW_PATCH, 'lambda_nip': TRAIN_LAMBDA_NIP,
                     'lr': TRAIN_LR, 'step_ms': [1e3 * t for t in times[False]],
                     'augmented_step_ms': [1e3 * t for t in times[True]],
                     'median_ms': 1e3 * median, 'steps_per_s': 1 / median,
                     'raw_patches_per_s': args.batch / median,
-                    'k1_launches_per_step': counts['jpeg8x8'] / (TRAIN_STEPS
-                                                                 + TRAIN_AUGMENTED_STEPS),
+                    'k1_launches_per_step': counts['jpeg8x8'] / n_steps,
+                    'k5_launches_per_step': {k: counts[k] / n_steps for k in K5_COUNTERS},
                     'losses': losses, 'largest_change': moved,
                     'cpu_first_step': agreement}
 
@@ -815,7 +943,7 @@ def bf16_training(args, device):
         loss, parts = timed(flow, 'bf16 augment', *batches[1 + i], augment=True)
         bf16_counts = {k: bf16_counts[k] + v - before_k1[k] for k, v in read_counts().items()}
         losses.append({'loss': float(loss), **{k: float(v) for k, v in parts.items()}})
-    expect_counts('bf16 training (bench.py configuration)', bf16_counts, {})
+    expect_counts('bf16 training (bench.py configuration)', bf16_counts, NO_K5)
     flow.assert_finite()
     f32.assert_finite()
     if not all(np.isfinite(v) for step in losses for v in step.values()):
@@ -1621,8 +1749,8 @@ def dcn_flow_phase(args, device):
                                               side)).to(device)
                for i in range(TRAIN_STEPS + 1)]
     bx = batches[0]
-    per_request = {'jpeg8x8': 1, 'codebook_fwd': 1}
-    per_step = {'jpeg8x8': 1, 'codebook_fwd': 1, 'codebook_bwd': 1}
+    per_request = {'jpeg8x8': 1, 'codebook_fwd': 1, **fan_passes(1)}
+    per_step = {'jpeg8x8': 1, 'codebook_fwd': 1, 'codebook_bwd': 1, **fan_passes(1, 1)}
 
     # requests, at the flow's initial weights, against the CPU's forward
     flow.run_workflow_to_decisions(bx)                    # warm-up (cuDNN autotuning)
@@ -1721,7 +1849,8 @@ def dcn_flow_phase(args, device):
         frozen_times.append(time.perf_counter() - t0)
     frozen_counts = read_counts()
     expect_counts('DCN flow, frozen codec', frozen_counts,
-                  {'jpeg8x8': DCN_FLOW_FROZEN_STEPS, 'codebook_fwd': DCN_FLOW_FROZEN_STEPS})
+                  {'jpeg8x8': DCN_FLOW_FROZEN_STEPS, 'codebook_fwd': DCN_FLOW_FROZEN_STEPS,
+                   **fan_passes(DCN_FLOW_FROZEN_STEPS, DCN_FLOW_FROZEN_STEPS)})
     frozen.assert_finite()
     print(f'[dcn flow] frozen codec: steps {", ".join(f"{1e3 * t:.2f}" for t in frozen_times)} '
           f'ms; launches {frozen_counts}', flush=True)
@@ -3400,7 +3529,8 @@ def tooling_phase(args, device, medians_ms):
             diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
             if not diff <= MAX_EXPORT_DIFF or not all(bool(torch.isfinite(a).all()) for a in got):
                 raise AssertionError(f'exported {name} differs from the model by {diff}')
-            expected = {'codebook_fwd': 1} if name == DCN_PRESET else {}
+            expected = {DCN_PRESET: {'codebook_fwd': 1}, 'fan': fan_passes(1)}.get(name, {})
+            expected = {k: v for k, v in expected.items() if v}
             if launched != expected:
                 raise AssertionError(f'exported {name} launched {launched}, expected {expected}')
             exports[name] = {'input_shape': list(shape), 'export_s': export_s,
@@ -3544,7 +3674,7 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    libraries = _build.build([jpeg8x8.LIBRARY, codebook.LIBRARY])
+    libraries = _build.build([jpeg8x8.LIBRARY, codebook.LIBRARY, fan_conv.LIBRARY])
     ans = entropy.build()
     print(f'[build] {len(libraries)} kernel libraries and {ans.name} in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
@@ -3591,6 +3721,7 @@ def main():
     # ends part-way through its last step
     k1_edges = [check_k1(f'edge P={p} {h}x{w}', *k1_inputs(p, h, w, 50, gen, device), args.reps,
                          flush) for p, h, w in K1_EDGE_SHAPES]
+    k5 = check_fan_conv(args.reps, flush, gen, device)
 
     # 4. manipulation classification
     batches = [synthetic_raw(args.seed + i, args.batch, RAW_PATCH) for i in range(args.requests)]
@@ -3610,7 +3741,8 @@ def main():
         if launched != 2:
             raise AssertionError(f'request {i} launched K1 {launched} times, expected 2')
     slice_counts = read_counts()
-    expect_counts('manipulation classification', slice_counts, {'jpeg8x8': 2 * args.requests})
+    expect_counts('manipulation classification', slice_counts,
+                  {'jpeg8x8': 2 * args.requests, **fan_passes(args.requests)})
     median = float(np.median(latencies))
     print(f'[slice] median request {1e3 * median:.2f} ms: {args.batch / median:.1f} raw patches/s, '
           f'{n_rows / median:.1f} classified images/s', flush=True)
@@ -3760,6 +3892,23 @@ def main():
                         'max_abs_err': max(c['max_abs_err'] for c in checked),
                         'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                         'bound_by': r['bound_by'], 'library_ms': None})
+    for stage in ('fwd', 'dgrad', 'wgrad'):
+        name = f'fan_conv_{stage}'
+        main_shapes = [r for r in k5 if r['n'] == FAN_ROWS[0]]
+        kernels.append({'name': name, 'route': 'cuda',
+                        'source': 'neural_imaging_tpu_torch/csrc/fan_conv.cu', 'replaces': None,
+                        'launches': (sum(PATH_SIZES[name].values())
+                                     + sum(c[name] for c in parallel_rank_counts)),
+                        'parallel_launches_per_rank': [c[name] for c in parallel_rank_counts],
+                        'sizes': {'x'.join(map(str, shape)): count
+                                  for shape, count in sorted(PATH_SIZES[name].items())},
+                        'norm_rel_err': max(r[stage]['norm_rel_err'] for r in k5),
+                        'ms': sum(r[stage]['ms'] for r in main_shapes),
+                        'plain_ms': sum(r[stage]['plain_ms'] for r in main_shapes),
+                        'bound_ms': sum(r[stage]['bound_ms'] for r in main_shapes),
+                        'bound_by': 'operations',
+                        'library_ms': sum(r[f'library_{"fwd" if stage == "fwd" else "bwd"}_ms']
+                                          for r in main_shapes)})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}))

@@ -32,6 +32,7 @@ from torch import nn
 
 from neural_imaging_tpu_torch.models.base import TorchModel, flax_default_init
 from neural_imaging_tpu_torch.ops import ops
+from neural_imaging_tpu_torch.ops.hopper import fan_conv
 from neural_imaging_tpu_torch.ops.kernels import center_mask_2dfilter, repeat_2dfilter
 from neural_imaging_tpu_torch.utils import prng
 from neural_imaging_tpu_torch.utils.paramspec import ParamSpec
@@ -103,6 +104,7 @@ class FANCore(nn.Module):
         if stem == 'fused' and n_convolutions < 1:
             raise ValueError("stem='fused' requires n_convolutions >= 1")
         self.act = ops.ACTIVATIONS[activation]
+        self.activation = activation
         self.use_gap = use_gap
         self.n_convolutions = n_convolutions
         self.n_dense = n_dense
@@ -137,6 +139,29 @@ class FANCore(nn.Module):
             dense(f'dense{i}', features, nf)
             features = nf
         dense('head', features, n_classes)
+
+    def conv_path(self, device, dtype, height=None, width=None):
+        """'kernel' where the conv stages take K5 for a batch on ``device`` of
+        ``dtype`` (and, where given, of ``height`` x ``width``), else 'plain'.
+        K5 takes a float32 FAN of 5x5 leaky-ReLU stages of its widths on a
+        CUDA batch, every stage but the fused stem's first, where each such
+        stage's sides are even."""
+        start = 1 if self.stem == 'fused' else 0
+        stages = [getattr(self, f'conv{i}') for i in range(start, self.n_convolutions)]
+        if not (torch.device(device).type == 'cuda' and dtype == torch.float32
+                and self.compute_dtype == torch.float32 and self.activation == 'leaky_relu'
+                and stages and all(c.kernel_size[0] == c.kernel_size[1]
+                                   and fan_conv.supports(c.in_channels, c.out_channels,
+                                                         c.kernel_size[0]) for c in stages)):
+            return 'plain'
+        if height is not None and width is not None:
+            if start:
+                height, width = height // 2, width // 2
+            for _ in stages:
+                if height % 2 or width % 2 or height < 2 or width < 2:
+                    return 'plain'
+                height, width = height // 2, width // 2
+        return 'kernel'
 
     def _conv(self, layer, h):
         if self.compute_dtype == torch.float32:
@@ -173,12 +198,19 @@ class FANCore(nn.Module):
         """Class probabilities of an NCHW batch; with ``dropout_masks`` (one
         boolean mask a dense layer, ``dropout_shapes``) dropout is applied
         after each dense layer."""
+        kernel = self.conv_path(x.device, x.dtype, x.shape[-2], x.shape[-1]) == 'kernel'
+        if kernel:
+            x = x.contiguous()      # K5 takes NCHW: the layout the filter's output keeps
         if self.stem == 'fused':
             h, start = self._fused_stem(x), 1
         else:
             h, start = self.constrained(x).to(self.compute_dtype), 0
         for i in range(start, self.n_convolutions):
-            h = ops.max_pool(self.act(self._conv(getattr(self, f'conv{i}'), h)), 2)
+            layer = getattr(self, f'conv{i}')
+            if kernel:
+                h = fan_conv.fan_conv_stage(h, layer.weight, layer.bias)
+            else:
+                h = ops.max_pool(self.act(self._conv(layer, h)), 2)
         h = self.act(self._conv(self.proj, h))
         if self.use_gap:
             # jnp.mean of bfloat16 sums and divides in float32, rounds once

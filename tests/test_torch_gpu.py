@@ -5,7 +5,9 @@ one; on a GPU machine, which has no JAX, run them without the JAX conftest:
 
 Each kernel is held against its plain PyTorch version on the same inputs,
 with the tolerance of ``jpeg8x8.check_cores`` (K1) and of
-``codebook.check_forward`` / ``codebook.check_backward`` (K2-K4)."""
+``codebook.check_forward`` / ``codebook.check_backward`` (K2-K4); K5 (the
+FAN's conv stages) against a float64 evaluation, beside cuDNN's float32 and
+TF32 compositions."""
 import os
 
 import numpy as np
@@ -628,3 +630,192 @@ def test_exported_dcn_launches_k2_on_the_card(cuda, tmp_path):
     with torch.no_grad():
         y_ref, entropy_ref = dcn.serve(x)
     assert float((y - y_ref).abs().max()) <= 1e-5 and float(abs(entropy - entropy_ref)) <= 1e-5
+
+
+# -- K5: the FAN's fused conv stages ----------------------------------------------
+
+FAN_STAGES = [(3, 32, 128), (32, 64, 64), (64, 128, 32), (128, 256, 16)]
+
+
+def fan_stage_inputs(seed, n, c_in, c_out, side, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, c_in, side, side), generator=g, device=device)
+    w = torch.randn((c_out, c_in, 5, 5), generator=g, device=device) / (5 * c_in ** 0.5)
+    b = torch.randn((c_out,), generator=g, device=device) * 0.1
+    dy = torch.randn((n, c_out, side // 2, side // 2), generator=g, device=device)
+    return x, w, b, dy
+
+
+def fan_stage_plain(x, w, b, dy, code):
+    """The plain stage's output and gradients, through the given code."""
+    from neural_imaging_tpu_torch.ops.hopper import fan_conv
+    return {'y': fan_conv.fan_conv_fwd_plain(x, w, b)[0],
+            'dx': fan_conv.fan_conv_dgrad_plain(dy, code, w),
+            **dict(zip(('dw', 'db'), fan_conv.fan_conv_wgrad_plain(dy, code, x)))}
+
+
+def norm_error(a, ref):
+    return float((a.double() - ref).norm() / ref.norm())
+
+
+@pytest.mark.parametrize('n', [100, 50, 2])
+@pytest.mark.parametrize('c_in,c_out,side', FAN_STAGES)
+def test_fan_conv_is_float32_at_every_stage_shape(cuda, n, c_in, c_out, side):
+    """K5's output and gradients against a float64 evaluation of the same
+    stage, by their norms: at most 1e-5 (K5 reads under 1e-6), at most 2x the
+    error of cuDNN's float32 composition (TF32 off) and at least 10x below the
+    same composition in TF32, so no TF32 got in. The fixed bound holds where
+    cuDNN's float32 error is large (its wgrad takes an FFT at conv1 and conv2,
+    ~1e-2 by norm, and cuDNN takes no TF32 path there) and where it takes no
+    TF32 path (the stem's 3 channels; db, a plain sum). The gradients go
+    through K5's code in every evaluation; its code is max_pool2d's but at
+    near-ties of the float32 sums."""
+    from neural_imaging_tpu_torch.ops.hopper import fan_conv
+    from neural_imaging_tpu_torch.utils.device import resolve_device
+    resolve_device('cuda')
+    x, w, b, dy = fan_stage_inputs(c_in * n + side, n, c_in, c_out, side, cuda)
+    y, code = fan_conv.fan_conv_fwd_cuda(x, w, b)
+    k5 = {'y': y, 'dx': fan_conv.fan_conv_dgrad_cuda(dy, code, w),
+          **dict(zip(('dw', 'db'), fan_conv.fan_conv_wgrad_cuda(dy, code, x)))}
+    exact = fan_stage_plain(x.double(), w.double(), b.double(), dy.double(), code)
+    f32 = fan_stage_plain(x, w, b, dy, code)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = fan_stage_plain(x, w, b, dy, code)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert float((code != fan_conv.fan_conv_fwd_plain(x, w, b)[1]).float().mean()) < 1e-4
+    for k in k5:
+        e_k5, e_f32, e_tf32 = (norm_error(v[k], exact[k]) for v in (k5, f32, tf32))
+        assert e_k5 <= 1e-5, (k, e_k5)
+        assert e_k5 <= 2 * e_f32, (k, e_k5, e_f32)
+        if e_tf32 > 10 * e_f32:       # cuDNN took TF32
+            assert 10 * e_k5 <= e_tf32, (k, e_k5, e_tf32)
+
+
+def test_fan_conv_breaks_ties_zeros_and_nans_as_the_composition(cuda):
+    """Planted ties: over a zero input the 4 pre-activations of a window are
+    its bias exactly (0 for every third channel), and the first position wins;
+    a NaN input gives max_pool2d's NaNs and winners. The gradients agree with
+    the plain versions; the wgrad's NaNs lie where the dense sums' do."""
+    from neural_imaging_tpu_torch.ops.hopper import fan_conv
+    x, w, b, dy = fan_stage_inputs(11, 4, 32, 64, 32, cuda)
+    x[0, :, :16, :16] = 0.0
+    b[::3] = 0.0
+    x[1, 5, 20, 7] = float('nan')
+    y, code = fan_conv.fan_conv_fwd_cuda(x, w, b)
+    y_p, code_p = fan_conv.fan_conv_fwd_plain(x, w, b)
+    tied = code[0, :, 1:6, 1:6]
+    assert bool(((tied & 3) == 0).all())
+    assert torch.equal((tied & 4) != 0, (b >= 0)[:, None, None].expand_as(tied))
+    assert torch.equal(y[0, :, 1:6, 1:6], y_p[0, :, 1:6, 1:6])
+    assert torch.equal(y.isnan(), y_p.isnan()) and bool(y[1].isnan().any())
+    nan_windows = y_p.isnan()
+    assert torch.equal(code[nan_windows], code_p[nan_windows])
+    dx = fan_conv.fan_conv_dgrad_cuda(dy, code, w)
+    torch.testing.assert_close(dx, fan_conv.fan_conv_dgrad_plain(dy, code, w),
+                               rtol=1e-4, atol=1e-5, equal_nan=True)
+    # the weight gradient against a float64 evaluation: cuDNN's float32 wgrad
+    # takes an FFT algorithm at some of these shapes, whose error is ~1e-2
+    dw, db = fan_conv.fan_conv_wgrad_cuda(dy, code, x)
+    dw_p, db_p = fan_conv.fan_conv_wgrad_plain(dy.double(), code, x.double())
+    assert bool(dw.isnan().any()) and bool((dw.isnan() <= dw_p.isnan()).all())
+    finite = ~dw_p.isnan()
+    torch.testing.assert_close(dw[finite].double(), dw_p[finite], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(db.double(), db_p, rtol=1e-4, atol=1e-5)
+
+
+def test_fan_conv_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from neural_imaging_tpu_torch.ops.hopper import fan_conv
+    x, w, b, dy = fan_stage_inputs(12, 2, 32, 64, 16, cuda)
+    with pytest.raises(TypeError, match='float32'):
+        fan_conv.fan_conv_fwd_cuda(x.to(torch.bfloat16), w, b)
+    with pytest.raises(ValueError, match='5x5'):
+        fan_conv.fan_conv_fwd_cuda(x, w[:, :, 1:4, 1:4].contiguous(), b)
+    with pytest.raises(ValueError, match='even sides'):
+        fan_conv.fan_conv_fwd_cuda(x[:, :, :15].contiguous(), w, b)
+    with pytest.raises(ValueError, match='CUDA'):
+        fan_conv.fan_conv_fwd_cuda(x.cpu(), w.cpu(), b.cpu())
+    with pytest.raises(ValueError, match='contiguous'):
+        fan_conv.fan_conv_fwd_cuda(x.transpose(2, 3), w, b)
+    code = fan_conv.fan_conv_fwd_cuda(x, w, b)[1]
+    with pytest.raises(ValueError, match='one CUDA device'):
+        fan_conv.fan_conv_dgrad_cuda(dy, code, w.cpu())
+    with pytest.raises(TypeError, match='float32'):
+        fan_conv.fan_conv_wgrad_cuda(dy.to(torch.bfloat16), code, x)
+
+
+@pytest.mark.parametrize('kernel', ['fan_conv_fwd', 'fan_conv_dgrad', 'fan_conv_wgrad'])
+def test_fan_conv_operators_launch_the_kernels(cuda, kernel):
+    """Each K5 operator launches its kernel once (its counter, by shape) and
+    gives the launcher's results; FlopCounterMode and the byte counter see it
+    with its work."""
+    from neural_imaging_tpu_torch.ops.hopper import fan_conv, registry
+    from neural_imaging_tpu_torch.utils import profiling
+    x, w, b, dy = fan_stage_inputs(13, 3, 64, 128, 32, cuda)
+    code = fan_conv.fan_conv_fwd_cuda(x, w, b)[1]
+    args = {'fan_conv_fwd': (x, w, b), 'fan_conv_dgrad': (dy, code, w),
+            'fan_conv_wgrad': (dy, code, x)}[kernel]
+    launcher = getattr(fan_conv, f'{kernel}_cuda')
+    op, work = registry.OPS[kernel]
+    before, at_shape = launcher.launches, launcher.sizes[(3, 64, 128, 32, 32)]
+    got, want = op(*args), launcher(*args)
+    torch.cuda.synchronize()
+    assert launcher.launches == before + 2
+    assert launcher.sizes[(3, 64, 128, 32, 32)] == at_shape + 2
+    for a, c in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, c)
+    cost = profiling.step_cost(lambda: op(*args))
+    shapes = [a.shape for a in args]
+    assert cost['flops_by_kernel'] == {kernel: work(*shapes)[0]}
+    assert cost['bytes_accessed'] == work(*shapes)[1]
+
+
+def test_m_quality_step_and_request_launch_k5_on_the_card(cuda):
+    """A step of the shipped m_quality flow at full width launches 4 forward,
+    4 dgrad and 4 wgrad stages of K5 (the FAN's input gradient feeds the
+    constrained filter and the ISP), a request 4 forward stages and nothing
+    else; the FAN's device time stays inside the step."""
+    import chip_smoke
+    from neural_imaging_tpu_torch.ops.hopper import fan_conv
+    from neural_imaging_tpu_torch.workflows.manipulation_classification import (
+        ManipulationClassification)
+    run = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       chip_smoke.RUN_DIR)
+    flow = ManipulationClassification.restore(run, 128, trainable={'nip'}, device=cuda)
+    (bx, by), = chip_smoke.training_batches(5, 1, 20)
+    counters = (fan_conv.fan_conv_fwd_cuda, fan_conv.fan_conv_dgrad_cuda,
+                fan_conv.fan_conv_wgrad_cuda)
+    before = [f.launches for f in counters]
+    loss, parts = flow.training_step(bx, by, 0.1)
+    torch.cuda.synchronize()
+    assert [f.launches - k for f, k in zip(counters, before)] == [4, 4, 4]
+    assert all(np.isfinite(float(v)) for v in (loss, *parts.values()))
+    sizes = dict(fan_conv.fan_conv_fwd_cuda.sizes)
+    assert all(sizes.get(s, 0) >= 1 for s in [(100, 3, 32, 128, 128), (100, 32, 64, 64, 64),
+                                              (100, 64, 128, 32, 32), (100, 128, 256, 16, 16)])
+    before = [f.launches for f in counters]
+    flow.run_workflow_to_decisions(bx)
+    torch.cuda.synchronize()
+    assert [f.launches - k for f, k in zip(counters, before)] == [4, 0, 0]
+
+
+def test_exported_fan_launches_k5_on_the_card(cuda, tmp_path):
+    """deploy_model of the FAN on the card: the program holds K5's forward
+    operator, reloads, launches it 4 times a call and gives the model's output."""
+    from neural_imaging_tpu_torch.models import forensics
+    from neural_imaging_tpu_torch.ops.hopper import fan_conv
+    fan = forensics.FAN(n_classes=5, patch_size=128, device=cuda)
+    fan.deploy_model(str(tmp_path / 'fan'), batch_size=2, patch_size=128)
+    program = torch.export.load(str(tmp_path / 'fan' / 'model.pt2'))
+    assert sum('fan_conv_fwd' in str(n.target) for n in program.graph.nodes) == 4
+    x = torch.rand((2, 128, 128, 3), generator=torch.Generator().manual_seed(6)).to(cuda)
+    before = fan_conv.fan_conv_fwd_cuda.launches
+    with torch.no_grad():
+        p = program.module()(x)
+    torch.cuda.synchronize()
+    assert fan_conv.fan_conv_fwd_cuda.launches == before + 4
+    with torch.no_grad():
+        p_ref = fan.serve(x)
+    assert float((p - p_ref).abs().max()) <= 1e-6

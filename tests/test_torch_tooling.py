@@ -25,7 +25,7 @@ from torch.utils.flop_counter import flop_registry
 from neural_imaging_tpu.utils import debugging as jdebugging
 from neural_imaging_tpu.utils import profiling as jprofiling
 from neural_imaging_tpu.utils import runtime as jruntime
-from neural_imaging_tpu_torch.ops.hopper import codebook, jpeg8x8, registry
+from neural_imaging_tpu_torch.ops.hopper import codebook, fan_conv, jpeg8x8, registry
 from neural_imaging_tpu_torch.utils import debugging, profiling, runtime
 from neural_imaging_tpu_torch.workflows.manipulation_classification import (
     ManipulationClassification)
@@ -126,6 +126,20 @@ def test_registered_formulas_are_the_old_bounds(kernel):
         p, h, w = 60, 256, 256
         shapes, old = ((p, h, w), (p, 8, 8)), ((4 * 16 + 3) * p * h * w,
                                                  4 * (3 * p * h * w + 64 * p + 64))
+    elif kernel.startswith('fan_conv'):
+        # K5 at conv1 of the m_quality FAN: the forward's dense products, the
+        # backward's products with the gradient's nonzero quarter
+        n, c_in, c_out, h, w = 100, 32, 64, 64, 64
+        x, wt, pooled = (n, c_in, h, w), (c_out, c_in, 5, 5), (n, c_out, h // 2, w // 2)
+        shapes = {'fan_conv_fwd': (x, wt, (c_out,)), 'fan_conv_dgrad': (pooled, pooled, wt),
+                  'fan_conv_wgrad': (pooled, pooled, x)}[kernel]
+        dense, quarter = 2 * n * h * w * c_in * c_out * 25, 2 * n * h * w * c_in * c_out * 25 // 4
+        old = {'fan_conv_fwd': (dense, 4 * (n * c_in * h * w + c_out * c_in * 25 + c_out)
+                                + 5 * n * c_out * h * w // 4),
+               'fan_conv_dgrad': (quarter, 5 * n * c_out * h * w // 4 + 4 * c_out * c_in * 25
+                                  + 4 * n * c_in * h * w),
+               'fan_conv_wgrad': (quarter, 5 * n * c_out * h * w // 4 + 4 * n * c_in * h * w
+                                  + 4 * (c_out * c_in * 25 + c_out))}[kernel]
     else:
         n, codes = 409_600, 32
         shapes = ((n,), (codes,)) if kernel == 'codebook_fwd' else ((n,), (n,), (codes,), (codes,))
@@ -143,6 +157,19 @@ def test_operators_fake_the_launchers_outputs(kernel):
     if kernel == 'jpeg8x8':
         out = packet(torch.empty(3, 16, 24, device='meta'), torch.empty(3, 8, 8, device='meta'))
         assert [(t.shape, t.dtype) for t in out] == [((3, 16, 24), torch.float32)] * 2
+        return
+    if kernel.startswith('fan_conv'):
+        x, w = torch.empty(5, 32, 16, 24, device='meta'), torch.empty(64, 32, 5, 5, device='meta')
+        dy = torch.empty(5, 64, 8, 12, device='meta')
+        code = torch.empty(5, 64, 8, 12, dtype=torch.uint8, device='meta')
+        args = {'fan_conv_fwd': (x, w, torch.empty(64, device='meta')),
+                'fan_conv_dgrad': (dy, code, w), 'fan_conv_wgrad': (dy, code, x)}[kernel]
+        out = packet(*args)
+        out = out if isinstance(out, tuple) else (out,)
+        want = {'fan_conv_fwd': [((5, 64, 8, 12), torch.float32), ((5, 64, 8, 12), torch.uint8)],
+                'fan_conv_dgrad': [((5, 32, 16, 24), torch.float32)],
+                'fan_conv_wgrad': [((64, 32, 5, 5), torch.float32), ((64,), torch.float32)]}[kernel]
+        assert [(tuple(t.shape), t.dtype) for t in out] == want
         return
     z, cb = torch.empty(777, device='meta'), torch.empty(32, device='meta')
     args = (z, cb) if kernel == 'codebook_fwd' else (z, z, cb, cb)
