@@ -17,8 +17,7 @@ import numpy as np
 import torch
 
 from benchmark import generator, judge, system
-from benchmark.entries.training_step import reference_leaves
-from benchmark.reference.joint_flow import JointFlow
+from benchmark.entries.training_step import reference
 
 
 class State:
@@ -26,10 +25,11 @@ class State:
 
 
 def kept_keys(config):
-    """What a sampled request keeps: 'Y' where the ISP computes, 'q' with a
-    learned codec, and always 'C' and 'probs'."""
+    """What a sampled request keeps: 'Y' where the ISP computes (its
+    reference is no ``IDENTITY``), 'q' with a learned codec, and always 'C'
+    and 'probs'."""
     keys = ['C', 'probs']
-    if config['flow']['nip'] != 'ONet':
+    if not getattr(system.reference_parts(config)['nip'][0], 'IDENTITY', False):
         keys.append('Y')
     if config['flow']['distribution']['compression'] == 'dcn':
         keys.append('q')
@@ -98,7 +98,7 @@ def program_side(s):
 
 
 def reference_side(s, fault=None):
-    ref = JointFlow(s.config, reference_leaves(s.config, s.handed, s.device), fault)
+    ref = reference(s.config, s.handed, s.device, fault)
     out = []
     with torch.no_grad():
         for i in sorted(s.kept):
@@ -117,6 +117,6 @@ def numbers(prog, ref):
 
 def reference_call(s):
     """One reference request at the cell's shapes, for the FLOP count."""
-    ref = JointFlow(s.config, reference_leaves(s.config, s.handed, s.device))
+    ref = reference(s.config, s.handed, s.device)
     with torch.no_grad():
         ref.forward(generator.nchw(s.pool[0][0], s.device))

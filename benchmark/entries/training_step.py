@@ -24,10 +24,8 @@ import time
 import torch
 
 from benchmark import generator, judge, system
+from benchmark.reference import by_name
 from benchmark.reference import dcn as dcn_ref
-from benchmark.reference import isp as isp_ref
-from benchmark.reference.joint_flow import JointFlow
-from benchmark.system import REPO
 
 CHECKED_STEPS = 3
 
@@ -37,17 +35,16 @@ class State:
 
 
 def reference_leaves(config, handed, device):
-    """The reference's starting leaves: the benchmark's FAN draws and the
-    snapshots the configuration names, read here."""
-    leaves = dict(handed)
-    weights = config.get('weights', {})
-    if 'nip' in weights:
-        leaves.update({f'nip/{k}': v for k, v in
-                       isp_ref.load_inet(REPO / weights['nip'], device).items()})
-    if 'dcn' in weights:
-        leaves.update({f'dcn/{k}': v for k, v in
-                       dcn_ref.load(REPO / weights['dcn'], device).items()})
-    return leaves
+    """The reference's starting leaves: the leaves drawn and handed to the
+    program, and the snapshots the configuration names, read here by each
+    part's reference (``system.snapshot_leaves``)."""
+    return {**handed, **system.snapshot_leaves(config, device)}
+
+
+def reference(config, handed, device, fault=None):
+    """The configuration's reference flow (the ``Flow`` of
+    ``reference/<config['reference']>.py``) on its starting leaves."""
+    return by_name.flow(config).Flow(config, reference_leaves(config, handed, device), fault)
 
 
 def setup(config, workload, seed, device, tamper=None):
@@ -132,10 +129,10 @@ def program_side(s):
 
 def reference_side(s, fault=None):
     """The reference's three steps from the same weights on the same batches
-    (``fault``: see ``JointFlow``), on the codewords ``s.codes`` where the
-    program's were kept (else its own), with each step's codewords and code
-    gap."""
-    ref = JointFlow(s.config, reference_leaves(s.config, s.handed, s.device), fault)
+    (``fault``: see the reference flow's ``Flow``), on the codewords
+    ``s.codes`` where the program's were kept (else its own), with each
+    step's codewords and code gap."""
+    ref = reference(s.config, s.handed, s.device, fault)
     start = {k: ref.leaves[k].clone() for k in s.start}
     batches = [(generator.nchw(x, s.device), None if y is None else generator.nchw(y, s.device))
                for x, y in s.pool[:CHECKED_STEPS]]
@@ -156,7 +153,7 @@ def numbers(prog, ref):
 def reference_call(s):
     """One reference call at the cell's shapes, for the FLOP count: the loss
     of a batch and its gradient."""
-    ref = JointFlow(s.config, reference_leaves(s.config, s.handed, s.device))
+    ref = reference(s.config, s.handed, s.device)
     x, y = s.pool[0]
     names = [k for k in ref.leaves if k.split('/')[0] in ref.trainable]
     for k in names:

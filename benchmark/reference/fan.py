@@ -43,22 +43,13 @@ def leaf_shapes(n_classes, n_filters=32, n_fscale=2.0, n_convolutions=4, kernel=
 
 
 def draw(shapes, generator, device):
-    """Leaves from one standard-normal draw on ``device``: each kernel
-    LeCun-normal (std 1/√fan_in), each bias 0, the constrained filter its
-    published initial value."""
-    kernels = [k for k in shapes if k.endswith('weight') and k != 'constrained.weight']
-    sizes = [int(np.prod(shapes[k])) for k in kernels]
-    z = torch.randn(sum(sizes), generator=generator, device=device)
-    leaves, start = {}, 0
-    for k, size in zip(kernels, sizes):
-        shape = shapes[k]
-        leaves[k] = z[start:start + size].reshape(shape) / float(np.prod(shape[1:])) ** 0.5
-        start += size
-    for k, shape in shapes.items():
-        if k.endswith('bias'):
-            leaves[k] = torch.zeros(shape, device=device)
+    """Leaves from one standard-normal draw on ``device``
+    (``ops.lecun_draw``: each kernel LeCun-normal, each bias 0), the
+    constrained filter its published initial value."""
+    leaves = ops.lecun_draw({k: v for k, v in shapes.items() if k != 'constrained.weight'},
+                            generator, device)
     leaves['constrained.weight'] = torch.as_tensor(constrained_init(), device=device)
-    return {k: leaves[k].contiguous() for k in shapes}
+    return {k: leaves[k] for k in shapes}
 
 
 def fan(x, leaves, n_convolutions=4, **_):

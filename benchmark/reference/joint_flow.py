@@ -8,14 +8,32 @@ its training step: cross-entropy of the class-major labels, plus λ_nip times
 the ISP's L2 loss on the 255 scale when the ISP trains, plus λ_dcn times the
 codec's 0.5·Σ(c - C)² + entropy_weight·H when the codec trains; one Adam step
 of every trainable leaf. Built from a configuration file's ``flow`` and
-``codec`` sections and from leaves that the benchmark hands it.
+``codec`` sections and from leaves that the benchmark hands it. The ISP and
+any manipulation outside the four of ``manipulations`` are found by name
+(``by_name``); the configuration's ``reference`` names this module, whose
+``Flow`` and ``parts`` the benchmark takes.
 """
 import torch
 import torch.nn.functional as F
 
-from benchmark.reference import dcn, isp, jpeg, manipulations
+from benchmark.reference import by_name, dcn, jpeg, manipulations
 from benchmark.reference import fan as fan_ref
 from benchmark.reference import ops
+
+
+def parts(config):
+    """{part: (its reference module, the arguments of its ``leaf_shapes``)}
+    of the flow's parts that hold leaves: 'nip', 'fan' and, with a learned
+    codec, 'dcn'. Every file the configuration names is found here, the
+    manipulations' too, so that a missing one fails at set-up."""
+    flow = config['flow']
+    for spec in flow['manipulations']:
+        manipulations.function(spec.split(':')[0])
+    out = {'nip': (by_name.isp(flow['nip']), flow.get('nip_args', {})),
+           'fan': (fan_ref, {'n_classes': len(flow['manipulations']) + 1, **flow['fan_args']})}
+    if flow['distribution']['compression'] == 'dcn':
+        out['dcn'] = (dcn, config.get('codec', {}))
+    return out
 
 
 class JointFlow:
@@ -27,6 +45,7 @@ class JointFlow:
         the first half of its rows, 'answer' turns the first row's
         probabilities round by one class where the FAN produces them."""
         self.flow = config['flow']
+        self.isp = parts(config)['nip'][0]
         self.codec_args = config.get('codec', {})
         self.training = config.get('training', {})
         self.leaves = {k: v.detach().clone() for k, v in leaves.items()}
@@ -39,18 +58,14 @@ class JointFlow:
         return {k[len(prefix):]: v for k, v in self.leaves.items() if k.startswith(prefix)}
 
     def forward(self, x, index=None):
-        """NCHW input (a Bayer stack, or RGB for an identity ISP) → {'Y' the
+        """NCHW input (what the ISP takes: a Bayer stack, or RGB) → {'Y' the
         developed RGB, 'c' the expanded and pooled batch, 'C' the channel's
         output, 'probs', and with a learned codec 'entropy', 'q' the quantized
         latent, 'index' its codeword indices, 'code_gap'}. ``index``: the
         codewords a judged program chose, taken in place of the reference's
         own (``dcn.quantize``)."""
         out = {}
-        if self.flow['nip'].split(':')[0] == 'ONet':
-            out['Y'] = x
-        else:
-            out['Y'] = isp.inet(x, self.part('nip'), self.flow.get('nip_args', {}).get(
-                'cfa_pattern', 'gbrg'))
+        out['Y'] = self.isp.develop(x, self.part('nip'), **self.flow.get('nip_args', {}))
         c = manipulations.expand(out['Y'], self.flow['manipulations'])
         distribution = self.flow['distribution']
         if distribution['downsampling'].startswith('pool'):
@@ -114,3 +129,6 @@ class JointFlow:
                            **{k: float(v.detach()) for k, v in parts.items()}})
         return losses, first, {k: self.leaves[k].detach().clone() for k in names}
 
+
+# the name the benchmark takes a reference flow by (``by_name.flow``)
+Flow = JointFlow

@@ -1,13 +1,15 @@
 """
 The reference manipulations at fixed strengths, on NCHW RGB in [0, 1]:
 sharpen (of H and V in tf.image's HSV), bilinear resampling down and back
-up (jax.image.resize's antialiased operator), Gaussian blur, JPEG.
+up (jax.image.resize's antialiased operator), Gaussian blur, JPEG; any
+other manipulation is found by name in ``manipulation_<name>.py``.
 """
 import functools
 
 import numpy as np
 import torch
 
+from benchmark.reference import by_name
 from benchmark.reference import jpeg as jpeg_ref
 from benchmark.reference import ops
 
@@ -99,10 +101,16 @@ def jpeg(x, quality=80):
 MANIPULATIONS = {'sharpen': sharpen, 'resample': resample, 'gaussian': gaussian, 'jpeg': jpeg}
 
 
+def function(name):
+    """A manipulation's reference: the table's, else ``apply`` of
+    ``manipulation_<name>.py`` (``by_name.manipulation``)."""
+    return MANIPULATIONS[name] if name in MANIPULATIONS else by_name.manipulation(name).apply
+
+
 def expand(y, specs):
     """[y] + each manipulation of ``specs`` ('name:strength'), class-major."""
     out = [y]
     for spec in specs:
         name, strength = spec.split(':')
-        out.append(MANIPULATIONS[name](y, float(strength)))
+        out.append(function(name)(y, float(strength)))
     return torch.cat(out, dim=0)

@@ -27,6 +27,25 @@ def precision(tf32):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+def lecun_draw(shapes, generator, device):
+    """Leaves {name: tensor} of ``shapes`` from one standard-normal draw on
+    ``device``, in the order of ``shapes``: each leaf of two or more axes
+    LeCun-normal (std 1/√fan_in, fan_in all axes but the first), each
+    one-axis leaf 0."""
+    kernels = [k for k, shape in shapes.items() if len(shape) > 1]
+    sizes = [int(np.prod(shapes[k])) for k in kernels]
+    z = torch.randn(sum(sizes), generator=generator, device=device)
+    leaves, start = {}, 0
+    for k, size in zip(kernels, sizes):
+        shape = shapes[k]
+        leaves[k] = z[start:start + size].reshape(shape) / float(np.prod(shape[1:])) ** 0.5
+        start += size
+    for k, shape in shapes.items():
+        if len(shape) == 1:
+            leaves[k] = torch.zeros(shape, device=device)
+    return {k: leaves[k].contiguous() for k in shapes}
+
+
 def hwio(kernel, device):
     """An HWIO numpy kernel as an OIHW float32 tensor on ``device``."""
     return torch.as_tensor(np.asarray(kernel, np.float32)).permute(3, 2, 0, 1).contiguous().to(

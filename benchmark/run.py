@@ -9,7 +9,10 @@ kernels built or reused in its checkout, weights and inputs made from the
 seed, the cell's shapes warmed up), a measured window of ``--seconds``, the
 judgement against the plain reference, and one JSON line as the last line of
 standard output. ``--trace 1`` adds a traced part after the window and
-prints the cell's per-layer metrics instead of its end-to-end ones.
+prints the cell's per-layer metrics instead of its end-to-end ones. A
+``--trace 0`` run whose end-to-end metrics read the device's busy time (a
+reader with ``TRACED = True``) traces the device alone over the cell's
+traced calls after the window, outside ``setup_s``.
 
 Everything is found by name: the cell in ``workloads/<cell>.json`` (its
 entry, warm-up, traced calls and the limits of its numbers), its traffic
@@ -197,6 +200,14 @@ def run(workload, seed, seconds, trace, device='cuda', overrides=None, tamper=No
                   codes=2 ** config.get('codec', {}).get('latent_bpf', 5), **window)
     if keep is not None:
         keep['ctx'] = ctx
+    kind = 'per_layer' if trace else 'end_to_end'
+    readers = {m['name']: importlib.import_module(f"benchmark.metrics.{reader_of(m['name'])}")
+               for m in metrics_of(manifest, kind, workload)}
+    if not trace and any(getattr(r, 'TRACED', False) for r in readers.values()):
+        from benchmark import trace as trace_mod
+        ctx.timeline = trace_mod.device_only_calls(entry, state, spec['trace_calls'], device)
+        if entry.close(state) is None:
+            failed = window['n_calls']
     if trace:
         from benchmark import kernel_timing, trace as trace_mod
         counters = program_counters()
@@ -220,18 +231,16 @@ def run(workload, seed, seconds, trace, device='cuda', overrides=None, tamper=No
     checks, within, missing = judge.verdict(numbers, spec['limits'])
     if keep is not None:
         keep['numbers'] = numbers
-    kind = 'per_layer' if trace else 'end_to_end'
     metrics = {}
     for m in metrics_of(manifest, kind, workload):
-        reader = importlib.import_module(f"benchmark.metrics.{reader_of(m['name'])}")
-        value = reader.read(ctx)
+        value = readers[m['name']].read(ctx)
         if value is not None:
             metrics[m['name']] = {'value': float(value), 'unit': m['unit']}
     result = {'correct': bool(within and failed == 0), 'attempted': window['n_calls'],
               'failed': failed, 'metrics': metrics,
               'device': {'platform': 'gpu' if device.type == 'cuda' else device.type,
                          'kind': name, 'count': 1, 'memory_peak_bytes': int(peak)}}
-    if ctx.timeline is not None:
+    if trace and ctx.timeline is not None:
         result['device'].update(busy_s=ctx.timeline.busy_s, window_s=ctx.timeline.window_s)
         result['breakdown'] = {'device_ops': ctx.timeline.top_ops(),
                                'idle_gaps': ctx.trace.top_gaps()}

@@ -47,11 +47,12 @@ def reference_imports():
 
 def test_the_reference_imports_nothing_of_the_port():
     tops = {name.split('.')[0] for name in reference_imports()}
-    assert tops <= {'numpy', 'torch', 'benchmark', 'contextlib', 'functools'}, tops
+    assert tops <= {'numpy', 'torch', 'benchmark', 'contextlib', 'functools', 'importlib'}, tops
     assert all(name.startswith('benchmark.reference') for name in reference_imports()
                if name.startswith('benchmark'))
     out = python('import sys; sys.path.insert(0, "."); '
                  'import benchmark.reference.joint_flow, benchmark.reference.ops; '
+                 'import benchmark.reference.isp_inet, benchmark.reference.isp_onet; '
                  'print(sorted({m.split(".")[0] for m in sys.modules} & '
                  '{"neural_imaging_tpu_torch", "neural_imaging_tpu", "jax"}))')
     assert out.returncode == 0 and out.stdout.strip() == '[]', out.stderr

@@ -9,7 +9,7 @@ import torch
 
 from benchmark import generator, run, system
 from benchmark.entries.training_step import reference_leaves
-from benchmark.reference import dcn, fan, isp, jpeg, manipulations
+from benchmark.reference import dcn, fan, isp, isp_inet, jpeg, manipulations
 from benchmark.reference.joint_flow import JointFlow
 
 TOL = 1e-5
@@ -44,7 +44,7 @@ def test_isp_agrees(m_quality):
     _, flow, ref = m_quality
     x = isp.mosaic(rgb(2, 32) ** 2.2)
     y = flow.nip.process(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-    assert close(y, isp.inet(x, ref.part('nip')))
+    assert close(y, isp_inet.develop(x, ref.part('nip')))
 
 
 def test_manipulations_agree(m_quality):

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from benchmark import run, trace
-from benchmark.metrics import device_idle_pct, fan_ms, nip_ms, step_mfu
+from benchmark.metrics import device_idle_pct, device_ms_per_sample, fan_ms, nip_ms, step_mfu
 
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
@@ -66,8 +66,9 @@ def test_window_union_gaps_and_layers():
 def test_readers_on_the_made_up_trace():
     t = trace.Trace(made_up_trace(), n_calls=2)
     ctx = run.Context(trace=t, timeline=t, reference_flops=1e3,
-                      peaks={'bf16_flops': 1e15})
+                      peaks={'bf16_flops': 1e15}, samples=4)
     assert device_idle_pct.read(ctx) == pytest.approx(60.0)
+    assert device_ms_per_sample.read(ctx) == pytest.approx(1e3 * 800e-9 / (2 * 4))
     assert nip_ms.read(ctx) == pytest.approx(2e-4) and fan_ms.read(ctx) == pytest.approx(2e-4)
     assert step_mfu.read(ctx) == pytest.approx(100 * 1e3 * 2 / 2000e-9 / 1e15)
 

@@ -46,8 +46,7 @@ def state_of(workload, seed, device, overrides=None):
     config = run.merge(config, (overrides or {}).get('config'))
     s = training_step.State()
     s.config, s.workload, s.device = config, spec, device
-    s.handed = system.fan_leaves(config, seed, device)
-    s.handed = {f'fan/{k}': v for k, v in s.handed.items()}
+    s.handed = system.drawn_leaves(config, seed, device)
     s.pool = generator.make_pool(spec['traffic'], seed, device)
     if spec['entry'] == 'training_step':
         leaves = training_step.reference_leaves(config, s.handed, device)

@@ -95,6 +95,22 @@ def _is_device(event):
         or event.name().startswith(('bench.', 'ProfilerStep', 'Optimizer.')))
 
 
+def device_only_calls(entry, state, n_calls, device):
+    """``n_calls`` calls traced with the device's operations alone, between
+    two spin kernels launched at their ends, as a ``Trace``; None off the
+    card."""
+    if device.type != 'cuda':
+        return None
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(n_calls):
+            entry.call(state)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize(device)
+    return Trace(prof.profiler.kineto_results.events(), n_calls)
+
+
 def traced_calls(entry, state, n_calls, layers, device):
     """Two traced runs of ``n_calls`` calls each: (the device alone, the device
     with the host's operators and the layers' marks), as ``Trace``s.
@@ -110,16 +126,7 @@ def traced_calls(entry, state, n_calls, layers, device):
     def sync():
         if cuda:
             torch.cuda.synchronize(device)
-    light = None
-    if cuda:
-        sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            for _ in range(n_calls):
-                entry.call(state)
-            torch.cuda._sleep(1000)
-            sync()
-        light = Trace(prof.profiler.kineto_results.events(), n_calls)
+    light = device_only_calls(entry, state, n_calls, device)
     marks = LayerMarks(layers)
     sync()
     try:
